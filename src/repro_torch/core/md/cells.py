@@ -142,6 +142,28 @@ def cell_counts(cell_i) -> torch.Tensor:
     return torch.sum(cell_i[..., 0] >= 0, dim=-1).to(torch.int32)
 
 
+def cell_levels(counts, quantum: int) -> torch.Tensor:
+    """Quantized per-cell occupancy levels ``ceil(count / quantum)``
+    (level 0 = empty cell); any leading dims."""
+    return torch.div(counts + (quantum - 1), quantum,
+                     rounding_mode="floor").to(torch.int32)
+
+
+def cell_bounds(pos, cell_i, big: float = 1e30):
+    """Per-cell position bounding boxes over valid slots.
+
+    ``pos`` (..., K, 3); returns ``(lo, hi)`` of shape (..., 3).  Empty
+    cells give inverted boxes at ``(+big, -big)``: finite sentinels, so
+    gap computations stay NaN-free and a pair touching an empty cell lands
+    beyond every cutoff.
+    """
+    valid = (cell_i[..., 0] >= 0)[..., None]
+    big = torch.full((), big, dtype=pos.dtype, device=pos.device)
+    lo = torch.amin(torch.where(valid, pos, big), dim=-2)
+    hi = torch.amax(torch.where(valid, pos, -big), dim=-2)
+    return lo, hi
+
+
 def cells_to_pool(cell_f, cell_i):
     """Flatten ``(B, cz, cy, cx, K, F)`` cell arrays into ``(B, P, F)``."""
     B = cell_f.shape[0]

@@ -1,12 +1,14 @@
 """MD time-stepping on one card over a virtual domain mesh.
 
-The port of the JAX package's ``core/md/engine.py`` with the dense force
-backend and the serialized step pipeline.  The step mirrors the paper's
-Algorithm 2 (GPU-resident skeleton):
+The port of the JAX package's ``core/md/engine.py`` with the dense and
+the pruned (``"sparse"`` / ``"pallas"``) force backends, the rolling
+inner prune and the serialized step pipeline.  The step mirrors the
+paper's Algorithm 2 (GPU-resident skeleton):
 
   1. kick-drift                         (velocity Verlet, first half)
   2. coordinate halo exchange           (``plan.fwd_local``)
-  3. non-bonded forces, local + halo    (``forces.compute_forces``)
+  3. non-bonded forces, local + halo    (``forces.compute_forces`` or the
+                                         pruned pair schedule)
   4. force halo exchange + accumulate   (``plan.rev_local``)
   5. final kick
 
@@ -18,14 +20,23 @@ the engine's device as a leading tensor dim:
   cell_i (Dz, Dy, Dx, cz, cy, cx, K, 2)  [atom id (-1 = empty), type]
   force  (Dz, Dy, Dx, cz, cy, cx, K, 3)  forces at t (the Verlet carry)
 
-The reference's other knobs (pruned force backends, the double-buffered
-pipeline, fused rebin, wire compression, tracing, fault injection,
-health monitors, the rolling prune) come with later slices of the port;
-asking for any of them raises ``NotImplementedError``.
+With a pruned backend the between-block work also re-prunes the pair
+worklist (:func:`pair_schedule.prune_local`) and the host reads its
+per-level histograms once per block to size the tier ladders; with
+``nstprune`` a block is a chain of sub-blocks, each opened by
+:func:`pair_schedule.roll_prune` on the device.  The rebin's force carry
+always takes the dense pass, as in the reference.
+
+The reference's other knobs (the double-buffered pipeline, fused rebin,
+the static ladder, wire compression, tracing, fault injection, health
+monitors) come with later slices of the port; asking for any of them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 
 import numpy as np
 import torch
@@ -36,6 +47,24 @@ from repro_torch.core.md import integrate
 from repro_torch.core.md.cells import choose_layout
 from repro_torch.core.md.domain import AXES, rebin
 from repro_torch.core.md.forces import compute_forces, stencil_pairs
+from repro_torch.core.md.pair_schedule import (
+    PAIR_BUCKET,
+    SLOT_QUANTUM,
+    PairSchedule,
+    force_backends,
+    get_force_backend,
+    inner_radius as default_inner_radius,
+    prepare_tiers,
+    prune_local,
+    prune_radius,
+    roll_prune,
+)
+from repro_torch.core.md.schedule_opt import (
+    bucket,
+    tier_cum,
+    tier_plan,
+    tier_rows,
+)
 from repro_torch.core.md.system import MDSystem
 from repro_torch.core.pipeline.step_pipeline import (
     PIPELINE_MODES,
@@ -47,9 +76,6 @@ from repro_torch.launch.mesh import DomainMesh
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
-
-# the reference's force backends; only "dense" is in this slice
-_FORCE_BACKENDS = ("dense", "sparse", "pallas")
 
 
 @dataclasses.dataclass
@@ -63,6 +89,8 @@ class RunState:
     cell_f: torch.Tensor
     cell_i: torch.Tensor
     force: torch.Tensor       # velocity-Verlet force carry (post-rebin)
+    sched: tuple | None       # (sel, tiers, tiers_inner); None = dense
+    disable: bool             # next block falls back to the outer ladder
     step: int                 # steps completed so far
     diags: list               # per-rebin migration diagnostics (ints)
 
@@ -90,9 +118,13 @@ class MDEngine:
                  force_backend: str = "dense",
                  capacity_safety: float = 2.2,
                  nstprune: int = 0,
+                 inner_radius: float | None = None,
+                 inner_safety: float = 1.5,
+                 pair_bucket: int = PAIR_BUCKET,
                  wire_dtype: str | None = None,
                  obs=None, trace: bool = False,
                  inject: bool = False, health: bool = False,
+                 static_ladder: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         if spec is None:
@@ -106,21 +138,24 @@ class MDEngine:
         if min(spec.widths) < 1:
             raise ValueError("MD halo widths must be >= 1 (the NB stencil "
                              "consumes one halo cell layer)")
-        if force_backend not in _FORCE_BACKENDS:
+        if force_backend not in force_backends():
             raise ValueError(f"unknown force backend {force_backend!r}; "
-                             f"available: {_FORCE_BACKENDS}")
+                             f"available: {force_backends()}")
+        if int(nstprune) < 0:
+            raise ValueError("nstprune must be >= 0 (0 disables the "
+                             "rolling inner prune)")
         later = "a later slice of the port"
         if pipeline != "off":
             _not_ported("pipeline", pipeline, "the step-pipeline slice")
         if overlap_rebin:
             _not_ported("overlap_rebin", overlap_rebin,
-                        "the step-pipeline slice")
-        if force_backend != "dense":
-            _not_ported("force_backend", force_backend,
-                        "the pruned pair-schedule slice")
-        if int(nstprune):
-            _not_ported("nstprune", nstprune,
-                        "the pruned pair-schedule slice")
+                        "the step-pipeline slice (it fuses the rebin, the "
+                        "pair-schedule prune and the nstprune sub-blocks "
+                        "into one block program)")
+        if static_ladder:
+            _not_ported("static_ladder", static_ladder,
+                        "the serving slice (the worst-case pair-schedule "
+                        "ladder of its replica buckets)")
         if wire_dtype is not None or spec.wire_dtype is not None:
             _not_ported("wire_dtype", wire_dtype or spec.wire_dtype,
                         "the wire-compression slice")
@@ -134,23 +169,67 @@ class MDEngine:
         self.system = system
         self.mesh = mesh
         self.pipeline_mode = pipeline
-        self.force_backend = force_backend
         self.dtype = _TORCH_DTYPE[system.pos.dtype]
         mesh_shape = tuple(mesh.shape[a] for a in AXES)
         self.axis_sizes = mesh_shape
         r_list = system.params.ff.r_cut * r_list_factor
         self.layout = choose_layout(system.box, mesh_shape, r_list,
                                     system.n_atoms, safety=capacity_safety)
+        if force_backend != "dense" and min(self.layout.global_cells) < 2:
+            # a pair schedule cannot tell a halo cell from its own periodic
+            # image here; the dense path masks self-image pairs by atom id
+            warnings.warn(
+                f"layout {self.layout.global_cells} has a single global "
+                f"cell along some dim; the {force_backend!r} pair "
+                "schedule degrades to the 'dense' force backend",
+                RuntimeWarning, stacklevel=2)
+            force_backend = "dense"
+        self.force_backend = force_backend
+        if force_backend == "dense":
+            nstprune = 0               # the dual list rides the schedule
+        self.nstprune = int(nstprune)
+        self.inner_safety = float(inner_safety)
+        self.pair_bucket = max(int(pair_bucket), 1)
+        if self.nstprune:
+            self.r_inner = float(
+                default_inner_radius(system.params, self.nstprune)
+                if inner_radius is None else inner_radius)
+            if self.r_inner < system.params.ff.r_cut:
+                raise ValueError(
+                    f"inner_radius {self.r_inner} < r_cut "
+                    f"{system.params.ff.r_cut}: the rolling prune would "
+                    "drop interacting pairs outright")
+        else:
+            self.r_inner = None
+        nstlist = int(system.params.nstlist)
+        if self.nstprune > nstlist:
+            # the one check of the reference's build-time verifier that
+            # this slice runs (the verifier itself comes later)
+            raise ValueError(
+                f"nstprune={self.nstprune} exceeds the nstlist block length "
+                f"{nstlist}: the rolling inner prune would never fire inside "
+                "a block — lower nstprune or raise params.nstlist")
         self.mig_cap = max(64, int(self.layout.pool * mig_frac))
-        n_dense = len(stencil_pairs()) * self.layout.n_local_cells
-        self._pair_stats = {
-            "n_pairs_dense": n_dense,
-            "k_capacity": self.layout.capacity,
-            "dense_slot_pairs": n_dense * self.layout.capacity ** 2,
-            "evaluated_slot_pairs": n_dense * self.layout.capacity ** 2,
-            "prune_ratio": 1.0,
-            "force_backend": force_backend,
-        }
+        self.pair_schedule = None
+        self.r_prune = prune_radius(system.params)
+        self._sched_exec = None     # (sel, tiers, tiers_inner) of last prune
+        self._inner_overflows = 0   # blocks whose refresh outgrew the ladder
+        # per-block (outer_rows, inner_rows) ladder sizes: inner < outer
+        # means the rolling prune shrank the evaluated schedule that block
+        self.sched_history: list[tuple[int, int]] = []
+        if force_backend != "dense":
+            self.pair_schedule = PairSchedule.build(self.layout)
+            self._pair_stats = self.pair_schedule.slot_pair_stats()
+        else:
+            n_dense = len(stencil_pairs()) * self.layout.n_local_cells
+            self._pair_stats = {
+                "n_pairs_dense": n_dense,
+                "k_capacity": self.layout.capacity,
+                "dense_slot_pairs": n_dense * self.layout.capacity ** 2,
+                "evaluated_slot_pairs": n_dense * self.layout.capacity ** 2,
+                "prune_ratio": 1.0,
+            }
+        self._pair_stats["force_backend"] = force_backend
         if spec.wrap_shift is None:
             ws = np.zeros((3, 4), system.pos.dtype)
             for d in range(3):
@@ -186,8 +265,20 @@ class MDEngine:
                                pipeline=self.pipeline_mode)
 
     def pair_stats(self) -> dict:
-        """Evaluated-slot-pair accounting per domain per step (dense)."""
-        return dict(self._pair_stats)
+        """Evaluated-slot-pair accounting of the latest pruned block, per
+        domain per step; ``prune_ratio`` is the dense-over-evaluated work
+        reduction (1.0 for the dense backend)."""
+        out = dict(self._pair_stats)
+        if self.nstprune:
+            # the live counter: a final block's overflow has no further
+            # rebin to record it in the snapshot above
+            out["inner_overflow_blocks"] = self._inner_overflows
+        if self.force_backend == "pallas":
+            # the reference reports whether its kernel fell back to the
+            # jnp twin; the port has no fallback (a CUDA tensor launches
+            # the kernel or raises), so the flag is always False
+            out["pallas_fallback"] = False
+        return out
 
     def overlap_stats(self) -> dict:
         """Per-step overlap model at this engine's pipeline mode."""
@@ -216,8 +307,8 @@ class MDEngine:
           + tuple(slice(0, n[d] + 1) for d in range(3))] = F_trim
         return F
 
-    def force_fn(self, cell_f, cell_i):
-        """One force pass on block tensors: coordinate halo -> forces ->
+    def _force_pass(self, cell_f, cell_i):
+        """Dense force pass on block tensors: coordinate halo -> forces ->
         force halo (paper Alg. 3/6); returns (forces, total PE)."""
         ext_f = self.plan.fwd_local(cell_f[..., :4])
         ext_i = self.plan.fwd_local(cell_i, wrap_shift=None)
@@ -226,6 +317,29 @@ class MDEngine:
                                     self.system.params.ff)
         f_local = self.plan.rev_local(self._pad_force(F_trim, ext_f.shape))
         return f_local, torch.sum(pe)
+
+    def _force_pass_sched(self, cell_f, cell_i, sel, tiers):
+        """Schedule-driven force pass (pruned backends)."""
+        ext_f = self.plan.fwd_local(cell_f[..., :4])
+        ext_i = self._trim_ext(self.plan.fwd_local(cell_i, wrap_shift=None))
+        batches = prepare_tiers(self.pair_schedule, ext_i,
+                                sel[..., :tier_rows(tiers)], tiers)
+        F_trim, pe = get_force_backend(self.force_backend)(
+            self._trim_ext(ext_f), ext_i, self.layout, self.system.params.ff,
+            sched=self.pair_schedule, batches=batches)
+        f_local = self.plan.rev_local(self._pad_force(F_trim, ext_f.shape))
+        return f_local, torch.sum(pe)
+
+    def force_fn(self, cell_f, cell_i):
+        """One force pass (halo fwd -> NB -> halo rev) on block tensors,
+        through the engine's force backend; the pruned backends use the
+        schedule of the latest rebin (a fresh prune when none exists)."""
+        if self.force_backend == "dense":
+            return self._force_pass(cell_f, cell_i)
+        if self._sched_exec is None:
+            self._refresh_schedule(cell_f, cell_i)
+        sel, tiers, _tiers_inner = self._sched_exec
+        return self._force_pass_sched(cell_f, cell_i, sel, tiers)
 
     # ---- step physics, split at the halo seams (StepFns) ---------------
 
@@ -250,9 +364,17 @@ class MDEngine:
             cell_f[..., :3] = pos_new
             return cell_f, vel_half, cell_f[..., :4]
 
+        backend_fn = get_force_backend(self.force_backend)
+        sched = self.pair_schedule
+
         def force(ext_f, ctx):
-            F_trim, pe = compute_forces(self._trim_ext(ext_f),
-                                        ctx["ext_i_trim"], layout, ff)
+            if "batches" in ctx:           # pruned: the block's tier batches
+                F_trim, pe = backend_fn(self._trim_ext(ext_f),
+                                        ctx["ext_i_trim"], layout, ff,
+                                        sched=sched, batches=ctx["batches"])
+            else:
+                F_trim, pe = compute_forces(self._trim_ext(ext_f),
+                                            ctx["ext_i_trim"], layout, ff)
             return self._pad_force(F_trim, ext_f.shape), {"pe": torch.sum(pe)}
 
         def finish(cell_f, vel_half, f_new, ctx):
@@ -276,10 +398,73 @@ class MDEngine:
                 "ext_i_trim": self._trim_ext(
                     self.plan.fwd_local(cell_i, wrap_shift=None))}
 
+    def _sched_ctx(self, ctx, sel, tiers):
+        """``ctx`` plus the tier batches of ``sel``'s first rows: the
+        block-constant gathers and scatter index of a (sub-)block."""
+        return {**ctx, "batches": prepare_tiers(
+            self.pair_schedule, ctx["ext_i_trim"],
+            sel[..., :tier_rows(tiers)], tiers)}
+
+    def block_sched(self, cell_f, cell_i, force, sel, n_steps: int, tiers,
+                    tiers_inner):
+        """Pruned-backend block; returns ``(cell_f, force, metrics,
+        overflow)``, the overflow an int32 scalar on the device.
+
+        With an inner ladder the block is a chain of ``nstprune``-step
+        sub-blocks: each starts with the rolling prune (a current-coordinate
+        re-partition of the outer prefix) and runs the step pipeline over
+        the inner ladder only.  The overflow counts survivors the static
+        ladder could not seat (0 = the inner approximation held).
+        """
+        ctx = self._block_ctx(cell_i)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if not tiers_inner:
+            cell_f, f_last, metrics = self.pipeline.run_local(
+                cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers))
+            return cell_f, f_last, metrics, zero
+        budget = torch.tensor(
+            tier_cum(tiers_inner, SLOT_QUANTUM, self.pair_schedule.levels),
+            dtype=torch.int32, device=self.device)
+        sel_exec = sel[..., :tier_rows(tiers)]
+        overflow, f_cur, chunks, done = zero, force, [], 0
+        while done < n_steps:
+            take = min(self.nstprune, n_steps - done)
+            # the done=0 refresh re-derives the partition the boundary
+            # prune already saw (same coordinates), as the reference does:
+            # sel stays outer-packed, so force_fn and the outer-ladder
+            # fallback stay valid on it
+            ext_f = self.plan.fwd_local(cell_f[..., :4])
+            sel_exec, cum_s = roll_prune(
+                self.pair_schedule, sel_exec, self._trim_ext(ext_f),
+                ctx["ext_i_trim"], self.r_inner)
+            overflow = torch.maximum(
+                overflow, torch.amax(torch.clamp(cum_s - budget, min=0)))
+            cell_f, f_cur, m = self.pipeline.run_local(
+                cell_f, f_cur, take,
+                self._sched_ctx(ctx, sel_exec, tiers_inner))
+            chunks.append(m)
+            done += take
+        metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+        return cell_f, f_cur, metrics, overflow
+
+    def do_prune(self, cell_f, cell_i):
+        """The between-block outer prune; the exec shapes must agree
+        across the mesh, so the histograms are the max over domains."""
+        ext_f = self.plan.fwd_local(cell_f[..., :4])
+        ext_i = self.plan.fwd_local(cell_i, wrap_shift=None)
+        sel, cum, cum_inner, occ = prune_local(
+            self.pair_schedule, self._trim_ext(ext_f), self._trim_ext(ext_i),
+            self.r_prune, r_inner=self.r_inner)
+        dims = (0, 1, 2)
+        return (sel, torch.amax(cum, dim=dims),
+                torch.amax(cum_inner, dim=dims), torch.amax(occ))
+
     def rebin_fn(self, cell_f, cell_i):
-        """Wrap, migrate, re-bin, then the force carry for the new bins."""
+        """Wrap, migrate, re-bin, then the force carry for the new bins
+        (always the dense pass, as in the reference, whatever the force
+        backend)."""
         new_f, new_i, diag = rebin(cell_f, cell_i, self.layout, self.mig_cap)
-        force, _pe = self.force_fn(new_f[..., :4], new_i)
+        force, _pe = self._force_pass(new_f[..., :4], new_i)
         force = torch.where(new_i[..., 0:1] >= 0, force,
                             torch.zeros((), dtype=force.dtype,
                                         device=force.device))
@@ -330,26 +515,111 @@ class MDEngine:
     def _host_diag(diag) -> dict:
         return {k: int(v.item()) for k, v in diag.items()}
 
-    def begin_run(self, state=None) -> RunState:
+    def _refresh_schedule(self, cell_f, cell_i, disable_inner: bool = False):
+        """Re-prune the pair worklist for the next block (nstlist cadence),
+        right after the rebin; None on the dense backend."""
+        if self.force_backend == "dense":
+            return None
+        sel, cum, cum_inner, occ = self.do_prune(cell_f, cell_i)
+        return self._bucket_exec(sel, cum, cum_inner, occ,
+                                 disable_inner=disable_inner)
+
+    def _bucket_exec(self, sel, cum, cum_inner, occ,
+                     disable_inner: bool = False):
+        """Host half of the prune: read the mesh-global histograms (one
+        read per block) and bucket them into the static tier ladders of
+        the next block.  ``disable_inner`` is the overflow fallback: one
+        block on the outer ladder after a refresh outgrew the inner one."""
+        M = self.pair_schedule.n_pairs
+        K = self.layout.capacity
+        L = cum.shape[0]
+        host = torch.cat([cum, cum_inner, occ.reshape(1).to(cum.dtype)]
+                         ).tolist()
+        cum, cum_inner, occ = host[:L], host[L:2 * L], int(host[2 * L])
+        n_keep = cum[0]
+        tiers = tier_plan(cum, self.pair_bucket, M, SLOT_QUANTUM, K)
+        tiers_inner = ()
+        if self.nstprune and not disable_inner:
+            # inner ladder: the rebin-time inner histogram, margined for
+            # drift until the next rebin, never above the outer one
+            cum_in = [min(int(math.ceil(ci * self.inner_safety)), co)
+                      for ci, co in zip(cum_inner, cum)]
+            tiers_inner = tier_plan(cum_in, self.pair_bucket, M,
+                                    SLOT_QUANTUM, K)
+        # what one global k_exec rectangle would have evaluated
+        global_kexec = bucket(cum[0], self.pair_bucket, M) * \
+            bucket(occ, SLOT_QUANTUM, K) ** 2 if cum[0] else 0
+        self._pair_stats = self.pair_schedule.slot_pair_stats(
+            tiers=tiers, tiers_inner=tiers_inner, n_keep=n_keep,
+            n_inner=cum_inner[0], max_occupancy=occ,
+            global_kexec_slot_pairs=global_kexec)
+        self._pair_stats.update({
+            "force_backend": self.force_backend,
+            "nstprune": self.nstprune,
+            "inner_radius": self.r_inner,
+            "inner_overflow_blocks": self._inner_overflows,
+            "inner_disabled": bool(self.nstprune and disable_inner),
+        })
+        outer_rows = tier_rows(tiers)
+        inner_rows = tier_rows(tiers_inner) if tiers_inner else outer_rows
+        self.sched_history.append((outer_rows, inner_rows))
+        self._sched_exec = (sel, tiers, tiers_inner)
+        return self._sched_exec
+
+    def _note_overflow(self, ovf) -> bool:
+        """Record a block's rolling-prune overflow scalar (one read per
+        block); True if the next block must use the outer ladder."""
+        if not self.nstprune or int(ovf) == 0:
+            return False
+        self._inner_overflows += 1
+        if self._inner_overflows == 1:
+            warnings.warn(
+                "rolling inner prune overflowed its tier ladder (more "
+                "survivors than the rebin-time sizing allowed); falling "
+                "back to the outer pair list for the next block — raise "
+                "inner_safety to avoid this", RuntimeWarning,
+                stacklevel=3)
+        return True
+
+    def begin_run(self, state=None, disable_inner: bool = False) -> RunState:
         """Open a block-loop run: bin (or adopt) the state, run the first
-        rebin, and return the live :class:`RunState`."""
+        rebin and prune, and return the live :class:`RunState`.
+        ``disable_inner=True`` starts the first block on the outer
+        ladder."""
         cell_f, cell_i = self.init_state() if state is None else state
         cell_f, cell_i, force, diag = self.rebin_fn(cell_f, cell_i)
-        return RunState(cell_f, cell_i, force, 0, [self._host_diag(diag)])
+        sched = self._refresh_schedule(cell_f, cell_i,
+                                       disable_inner=disable_inner)
+        return RunState(cell_f, cell_i, force, sched, bool(disable_inner), 0,
+                        [self._host_diag(diag)])
 
     def run_block(self, rs: RunState, take: int):
         """Advance one ``take``-step block on a live :class:`RunState`
         (mutated in place); returns the block's metrics on the device.
         No rebin runs inside a block."""
-        rs.cell_f, rs.force, m = self.pipeline.run_local(
-            rs.cell_f, rs.force, take, self._block_ctx(rs.cell_i))
+        if rs.sched is None:
+            rs.cell_f, rs.force, m = self.pipeline.run_local(
+                rs.cell_f, rs.force, take, self._block_ctx(rs.cell_i))
+        else:
+            sel, tiers, tiers_inner = rs.sched
+            rs.cell_f, rs.force, m, ovf = self.block_sched(
+                rs.cell_f, rs.cell_i, rs.force, sel, take, tiers,
+                tiers_inner)
+            # read the overflow now, not at the next boundary, so a final
+            # block's overflow is still counted and warned
+            rs.disable = self._note_overflow(ovf)
         rs.step += take
         return m
 
     def advance_schedule(self, rs: RunState):
-        """The between-block rebin / migration."""
+        """The between-block rebin / migration and pair-schedule prune."""
+        old_sched = rs.sched
         rs.cell_f, rs.cell_i, rs.force, diag = self.rebin_fn(rs.cell_f,
                                                              rs.cell_i)
+        rs.sched = self._refresh_schedule(
+            rs.cell_f, rs.cell_i,
+            disable_inner=old_sched is not None and rs.disable)
+        rs.disable = False
         rs.diags.append(self._host_diag(diag))
 
     def simulate(self, n_steps: int, state=None, collect: bool = True):

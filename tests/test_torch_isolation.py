@@ -56,6 +56,12 @@ def test_port_imports_and_steps_with_jax_blocked():
         "device='cpu')\n"
         "_, m, d = eng.simulate(2)\n"
         "assert m['pe'].shape == (2,) and d[0]['n_atoms'] == 300\n"
+        "eng = MDEngine(make_grappa_like(300, seed=11), "
+        "make_mesh((1, 1, 1), ('z', 'y', 'x')), "
+        "HaloSpec(('z', 'y', 'x'), (1, 1, 1), backend='pallas'), "
+        "force_backend='pallas', nstprune=1, device='cpu')\n"
+        "_, m, d = eng.simulate(2)\n"
+        "assert m['pe'].shape == (2,) and eng.sched_history\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

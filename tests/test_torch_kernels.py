@@ -241,3 +241,123 @@ def test_cuda_engine_runs_through_the_kernels(cuda_device):
     for k in ("pe", "ke"):
         assert np.abs(m[k] - cpu[0][k]).max() / np.abs(cpu[0][k]).max() < 1e-9
     assert d == ser[1] == cpu[1]
+
+
+# ---- nonbonded: pair_forces and scatter_accum on the card ------------------
+
+def _nb_batch(rng, N, K, dtype, device):
+    """N cell pairs of up to K atoms on jittered lattices (atoms >= ~0.7
+    apart, pairs across the cutoff), with empty, full and self pairs."""
+    site = np.stack(np.meshgrid(np.arange(4), np.arange(6), np.arange(5),
+                                indexing="ij"), -1).reshape(-1, 3)[:K]
+
+    def cells(shift):
+        pos = site[None] + shift + rng.uniform(-0.1, 0.1, (N, K, 3))
+        q = rng.uniform(-0.5, 0.5, (N, K, 1))
+        return np.concatenate([pos, q], -1).astype(dtype)
+
+    a, b = cells(np.zeros(3)), cells(np.array([3.4, 0.5, 0.5]))
+    cnt_a = rng.randint(0, K + 1, N).astype(np.int32)
+    cnt_b = rng.randint(0, K + 1, N).astype(np.int32)
+    cnt_a[0] = cnt_b[0] = K
+    cnt_a[1] = cnt_b[1] = 0
+    same = (rng.uniform(size=N) < 0.2).astype(np.int32)
+    b[same > 0], cnt_b[same > 0] = a[same > 0], cnt_a[same > 0]
+    slots = np.arange(K)[None, :]
+    ta = np.where(slots < cnt_a[:, None], rng.randint(0, 2, (N, K)), -1)
+    tb = np.where(slots < cnt_b[:, None], rng.randint(0, 2, (N, K)), -1)
+    tb[same > 0] = ta[same > 0]
+    return [torch.from_numpy(x).to(device) for x in
+            (a, b, ta.astype(np.int32), tb.astype(np.int32), same, cnt_a,
+             cnt_b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["counts", "types"])
+@pytest.mark.parametrize("K", [8, 12, 28, 40, 120])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_pair_forces_match_plain(cuda_device, dtype, K, mode):
+    """5e-6 of the force scale in f32, 1e-12 in f64 (summation order and
+    fused multiply-adds differ); masked work exactly zero.  K = 120 takes
+    the shared tile in several column chunks."""
+    from repro_torch.core.md.system import DEFAULT_FF
+    from repro_torch.kernels import nonbonded
+
+    a, b, ta, tb, same, cnt_a, cnt_b = _nb_batch(
+        np.random.RandomState(K), 300, K, dtype, cuda_device)
+    kw = dict(cnt_a=cnt_a, cnt_b=cnt_b) if mode == "counts" else {}
+    n0 = nonbonded.pair_forces.launches
+    got = nonbonded.pair_forces(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    torch.cuda.synchronize()
+    assert nonbonded.pair_forces.launches == n0 + 1
+    want = nonbonded.pair_forces_plain(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    tol = 5e-6 if dtype == np.float32 else 1e-12
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) / scale < tol
+    assert float((got[2] - want[2]).abs().max()) / \
+        float(want[2].abs().max()) < tol
+    assert not got[0][1].any() and not got[1][1].any() and got[2][1] == 0
+    # the same inputs give the same bits on every run
+    again = nonbonded.pair_forces(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 28, 40])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_scatter_accum_matches_plain_bitwise(cuda_device, dtype, K):
+    from repro_torch.kernels import nonbonded
+
+    rng = np.random.RandomState(K)
+    N, n_cells = 5000, 700
+    ca = torch.from_numpy(rng.randint(0, n_cells, N).astype(np.int32))
+    cb = torch.from_numpy(rng.randint(0, n_cells, N).astype(np.int32))
+    ca, cb = ca.to(cuda_device), cb.to(cuda_device)
+    fa = torch.from_numpy(rng.randn(N, K, 3).astype(dtype)).to(cuda_device)
+    fb = torch.from_numpy(rng.randn(N, K, 3).astype(dtype)).to(cuda_device)
+    n0 = nonbonded.scatter_accum.launches
+    got = nonbonded.scatter_accum(ca, cb, fa, fb, n_cells)
+    torch.cuda.synchronize()
+    assert nonbonded.scatter_accum.launches == n0 + 1
+    want = nonbonded.scatter_accum_plain(ca, cb, fa, fb, n_cells)
+    assert torch.equal(got, want)
+    # against the plain form on the CPU too: the same bits on both devices
+    cpu = nonbonded.scatter_accum_plain(ca.cpu(), cb.cpu(), fa.cpu(),
+                                        fb.cpu(), n_cells)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_pruned_engine_runs_through_the_kernels(cuda_device):
+    """A 2x2x2 f64 run with the pallas force backend and the rolling prune
+    on the card: all four kernels launch, the pallas and serialized halo
+    backends agree bitwise, and the run matches the CPU run to 1e-9."""
+    from repro_torch import HaloSpec, MDEngine, make_grappa_like, make_mesh
+    from repro_torch.kernels import nonbonded
+
+    s = make_grappa_like(900, seed=3, dtype=np.float64)
+    mesh = make_mesh((2, 2, 2), ("z", "y", "x"))
+    kernels = (halo_pack.pack, halo_pack.unpack_add, nonbonded.pair_forces,
+               nonbonded.scatter_accum)
+    runs = {}
+    for dev, backend in (("cuda", "pallas"), ("cuda", "serialized"),
+                         ("cpu", "pallas")):
+        n0 = [k.launches for k in kernels]
+        eng = MDEngine(s, mesh, HaloSpec(("z", "y", "x"), (1, 1, 1),
+                                         backend=backend),
+                       force_backend="pallas", nstprune=4, device=dev)
+        (cf, ci), m, d = eng.simulate(24)
+        runs[dev, backend] = (m, d, cf.cpu(), [k.launches - n for k, n in
+                                               zip(kernels, n0)])
+    m, d, cf, launches = runs["cuda", "pallas"]
+    assert all(n > 0 for n in launches), launches
+    ser = runs["cuda", "serialized"]
+    assert ser[3][:2] == [0, 0] and min(ser[3][2:]) > 0
+    for k in ("pe", "ke", "mom"):
+        assert np.array_equal(m[k], ser[0][k]), k
+    assert torch.equal(cf, ser[2]) and d == ser[1]
+    cpu = runs["cpu", "pallas"]
+    for k in ("pe", "ke"):
+        assert np.abs(m[k] - cpu[0][k]).max() / np.abs(cpu[0][k]).max() < 1e-9
+    assert d == cpu[1]

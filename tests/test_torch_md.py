@@ -313,14 +313,22 @@ from repro.core.md import MDEngine, make_grappa_like
 from repro.launch.mesh import make_mesh
 assert len(jax.devices()) >= 8
 s = make_grappa_like(900, seed=3, dtype=np.float64)
-eng = MDEngine(s, make_mesh((2, 2, 2), ("z", "y", "x")),
-               HaloSpec(("z", "y", "x"), (1, 1, 1), backend="pallas"))
-(cf, ci), m, d = eng.simulate(24)
-pos, = eng.gather_by_id([cf[..., :3]], ci)
 keys = ("migration_dropped", "migration_lost", "bin_overflow", "n_atoms")
-np.savez(sys.argv[1], pe=m["pe"], ke=m["ke"], mom=m["mom"], pos=pos,
-         diags=np.array([[int(x[k]) for k in keys] for x in d]),
-         pallas_broken=eng.plan._pallas_broken)
+out = {}
+# the dense run, then the pruned "sparse" backend with nstprune 0 and 4
+for tag, kw in (("", {}), ("sparse0_", dict(force_backend="sparse")),
+                ("sparse4_", dict(force_backend="sparse", nstprune=4))):
+    eng = MDEngine(s, make_mesh((2, 2, 2), ("z", "y", "x")),
+                   HaloSpec(("z", "y", "x"), (1, 1, 1), backend="pallas"),
+                   **kw)
+    (cf, ci), m, d = eng.simulate(24)
+    pos, = eng.gather_by_id([cf[..., :3]], ci)
+    out.update({tag + "pe": m["pe"], tag + "ke": m["ke"],
+                tag + "mom": m["mom"], tag + "pos": pos,
+                tag + "diags": np.array([[int(x[k]) for k in keys]
+                                         for x in d]),
+                tag + "sched_history": np.array(eng.sched_history)})
+np.savez(sys.argv[1], pallas_broken=eng.plan._pallas_broken, **out)
 """
 
 
@@ -357,6 +365,25 @@ def test_whole_slice_f64_2x2x2_matches_jax(jax_dd_reference, port_dd_f64):
     assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
 
 
+@pytest.mark.parametrize("nstprune", [0, 4])
+def test_pruned_f64_2x2x2_matches_jax_sparse(jax_dd_reference, nstprune):
+    """The port's ``"pallas"`` force backend (its kernels' plain forms on
+    the CPU) against JAX's ``"sparse"`` backend on 8 devices."""
+    ref = {k[len(f"sparse{nstprune}_"):]: v
+           for k, v in jax_dd_reference.items()
+           if k.startswith(f"sparse{nstprune}_")}
+    s = make_grappa_like(900, seed=3, dtype=np.float64)
+    eng = MDEngine(s, make_mesh((2, 2, 2), AXES),
+                   HaloSpec(AXES, (1, 1, 1), backend="pallas"),
+                   force_backend="pallas", nstprune=nstprune, device="cpu")
+    (cf, ci), m, d = eng.simulate(24)
+    pos, = eng.gather_by_id([cf[..., :3]], ci)
+    ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
+    _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
+    assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
+    assert eng.sched_history == [tuple(r) for r in ref["sched_history"]]
+
+
 def test_pallas_equals_serialized_bitwise_2x2x2():
     s = make_grappa_like(900, seed=3)
     runs = {}
@@ -388,9 +415,9 @@ def test_short_nve_run_is_stable(f32_system):
 @pytest.mark.parametrize("kw,match", [
     (dict(pipeline="double_buffer"), "pipeline"),
     (dict(overlap_rebin=True), "overlap_rebin"),
-    (dict(force_backend="sparse"), "pair-schedule"),
-    (dict(force_backend="pallas"), "pair-schedule"),
-    (dict(nstprune=4), "nstprune"),
+    (dict(force_backend="pallas", static_ladder=True), "static_ladder"),
+    (dict(spec=HaloSpec(AXES, (1, 1, 1), wire_dtype="bfloat16")), "wire"),
+    (dict(spec=HaloSpec(AXES, (1, 1, 1), backend="signal")), "signal"),
     (dict(wire_dtype="bfloat16"), "wire"),
     (dict(trace=True), "trace"),
     (dict(inject=True), "inject"),
