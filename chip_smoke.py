@@ -34,7 +34,29 @@ Phases, each asserting (any failure exits non-zero with no result line):
    against the dense pass (5e-6 of the force scale), NVE, migration, the
    ``serialized`` halo bitwise equal; then ``nstprune=5`` for 40 steps,
    which drives the rolling prune on the card;
-9. the profile of a steady pruned step, as in 6.
+9. the profile of a steady pruned step, as in 6;
+10. the signal kernels: ``halo_pack.put_signal`` at every launch shape of
+    the grappa-45k ``"signal"`` path (the three forward dims' f32 payload,
+    the int32 ``cell_i`` exchange, the three reverse dims' f32 forces,
+    then the reverse pulses at widths (2,2,2)) plus a 3x2x1 mesh along
+    both axes and both shifts, and ``halo_pack.fused_pulses`` at the
+    forward shapes of widths (2,2,2) / pulses (2,2,2), f32 and int32, and
+    a crafted map whose second pulse forwards rows of the first and has
+    padding, 1,000 launches back to back; all bitwise against the plain
+    forms, with every arrival word equal to its chunk count; timed beside
+    the plain form, the library yardstick and the byte bound;
+11. the signal main path: grappa-45k, 2x2x2, f32, ``simulate(40)`` with
+    ``HaloSpec(backend="signal")`` and ``pipeline="double_buffer"`` at
+    depths 2, 3, 4 and depth 2 with ``overlap_rebin``; widths (2,2,2) /
+    pulses (2,2,2); and the pruned path (``force_backend="pallas"``,
+    ``nstprune=5``) at depth 3 and depth 2 with ``overlap_rebin``; each
+    run with every kernel counter zeroed just before and read just
+    after, bitwise equal in PE, KE, momentum, final state and migration
+    (and, pruned, the schedule) to ``serialized`` / ``off`` in this
+    process, NVE and migration bars as in 5;
+12. the profile of a steady signal / double_buffer step (dense, pruned,
+    and dense at widths (2,2,2) / pulses (2,2,2)), as in 6, and the host
+    ms per steady step of off against double_buffer, in turns.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -562,7 +584,9 @@ def kernel_counters():
     from repro_torch.kernels import halo_pack, nonbonded
     return {"pack": halo_pack.pack, "unpack_add": halo_pack.unpack_add,
             "pair_forces": nonbonded.pair_forces,
-            "scatter_accum": nonbonded.scatter_accum}
+            "scatter_accum": nonbonded.scatter_accum,
+            "put_signal": halo_pack.put_signal,
+            "fused_pulses": halo_pack.fused_pulses}
 
 
 def pruned_run(system, backend, nstprune=0):
@@ -621,7 +645,8 @@ def pruned_path_phase(system):
     del eng, rs, f_s, f_d
 
     eng, (cf, ci), m, diags, wall, launches = pruned_run(system, "pallas")
-    check(all(launches[k] > 0 for k in kernel_counters()),
+    check(all(launches[k] > 0 for k in ("pack", "unpack_add", "pair_forces",
+                                        "scatter_accum")),
           f"kernels not launched on the pruned main path: {launches}")
     drift = check_nve(m, diags, n, "pruned pallas")
     print(f"pruned path (pallas halo, pallas forces): {n} atoms, 40 steps in "
@@ -721,6 +746,371 @@ def pruned_profile_phase(system, n_calls: int = 5):
           f"{eng.pair_schedule.n_pairs}")
 
 
+# ---- phase 10: the signal kernels at main-path shapes ----------------------
+
+SIGNAL_KERNELS = ("put_signal", "fused_pulses")
+
+
+def recorded(thunk):
+    """Run ``thunk`` with the signal kernels' wrappers wrapped; returns its
+    result and the (kernel, args) of every call, as the main path made
+    them."""
+    from repro_torch.kernels import halo_pack
+    calls, real = [], {k: getattr(halo_pack, k) for k in SIGNAL_KERNELS}
+
+    def wrap(kernel):
+        def wrapper(*args, **kw):
+            calls.append((kernel, args))
+            return real[kernel](*args, **kw)
+        # the wrapper stands in the module while it runs, so the real
+        # function's `fn.launches += 1` lands here; handed back below
+        wrapper.launches = 0
+        return wrapper
+
+    wrappers = {k: wrap(k) for k in SIGNAL_KERNELS}
+    for k, fn in wrappers.items():
+        setattr(halo_pack, k, fn)
+    try:
+        out = thunk()
+    finally:
+        for k, fn in real.items():
+            setattr(halo_pack, k, fn)
+            fn.launches += wrappers[k].launches
+    return out, calls
+
+
+def signal_engine(system, widths=(1, 1, 1), pulses=None, backend="signal",
+                  **kw):
+    from repro_torch import HaloSpec, MDEngine, make_md_mesh
+    return MDEngine(system, make_md_mesh(8),
+                    HaloSpec(AXES, widths, backend=backend, pulses=pulses),
+                    **kw)
+
+
+def signal_cases(system):
+    """(kernel, tag, args) of every put_signal / fused_pulses launch of one
+    signal force pass on real post-rebin state, at widths 1 and at widths
+    (2,2,2) / pulses (2,2,2), recorded from the plan itself; then a 3x2x1
+    mesh at the x pulse's shapes."""
+    from repro_torch.core.md.forces import compute_forces
+
+    cases = []
+
+    def add(label, calls):
+        seen = {}
+        for kernel, args in calls:
+            axis = AXES[args[3] if kernel == "put_signal" else args[4]]
+            seen[axis] = seen.get(axis, -1) + 1
+            cases.append((kernel, f"{label}-{axis}"
+                          + (f"{seen[axis]}" if seen[axis] else ""), args))
+
+    for widths, pulses, tag in (((1, 1, 1), None, "w1"),
+                                ((2, 2, 2), (2, 2, 2), "w2p2")):
+        eng = signal_engine(system, widths, pulses)
+        cf, ci, _f, _d = eng.rebin_fn(*eng.init_state())
+        plan = eng.plan
+        ext_f, calls = recorded(lambda: plan.fwd(cf[..., :4].contiguous()))
+        add(f"{tag}-fwd-f32", calls)
+        ext_i, calls = recorded(lambda: plan.fwd(ci, wrap_shift=None))
+        add(f"{tag}-fwd-i32", calls)
+        F_trim, _ = compute_forces(eng._trim_ext(ext_f), eng._trim_ext(ext_i),
+                                   eng.layout, system.params.ff)
+        F_ext = eng._pad_force(F_trim, ext_f.shape)
+        add(f"{tag}-rev-f32", recorded(lambda: plan.rev(F_ext))[1])
+        del eng, cf, ci, ext_f, ext_i, F_trim, F_ext
+    # a 3x2x1 mesh at the x pulse's shapes: size 3 tells the shifts apart
+    src, idx = next(a for k, t, a in cases if t == "w1-fwd-f32-x")[:2]
+    src6 = src[:6].contiguous()
+    for axis in (0, 1):
+        for shift in (-1, 1):
+            cases.append(("put_signal", f"mesh321-{AXES[axis]}{shift:+d}",
+                          (src6, idx, (3, 2, 1), axis, shift)))
+    return cases
+
+
+def crafted_dependent(cases):
+    """The x dim's two-pulse forward at widths (2,2,2) with a map whose
+    second pulse forwards rows of the first pulse's receive buffer and
+    ends in padding (as ``tests/dist/check_kernel_halo.py``)."""
+    import torch
+    args = next(a for k, t, a in cases
+                if k == "fused_pulses" and t == "w2p2-fwd-f32-x")
+    src, maps, n_local, mesh, axis = args[:5]
+    M = maps.shape[1]
+    dep = maps.clone()
+    j = torch.arange(M, device=maps.device, dtype=torch.int32)
+    dep[1] = torch.where(j % 3 == 1, n_local + (M - 1 - j), maps[1])
+    dep[1, -max(1, M // 8):] = -1
+    return (src, dep.contiguous(), n_local, mesh, axis)
+
+
+def signal_bytes(kernel, args):
+    src = args[0]
+    s = src.element_size()
+    if kernel == "put_signal":
+        idx = args[1]
+        return 2 * src.shape[0] * idx.shape[0] * src.shape[2] * s + \
+            idx.numel() * 4
+    maps = args[1]
+    return 2 * src.shape[0] * maps.numel() * src.shape[2] * s + \
+        maps.numel() * 4
+
+
+def signal_kernel_phase(system, n_repeat: int = 1000):
+    import torch
+    from repro_torch.kernels import halo_pack
+
+    plain = {"put_signal": halo_pack.put_signal_plain,
+             "fused_pulses": halo_pack.fused_pulses_plain}
+    kern = {"put_signal": halo_pack.put_signal,
+            "fused_pulses": halo_pack.fused_pulses}
+    acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0 if k == "put_signal" else None,
+               "bound_ms": 0.0, "bytes": 0, "ops": 0} for k in kern}
+
+    def words_ok(kernel, args):
+        n_dom = args[0].shape[0]
+        if kernel == "put_signal":
+            return words[:n_dom].tolist() == [args[1].shape[0]] * n_dom
+        P_, M = args[1].shape
+        return (words[:n_dom * P_].tolist() == [M] * (n_dom * P_)
+                and int(words[n_dom * P_]) == P_ * n_dom * M)
+
+    def run(kernel, args):
+        kw = {"signal": words} if kernel == "put_signal" else {"words": words}
+        return kern[kernel](*args, **kw)
+
+    def library(args):
+        src, idx, mesh, axis, shift = args
+        li = idx.long()
+
+        def call():
+            rows = torch.index_select(src, 1, li)
+            return torch.roll(rows.reshape(tuple(mesh) + rows.shape[1:]),
+                              shift, dims=axis).reshape(rows.shape)
+        return call
+
+    cases = signal_cases(system)
+    dev = cases[0][2][0].device
+    words = torch.empty((8 * 2 + 1,), dtype=torch.int32, device=dev)
+    print(f"signal kernel phase: {len(cases)} launch shapes (ms per launch; "
+          "bound = bytes / 3.35 TB/s)")
+    for kernel, tag, args in cases:
+        got = run(kernel, args)
+        want = plain[kernel](*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{kernel} {tag}: kernel differs from its plain form")
+        check(words_ok(kernel, args), f"{kernel} {tag}: arrival words "
+              f"{words.tolist()} do not equal the chunk counts")
+        t_k = cuda_ms(lambda: run(kernel, args))
+        t_p = cuda_ms(lambda: plain[kernel](*args))
+        t_l = None
+        if kernel == "put_signal" and int(args[1].min()) >= 0:
+            lib = library(args)
+            check(torch.equal(lib(), want),
+                  f"{kernel} {tag}: yardstick computes another function")
+            t_l = cuda_ms(lib)
+        nbytes = signal_bytes(kernel, args)
+        bound = nbytes / HBM_BPS * 1e3
+        shapes = "x".join(map(str, args[0].shape)) + " M " + \
+            "x".join(map(str, args[1].shape))
+        print(f"  {kernel:12s} {tag:22s} [{shapes}] kernel {t_k:.6f} "
+              f"plain {t_p:.6f} library "
+              f"{'none' if t_l is None else f'{t_l:.6f}'} bound "
+              f"{bound:.6f} bytes {nbytes}")
+        a = acc[kernel]
+        # one step's f32 launches: put_signal 3 fwd + 3 rev on the width-1
+        # path; fused_pulses 3 fwd dims on the two-pulse path
+        if (kernel == "put_signal" and tag.startswith("w1-")
+                and "f32" in tag) or \
+                (kernel == "fused_pulses" and "f32" in tag):
+            for key, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound),
+                           ("bytes", nbytes)):
+                a[key] += v
+            if a["library_ms"] is not None:
+                a["library_ms"] += t_l
+    # the crafted dependent case, back to back
+    args = crafted_dependent(cases)
+    want = halo_pack.fused_pulses_plain(*args)
+    check(bool((args[1][1] >= args[2]).any()) and
+          bool((args[1][1] < 0).any()), "crafted map has no dependent or "
+          "padded entries")
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    bad_words = torch.zeros((), dtype=torch.int64, device=dev)
+    P_, M = args[1].shape
+    n_dom = args[0].shape[0]
+    for _ in range(n_repeat):
+        got = halo_pack.fused_pulses(*args, words=words)
+        bad += (got != want).sum()
+        bad_words += (words[:n_dom * P_] != M).sum()
+    torch.cuda.synchronize()
+    check(int(bad) == 0 and int(bad_words) == 0,
+          f"crafted dependent fused_pulses: {int(bad)} elements and "
+          f"{int(bad_words)} arrival words wrong over {n_repeat} launches")
+    t_dep = cuda_ms(lambda: halo_pack.fused_pulses(*args, words=words))
+    print(f"  fused_pulses crafted dependent [{'x'.join(map(str, args[1].shape))}"
+          f" map, {int((args[1][1] >= args[2]).sum())} forwarded, "
+          f"{int((args[1][1] < 0).sum())} padded entries]: {n_repeat} "
+          f"launches bitwise, words right; {t_dep:.6f} ms per launch")
+    return acc
+
+
+# ---- phase 11: the signal main path -------------------------------------------
+
+def run_counted(eng, n_steps=40):
+    """``simulate`` on a fresh state with every kernel counter zeroed just
+    before and read just after."""
+    import torch
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    (cf, ci), m, diags = eng.simulate(n_steps, state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (cf, ci), m, diags, wall, {k: fn.launches
+                                      for k, fn in counters.items()}
+
+
+def same_run(a, b, label, eng_a=None, eng_b=None):
+    import numpy as np
+    import torch
+    (cf, ci), m, d = a[:3]
+    (cf2, ci2), m2, d2 = b[:3]
+    for k in ("pe", "ke", "mom"):
+        check(np.array_equal(m[k], m2[k]), f"{label}: {k} differs")
+    check(torch.equal(cf, cf2) and torch.equal(ci, ci2) and d == d2,
+          f"{label}: final state or migration differs")
+    if eng_a is not None:
+        check(eng_a.sched_history == eng_b.sched_history,
+              f"{label}: sched_history differs")
+        sa, sb = eng_a._sched_exec, eng_b._sched_exec
+        check(torch.equal(sa[0], sb[0]) and sa[1:] == sb[1:],
+              f"{label}: the last prune's schedule differs")
+
+
+def signal_path_phase(system):
+    n = system.n_atoms
+    runs = {}
+
+    def go(label, eng, ref=None, pruned=False):
+        out = run_counted(eng)
+        (_s, m, diags, wall, launches) = out
+        drift = check_nve(m, diags, n, label)
+        if ref is not None:
+            same_run(out, runs[ref][0], f"{label} vs {ref}",
+                     *((eng, runs[ref][1]) if pruned else ()))
+        runs[label] = (out, eng)
+        print(f"signal path {label}: {wall * 1e3 / 40:.4f} ms/step over 40 "
+              f"steps incl. rebins, drift/atom {drift:.3e}, launches "
+              f"{launches}" + ("" if ref is None else
+                               f"; bitwise equal to {ref}"))
+        return launches
+
+    go("serialized/off", signal_engine(system, backend="serialized"))
+    dense = None
+    for depth, ovr in ((2, False), (3, False), (4, False), (2, True)):
+        label = f"signal/db{depth}" + ("/ovr" if ovr else "")
+        lc = go(label, signal_engine(system, pipeline="double_buffer",
+                                     pipeline_depth=depth,
+                                     overlap_rebin=ovr),
+                ref="serialized/off")
+        check(lc["put_signal"] > 0 and lc["pack"] == 0
+              and lc["unpack_add"] == 0,
+              f"{label}: halo kernels {lc}")
+        if dense is None:
+            dense = lc
+    go("serialized/off w2p2", signal_engine(system, (2, 2, 2), (2, 2, 2),
+                                               backend="serialized"))
+    w2 = go("signal/db2 w2p2", signal_engine(
+        system, (2, 2, 2), (2, 2, 2), pipeline="double_buffer"),
+        ref="serialized/off w2p2")
+    check(w2["fused_pulses"] > 0 and w2["put_signal"] > 0,
+          f"w2p2: signal kernels {w2}")
+    pk = dict(force_backend="pallas", nstprune=5)
+    go("pruned serialized/off", signal_engine(system, backend="serialized", **pk))
+    for depth, ovr in ((3, False), (2, True)):
+        label = f"pruned signal/db{depth}" + ("/ovr" if ovr else "")
+        lc = go(label, signal_engine(system, pipeline="double_buffer",
+                                     pipeline_depth=depth,
+                                     overlap_rebin=ovr, **pk),
+                ref="pruned serialized/off", pruned=True)
+        check(lc["put_signal"] > 0 and lc["pair_forces"] > 0
+              and lc["scatter_accum"] > 0, f"{label}: kernels {lc}")
+    return dense, w2
+
+
+# ---- phase 12: the profile of a steady signal step ------------------------------
+
+def signal_profile_phase(system):
+    for label, eng in (
+            ("dense", signal_engine(system, pipeline="double_buffer")),
+            ("pruned", signal_engine(system, pipeline="double_buffer",
+                                     force_backend="pallas")),
+            ("dense w2p2", signal_engine(system, (2, 2, 2), (2, 2, 2),
+                                         pipeline="double_buffer"))):
+        rs = eng.begin_run()
+        nst = eng.system.params.nstlist
+        step = _profile(lambda: eng.run_block(rs, nst), 1, nst)
+        if step is None:
+            print(f"signal profile {label}: device time not measured (no "
+                  "CUDA events)")
+            continue
+        wall, device, n_kern, busy, by_name = step
+        print(f"signal profile {label} (torch.profiler, one steady {nst}-step "
+              f"signal/double_buffer block, per step): host wall "
+              f"{wall / 1e3:.4f} ms/step under the profiler, device kernel "
+              f"time {device / 1e3:.4f} ms/step, {n_kern:.2f} kernels/step, "
+              f"device busy {busy:.4f} of the host wall")
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            print(f"  kernel {t / device:7.4f} {t:10.2f} us/step "
+                  f"{k:7.2f}/step {name[:80]}")
+        for tag in ("put_signal_kernel", "fused_pulses_kernel"):
+            hits = [(t, k) for name, (t, k) in by_name.items() if tag in name]
+            t, k = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            if k:
+                print(f"  signal {tag}: {k:.2f} launches/step, device "
+                      f"{t / k:.3f} us/launch, {t:.2f} us/step")
+        del eng, rs
+
+
+def host_off_vs_double_buffer(system, rounds: int = 6):
+    """Host ms per steady step, signal / off against signal /
+    double_buffer, dense and pruned: one 20-step block from the same
+    post-rebin state per timing, the two modes in turns (off first in
+    even rounds, double_buffer first in odd ones)."""
+    import statistics
+    import torch
+
+    for label, kw in (("dense", {}), ("pruned", dict(force_backend="pallas"))):
+        engs = {m: signal_engine(system, pipeline=m, **kw)
+                for m in ("off", "double_buffer")}
+        state = engs["off"].init_state()
+        nst = system.params.nstlist
+        times = {m: [] for m in engs}
+        for r in range(rounds):
+            for m in (("off", "double_buffer") if r % 2 == 0
+                      else ("double_buffer", "off")):
+                rs = engs[m].begin_run(state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engs[m].run_block(rs, nst)
+                torch.cuda.synchronize()
+                times[m].append((time.perf_counter() - t0) * 1e3 / nst)
+        med = {m: statistics.median(t) for m, t in times.items()}
+        print(f"host ms/step, signal {label}, steady {nst}-step blocks, "
+              f"{rounds} each in turns: off median {med['off']:.4f} "
+              f"[{min(times['off']):.4f}, {max(times['off']):.4f}], "
+              f"double_buffer median {med['double_buffer']:.4f} "
+              f"[{min(times['double_buffer']):.4f}, "
+              f"{max(times['double_buffer']):.4f}]")
+        del engs, state
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -742,7 +1132,7 @@ def main():
     # 2. build
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(["halo_pack", "nonbonded"])
+    built = _build.build(["halo_pack", "nonbonded", "halo_signal"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for res in built.values():
         for line in res.log.splitlines():
@@ -777,32 +1167,55 @@ def main():
     # 9. where a steady pruned step spends device time
     pruned_profile_phase(system)
 
+    # 10. the signal kernels at the signal path's shapes
+    sig_kernel = signal_kernel_phase(system)
+
+    # 11. the signal main path (double buffer, fused rebin, two pulses,
+    # pruned), each bitwise against serialized / off
+    sig_launches, w2_launches = signal_path_phase(system)
+
+    # 12. where a steady signal / double_buffer step spends device time,
+    # and its host time against off
+    signal_profile_phase(system)
+    host_off_vs_double_buffer(system)
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
+                "put_signal": "src/repro/kernels/halo_pack.py:165",
+                "fused_pulses": "src/repro/kernels/halo_pack.py:263",
                 "pair_forces": "src/repro/kernels/nonbonded.py:92",
                 "scatter_accum": "src/repro/kernels/nonbonded.py:171"}
     sources = {"pack": "src/repro_torch/csrc/halo_pack.cu",
                "unpack_add": "src/repro_torch/csrc/halo_pack.cu",
+               "put_signal": "src/repro_torch/csrc/halo_signal.cu",
+               "fused_pulses": "src/repro_torch/csrc/halo_signal.cu",
                "pair_forces": "src/repro_torch/csrc/nonbonded.cu",
                "scatter_accum": "src/repro_torch/csrc/nonbonded.cu"}
     modules = {"pack": "halo_pack", "unpack_add": "halo_pack",
+               "put_signal": "halo_pack", "fused_pulses": "halo_pack",
                "pair_forces": "nonbonded", "scatter_accum": "nonbonded"}
+    main_launches = {**launches, **{k: pruned_launches[k] for k in nb_kernel},
+                     "put_signal": sig_launches["put_signal"],
+                     "fused_pulses": w2_launches["fused_pulses"]}
     kernels = []
-    for name, acc in {**per_kernel, **nb_kernel}.items():
+    for name, acc in {**per_kernel, **nb_kernel, **sig_kernel}.items():
         bound_by = "bytes" if acc["bytes"] / HBM_BPS >= \
             acc["ops"] / FP32_FLOPS else "operations"
         kernels.append({
             "name": f"{modules[name]}.{name}", "route": "cuda",
             "source": sources[name], "replaces": replaces[name],
-            "launches": (launches if name in per_kernel
-                         else pruned_launches)[name],
+            "launches": main_launches[name],
             "max_abs_err": acc["max_abs_err"], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": bound_by, "library_ms": acc["library_ms"]})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
-          "scatter_accum: the six tiers); launches: the halo kernels on the "
-          "dense main path, the pruned kernels on the pruned main path")
+          "scatter_accum: the six tiers; put_signal: 3 fwd + 3 rev pulses "
+          "of the signal path; fused_pulses: 3 fwd dims at widths (2,2,2) / "
+          "pulses (2,2,2)); launches: pack and unpack_add on the dense main "
+          "path, pair_forces and scatter_accum on the pruned one, put_signal "
+          "on the dense signal / double_buffer depth-2 run, fused_pulses on "
+          "the two-pulse signal run")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

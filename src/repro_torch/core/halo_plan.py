@@ -24,8 +24,12 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.schedule_verifier import (
+    VERIFY_MODES,
+    check_halo_config,
+)
 from repro_torch.core import halo as _halo
-from repro_torch.core.schedule import PulseSchedule, make_schedule
+from repro_torch.core.schedule import PulseSchedule
 from repro_torch.device import resolve_device
 from repro_torch.kernels import halo_pack
 from repro_torch.launch.mesh import DomainMesh
@@ -88,25 +92,6 @@ class HaloSpec:
             return None
         return torch.as_tensor(np.asarray(self.wrap_shift, dtype=self.dtype),
                                device=device)
-
-
-def _check_halo_config(axis_names: Sequence[str], widths: Sequence[int],
-                       pulses: Optional[Sequence[int]]) -> PulseSchedule:
-    """Validate widths and pulses (the reference's build-time config check,
-    with the same messages for the cases checked here)."""
-    names = tuple(axis_names)
-    dups = sorted({n for n in names if names.count(n) > 1})
-    if dups:
-        raise ValueError(
-            f"duplicate mesh axis names {dups} in halo spec {names}: each "
-            "decomposition dim needs its own mesh axis, or pulses along "
-            "distinct dims would alias one device ring")
-    ws = tuple(int(w) for w in widths)
-    if any(w < 0 for w in ws):
-        raise ValueError(
-            f"halo widths must be >= 0, got {ws}: a negative width has no "
-            "slab interpretation (use width 0 to disable a dim)")
-    return make_schedule(names, ws, pulses)
 
 
 # --------------------------------------------------------------------------
@@ -279,10 +264,6 @@ class PallasBackend(HaloBackend):
 
 _BACKENDS: Dict[str, Callable[[], HaloBackend]] = {}
 
-# backends of the reference that later slices of the port bring
-_LATER = {"signal": "the step-pipeline and signal-backend slice "
-                    "(put_signal / fused_pulses kernels)"}
-
 
 def register_backend(name: str, factory: Callable[[], HaloBackend]) -> None:
     """Register a halo backend under ``name`` (the config axis value)."""
@@ -294,10 +275,6 @@ def available_backends() -> Tuple[str, ...]:
 
 
 def get_backend(name: str) -> HaloBackend:
-    if name in _LATER and name not in _BACKENDS:
-        raise NotImplementedError(
-            f"halo backend {name!r} is not ported yet: it comes with "
-            f"{_LATER[name]}")
     try:
         return _BACKENDS[name]()
     except KeyError:
@@ -455,11 +432,15 @@ class HaloPlan:
     must lie on the plan's device.
     """
 
-    def __init__(self, spec: HaloSpec, mesh: DomainMesh, device="cuda"):
+    def __init__(self, spec: HaloSpec, mesh: DomainMesh, device="cuda",
+                 verify: str = "error"):
         for a in spec.axis_names:
             if a not in mesh.shape:
                 raise ValueError(f"mesh has no axis {a!r}; "
                                  f"mesh axes: {tuple(mesh.shape)}")
+        if verify not in VERIFY_MODES:
+            raise ValueError(f"unknown verify mode {verify!r}; "
+                             f"available: {VERIFY_MODES}")
         if spec.wire_dtype is not None:
             raise NotImplementedError(
                 f"wire_dtype={spec.wire_dtype!r} is not ported yet: "
@@ -469,7 +450,9 @@ class HaloPlan:
         self.spec = spec
         self.mesh = mesh
         self.backend = get_backend(spec.backend)
-        self.sched: PulseSchedule = _check_halo_config(
+        # nonsense (widths, pulses) combinations fail here, with the
+        # verifier's messages
+        self.sched: PulseSchedule = check_halo_config(
             spec.axis_names, spec.widths, spec.pulses)
         self.axis_sizes: Tuple[int, ...] = tuple(
             int(mesh.shape[a]) for a in spec.axis_names)
@@ -478,9 +461,9 @@ class HaloPlan:
         self._stats_cache: Dict[Tuple, dict] = {}
 
     @classmethod
-    def build(cls, spec: HaloSpec, mesh: DomainMesh,
-              device="cuda") -> "HaloPlan":
-        return cls(spec, mesh, device=device)
+    def build(cls, spec: HaloSpec, mesh: DomainMesh, device="cuda",
+              verify: str = "error") -> "HaloPlan":
+        return cls(spec, mesh, device=device, verify=verify)
 
     # -- introspection -----------------------------------------------------
 
@@ -588,3 +571,8 @@ class HaloPlan:
         return (f"HaloPlan(backend={self.spec.backend!r}, "
                 f"axes={self.spec.axis_names}, widths={self.spec.widths}, "
                 f"mesh={self.mesh.shape}, device={str(self.device)!r})")
+
+
+# the "signal" backend lives with the step pipeline and registers on
+# import; the cycle is benign (it only uses names defined above)
+import repro_torch.core.pipeline.signal_backend  # noqa: E402,F401

@@ -2,7 +2,9 @@
 
 The port of the JAX package's ``core/md/engine.py`` with the dense and
 the pruned (``"sparse"`` / ``"pallas"``) force backends, the rolling
-inner prune and the serialized step pipeline.  The step mirrors the
+inner prune, the serialized and the depth-``d`` double-buffered step
+pipeline, the fused between-block rebin (``overlap_rebin``) and the
+build-time schedule verifier (``verify``).  The step mirrors the
 paper's Algorithm 2 (GPU-resident skeleton):
 
   1. kick-drift                         (velocity Verlet, first half)
@@ -27,10 +29,14 @@ per-level histograms once per block to size the tier ladders; with
 :func:`pair_schedule.roll_prune` on the device.  The rebin's force carry
 always takes the dense pass, as in the reference.
 
-The reference's other knobs (the double-buffered pipeline, fused rebin,
-the static ladder, wire compression, tracing, fault injection, health
-monitors) come with later slices of the port; asking for any of them
-raises ``NotImplementedError``.
+With ``overlap_rebin`` every block that another block follows also runs
+the rebin / migration (and, pruned, the boundary prune) right after its
+steps, as one block call; the final block runs plain.  Both paths run
+the same operations in the same order, so they are bitwise identical.
+
+The reference's other knobs (the static ladder, wire compression,
+tracing, fault injection, health monitors) come with later slices of the
+port; asking for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.analysis.schedule_verifier import gate_md_build
 from repro_torch.convert import cells_to_domains
 from repro_torch.core.halo_plan import HaloPlan, HaloSpec
 from repro_torch.core.md import integrate
@@ -106,14 +113,19 @@ class MDEngine:
 
     ``spec`` selects the halo backend and widths; the engine fills in the
     periodic wrap shifts from the box and builds one :class:`HaloPlan`
-    used by every step, rebin and force pass.  ``device`` defaults to
-    ``"cuda"`` and raises when CUDA is absent.
+    used by every step, rebin and force pass.  ``pipeline`` selects the
+    multi-step schedule (``"off"`` or ``"double_buffer"``) and
+    ``pipeline_depth`` its in-flight window (ring slots, >= 2); every
+    (mode, depth) gives bitwise-identical trajectories, as does
+    ``overlap_rebin``.  ``verify`` (``"error"`` / ``"warn"`` / ``"off"``)
+    is the build-time gate of the schedule verifier.  ``device`` defaults
+    to ``"cuda"`` and raises when CUDA is absent.
     """
 
     def __init__(self, system: MDSystem, mesh: DomainMesh,
                  spec: HaloSpec | None = None,
                  r_list_factor: float = 1.08, mig_frac: float = 0.125,
-                 pipeline: str = "off",
+                 pipeline: str = "off", pipeline_depth: int = 2,
                  overlap_rebin: bool = False,
                  force_backend: str = "dense",
                  capacity_safety: float = 2.2,
@@ -122,6 +134,7 @@ class MDEngine:
                  inner_safety: float = 1.5,
                  pair_bucket: int = PAIR_BUCKET,
                  wire_dtype: str | None = None,
+                 verify: str = "error",
                  obs=None, trace: bool = False,
                  inject: bool = False, health: bool = False,
                  static_ladder: bool = False,
@@ -135,6 +148,9 @@ class MDEngine:
         if pipeline not in PIPELINE_MODES:
             raise ValueError(f"unknown pipeline mode {pipeline!r}; "
                              f"available: {PIPELINE_MODES}")
+        if int(pipeline_depth) < 2:
+            raise ValueError("pipeline_depth must be >= 2 (ring slots; "
+                             "2 = double-buffered halos)")
         if min(spec.widths) < 1:
             raise ValueError("MD halo widths must be >= 1 (the NB stencil "
                              "consumes one halo cell layer)")
@@ -145,13 +161,6 @@ class MDEngine:
             raise ValueError("nstprune must be >= 0 (0 disables the "
                              "rolling inner prune)")
         later = "a later slice of the port"
-        if pipeline != "off":
-            _not_ported("pipeline", pipeline, "the step-pipeline slice")
-        if overlap_rebin:
-            _not_ported("overlap_rebin", overlap_rebin,
-                        "the step-pipeline slice (it fuses the rebin, the "
-                        "pair-schedule prune and the nstprune sub-blocks "
-                        "into one block program)")
         if static_ladder:
             _not_ported("static_ladder", static_ladder,
                         "the serving slice (the worst-case pair-schedule "
@@ -169,6 +178,8 @@ class MDEngine:
         self.system = system
         self.mesh = mesh
         self.pipeline_mode = pipeline
+        self.pipeline_depth = int(pipeline_depth)
+        self.overlap_rebin = bool(overlap_rebin)
         self.dtype = _TORCH_DTYPE[system.pos.dtype]
         mesh_shape = tuple(mesh.shape[a] for a in AXES)
         self.axis_sizes = mesh_shape
@@ -201,14 +212,6 @@ class MDEngine:
                     "drop interacting pairs outright")
         else:
             self.r_inner = None
-        nstlist = int(system.params.nstlist)
-        if self.nstprune > nstlist:
-            # the one check of the reference's build-time verifier that
-            # this slice runs (the verifier itself comes later)
-            raise ValueError(
-                f"nstprune={self.nstprune} exceeds the nstlist block length "
-                f"{nstlist}: the rolling inner prune would never fire inside "
-                "a block — lower nstprune or raise params.nstlist")
         self.mig_cap = max(64, int(self.layout.pool * mig_frac))
         self.pair_schedule = None
         self.r_prune = prune_radius(system.params)
@@ -241,9 +244,26 @@ class MDEngine:
         self.plan = HaloPlan.build(
             dataclasses.replace(spec, dtype=np.dtype(system.pos.dtype).name,
                                 feature_elems=4 * self.layout.capacity),
-            mesh, device=self.device)
+            mesh, device=self.device, verify=verify)
+        # build-time gate: config sanity (nstprune against the block
+        # length, list radii, pool / capacity factors) plus a static replay
+        # of the comm schedule every block will emit; unsafe configs are
+        # rejected here with a counterexample trace
+        self.schedule_report = gate_md_build(
+            nstlist=int(system.params.nstlist), nstprune=self.nstprune,
+            pipeline=self.pipeline_mode,
+            pipeline_depth=self.pipeline_depth,
+            overlap_rebin=self.overlap_rebin,
+            force_backend=self.force_backend,
+            n_pulses=max(1, self.plan.sched.total_pulses), verify=verify,
+            inner_safety=self.inner_safety, r_list_factor=r_list_factor,
+            mig_frac=mig_frac, capacity_safety=capacity_safety)
+        # verify="off": the engine's gate verified a superset (block length,
+        # nstprune sub-blocks, rebin fusion) of the pipeline's own probe
         self.pipeline = StepPipeline.build(self.plan, self._make_step_fns(),
-                                           mode=self.pipeline_mode)
+                                           mode=self.pipeline_mode,
+                                           depth=self.pipeline_depth,
+                                           verify="off")
 
     @property
     def spec(self) -> HaloSpec:
@@ -262,7 +282,8 @@ class MDEngine:
         return self.plan.stats(self.layout.cells_per_domain,
                                index_elems=2 * K, index_itemsize=4,
                                occupancy=occupancy,
-                               pipeline=self.pipeline_mode)
+                               pipeline=self.pipeline_mode,
+                               depth=self.pipeline_depth)
 
     def pair_stats(self) -> dict:
         """Evaluated-slot-pair accounting of the latest pruned block, per
@@ -281,9 +302,10 @@ class MDEngine:
         return out
 
     def overlap_stats(self) -> dict:
-        """Per-step overlap model at this engine's pipeline mode."""
+        """Per-step overlap model at this engine's pipeline mode / depth."""
         return self.plan.stats(self.layout.cells_per_domain,
-                               pipeline=self.pipeline_mode)["overlap"]
+                               pipeline=self.pipeline_mode,
+                               depth=self.pipeline_depth)["overlap"]
 
     # ---- the force pass --------------------------------------------------
 
@@ -419,7 +441,7 @@ class MDEngine:
         ctx = self._block_ctx(cell_i)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if not tiers_inner:
-            cell_f, f_last, metrics = self.pipeline.run_local(
+            cell_f, f_last, metrics, _led = self.pipeline.run_local(
                 cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers))
             return cell_f, f_last, metrics, zero
         budget = torch.tensor(
@@ -439,7 +461,7 @@ class MDEngine:
                 ctx["ext_i_trim"], self.r_inner)
             overflow = torch.maximum(
                 overflow, torch.amax(torch.clamp(cum_s - budget, min=0)))
-            cell_f, f_cur, m = self.pipeline.run_local(
+            cell_f, f_cur, m, _led = self.pipeline.run_local(
                 cell_f, f_cur, take,
                 self._sched_ctx(ctx, sel_exec, tiers_inner))
             chunks.append(m)
@@ -458,6 +480,29 @@ class MDEngine:
         dims = (0, 1, 2)
         return (sel, torch.amax(cum, dim=dims),
                 torch.amax(cum_inner, dim=dims), torch.amax(occ))
+
+    # the fused between-block path (overlap_rebin): the block's steps, then
+    # its rebin / migration (and, pruned, the boundary prune), one call
+
+    def block_rebin(self, cell_f, cell_i, force, n_steps: int):
+        """Dense block plus its rebin; returns ``(cell_f, cell_i, force,
+        metrics, diag)`` with the rebin's force carry."""
+        cell_f, _f_last, metrics, _led = self.pipeline.run_local(
+            cell_f, force, n_steps, self._block_ctx(cell_i))
+        new_f, new_i, force, diag = self.rebin_fn(cell_f, cell_i)
+        return new_f, new_i, force, metrics, diag
+
+    def block_sched_rebin(self, cell_f, cell_i, force, sel, n_steps: int,
+                          tiers, tiers_inner):
+        """Pruned block plus its rebin and the next block's prune; returns
+        ``(cell_f, cell_i, force, metrics, diag, sel, cum, cum_inner, occ,
+        overflow)``."""
+        cell_f, _f_last, metrics, ovf = self.block_sched(
+            cell_f, cell_i, force, sel, n_steps, tiers, tiers_inner)
+        new_f, new_i, force, diag = self.rebin_fn(cell_f, cell_i)
+        sel2, cum, cum_inner, occ = self.do_prune(new_f, new_i)
+        return (new_f, new_i, force, metrics, diag, sel2, cum, cum_inner,
+                occ, ovf)
 
     def rebin_fn(self, cell_f, cell_i):
         """Wrap, migrate, re-bin, then the force carry for the new bins
@@ -593,12 +638,25 @@ class MDEngine:
         return RunState(cell_f, cell_i, force, sched, bool(disable_inner), 0,
                         [self._host_diag(diag)])
 
-    def run_block(self, rs: RunState, take: int):
+    def run_block(self, rs: RunState, take: int, fuse: bool = False):
         """Advance one ``take``-step block on a live :class:`RunState`
         (mutated in place); returns the block's metrics on the device.
-        No rebin runs inside a block."""
-        if rs.sched is None:
-            rs.cell_f, rs.force, m = self.pipeline.run_local(
+        ``fuse=True`` also runs the between-block rebin (and, pruned, the
+        prune) after the steps: the ``overlap_rebin`` path."""
+        if fuse and rs.sched is None:
+            rs.cell_f, rs.cell_i, rs.force, m, diag = self.block_rebin(
+                rs.cell_f, rs.cell_i, rs.force, take)
+        elif fuse:
+            sel, tiers, tiers_inner = rs.sched
+            (rs.cell_f, rs.cell_i, rs.force, m, diag, sel2, cum, cum_inner,
+             occ, ovf) = self.block_sched_rebin(
+                rs.cell_f, rs.cell_i, rs.force, sel, take, tiers,
+                tiers_inner)
+            rs.sched = self._bucket_exec(
+                sel2, cum, cum_inner, occ,
+                disable_inner=self._note_overflow(ovf))
+        elif rs.sched is None:
+            rs.cell_f, rs.force, m, _led = self.pipeline.run_local(
                 rs.cell_f, rs.force, take, self._block_ctx(rs.cell_i))
         else:
             sel, tiers, tiers_inner = rs.sched
@@ -609,10 +667,13 @@ class MDEngine:
             # block's overflow is still counted and warned
             rs.disable = self._note_overflow(ovf)
         rs.step += take
+        if fuse:
+            rs.diags.append(self._host_diag(diag))
         return m
 
     def advance_schedule(self, rs: RunState):
-        """The between-block rebin / migration and pair-schedule prune."""
+        """The between-block rebin / migration and pair-schedule prune
+        (the host-dispatched path; fused blocks already carried theirs)."""
         old_sched = rs.sched
         rs.cell_f, rs.cell_i, rs.force, diag = self.rebin_fn(rs.cell_f,
                                                              rs.cell_i)
@@ -627,17 +688,20 @@ class MDEngine:
 
         Returns ``((cell_f, cell_i), metrics, diags)``: the final block
         tensors, per-step numpy metrics (``pe``, ``ke``, ``mom``) and one
-        diagnostics dict per rebin.
+        diagnostics dict per rebin.  With ``overlap_rebin`` every block
+        that another block follows carries its own rebin; the final block
+        runs plain.
         """
         nst = self.system.params.nstlist
         rs = self.begin_run(state)
         blocks = []
         while rs.step < n_steps:
             take = min(nst, n_steps - rs.step)
-            m = self.run_block(rs, take)
+            fuse = self.overlap_rebin and rs.step + take < n_steps
+            m = self.run_block(rs, take, fuse=fuse)
             if collect:
                 blocks.append(m)
-            if rs.step < n_steps:
+            if not fuse and rs.step < n_steps:
                 self.advance_schedule(rs)
         metrics = {}
         if blocks:

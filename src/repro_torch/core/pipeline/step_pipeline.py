@@ -1,23 +1,42 @@
-"""StepPipeline: the multi-step program over one halo plan.
+"""StepPipeline: construct-once, depth-buffered multi-step programs.
 
-The port of the JAX package's ``core/pipeline/step_pipeline.py`` in its
-``pipeline="off"`` mode: the strictly serialized reference chain, each
-step ``begin -> fwd halo -> forces -> rev halo -> finish``.  The reference
-runs it as a ``lax.scan``; here it is a Python loop over steps on the
-device, with per-step metrics kept on the device and stacked at the end
-(no host round trip inside a block).
+The port of the JAX package's ``core/pipeline/step_pipeline.py``, the
+seam between a :class:`~repro_torch.core.halo_plan.HaloPlan` and an
+engine's physics:
 
-The ``"double_buffer"`` mode, its signal ledger, wire rings and fault
-injection come with a later slice of the port; asking for them raises.
+* ``pipeline="off"``: the strictly serialized reference chain, each step
+  ``begin -> fwd halo -> forces -> rev halo -> finish``.
+* ``pipeline="double_buffer"``: the software-pipelined schedule with a
+  ``depth >= 2`` in-flight window.  Extended force buffers live in a
+  ``depth``-slot ring; each step's force-return signal is released when
+  the force pass fills its slot and acquired one step later, right before
+  the integrator consumes it.  The prologue runs step 0's forward half,
+  the skew-one steps follow (the reference's windows of ``depth - 1``
+  steps and its epilogue drain, in step order), and a final finish
+  consumes the last slot.  A :class:`~repro_torch.core.pipeline.ledger.SignalLedger`
+  threads the put-with-signal bookkeeping through the steps.
+
+The reference runs both as ``lax.scan`` programs; here each is a Python
+loop issuing every step's work on the device in program order, with
+per-step metrics kept on the device and stacked at the end (no host read
+inside a block).  Both modes run the same operations in the same order,
+so their trajectories are bitwise identical at every depth: the physics
+chain stays serial (velocity Verlet needs step ``N``'s returned forces
+before step ``N + 1``'s kick-drift); the window deepens the
+communication schedule, never the integrator.  The slot ring is a Python
+list of ``depth`` references to the force passes' fresh output tensors,
+so no slot aliases a buffer a later step writes in place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.analysis.schedule_verifier import gate_pipeline_build
 from repro_torch.core.halo_plan import HaloPlan
+from repro_torch.core.pipeline.ledger import LedgerState, SignalLedger
 
 PIPELINE_MODES = ("off", "double_buffer")
 Metrics = Dict[str, torch.Tensor]
@@ -30,7 +49,9 @@ class StepFns:
     ``begin(state, f, ctx) -> (state, aux, payload)``, ``force(ext, ctx)
     -> (F_ext, metrics)``, ``finish(state, aux, f, ctx) -> (state,
     f_carry, metrics)``.  Metric keys are unique across ``force`` and
-    ``finish``; ``ctx`` is constant for the whole multi-step call.
+    ``finish``; ``ctx`` is constant for the whole multi-step call, so both
+    pipeline modes see the same block-level inputs.  ``force`` must return
+    a fresh tensor (the ring keeps it until its slot drains).
     """
 
     begin: Callable[[Any, torch.Tensor, Any], Tuple[Any, Any, torch.Tensor]]
@@ -39,49 +60,135 @@ class StepFns:
                      Tuple[Any, torch.Tensor, Metrics]]
 
 
+def _stack(per_step: List[Metrics]) -> Metrics:
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
 class StepPipeline:
     """Construct-once multi-step program over one :class:`HaloPlan`."""
 
-    def __init__(self, plan: HaloPlan, fns: StepFns, mode: str = "off"):
+    def __init__(self, plan: HaloPlan, fns: StepFns,
+                 mode: str = "double_buffer", depth: int = 2,
+                 verify: str = "error"):
         if mode not in PIPELINE_MODES:
             raise ValueError(f"unknown pipeline mode {mode!r}; "
                              f"available: {PIPELINE_MODES}")
-        if mode != "off":
-            raise NotImplementedError(
-                f"pipeline mode {mode!r} is not ported yet: the "
-                "double-buffered pipeline comes with the step-pipeline and "
-                "signal-backend slice of the port")
+        if depth < 2 and mode == "double_buffer":
+            raise ValueError("double_buffer needs depth >= 2")
         self.plan = plan
         self.fns = fns
         self.mode = mode
+        self.depth = int(depth) if mode == "double_buffer" else 1
+        self.ledger = SignalLedger(depth=self.depth,
+                                   n_pulses=max(1, plan.sched.total_pulses))
+        # build-time gate: statically replay the release/acquire schedule
+        # this (mode, depth, pulses) config emits and reject it with a
+        # counterexample event trace if any slot state is unsafe;
+        # ``verify="warn"`` downgrades to a warning, ``"off"`` skips
+        self.schedule_report = gate_pipeline_build(
+            mode=self.mode, depth=self.depth,
+            n_pulses=self.ledger.n_pulses, backend=plan.spec.backend,
+            verify=verify)
 
     @classmethod
     def build(cls, plan: HaloPlan, fns: StepFns, *,
-              mode: str = "off") -> "StepPipeline":
-        return cls(plan, fns, mode=mode)
+              mode: str = "double_buffer", depth: int = 2,
+              verify: str = "error") -> "StepPipeline":
+        return cls(plan, fns, mode=mode, depth=depth, verify=verify)
+
+    # -- execution -----------------------------------------------------------
 
     def run_local(self, state, f0: torch.Tensor, n_steps: int, ctx=None
-                  ) -> Tuple[Any, torch.Tensor, Metrics]:
+                  ) -> Tuple[Any, torch.Tensor, Metrics, LedgerState]:
         """Run ``n_steps`` steps; returns the final state, the last step's
-        returned forces and the per-step metrics stacked on dim 0."""
+        returned forces, the per-step metrics stacked on dim 0 and the
+        final signal-ledger state."""
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
-        return self._run_serial(state, f0, n_steps, ctx)
+        if self.mode == "off":
+            return self._run_serial(state, f0, n_steps, ctx)
+        return self._run_pipelined(state, f0, n_steps, ctx)
 
     def _run_serial(self, state, f0, n_steps, ctx):
-        fns, plan = self.fns, self.plan
-        f = f0
-        per_step = []
+        fns, plan, ledger = self.fns, self.plan, self.ledger
+        led, f, per_step = ledger.init(), f0, []
         for _ in range(n_steps):
             state, aux, payload = fns.begin(state, f, ctx)
+            led = ledger.release(led, "fwd", 0)
             ext = plan.fwd_local(payload)
+            led = ledger.acquire(led, "fwd", 0)
             F_ext, m_force = fns.force(ext, ctx)
+            led = ledger.release(led, "rev", 0)
             f_new = plan.rev_local(F_ext)
+            led = ledger.acquire(led, "rev", 0)
             state, f, m_fin = fns.finish(state, aux, f_new, ctx)
             per_step.append({**m_force, **m_fin})
-        metrics = {k: torch.stack([m[k] for m in per_step])
-                   for k in per_step[0]}
-        return state, f, metrics
+        return state, f, _stack(per_step), led
+
+    # -- the depth-d window ------------------------------------------------
+
+    def _pipelined_step(self, carry, k: int, ctx):
+        """Drain step ``k-1``'s force return, issue step ``k``'s forward
+        half (the skew-one unit every window is built from).  Returns the
+        carry, step ``k``'s force metrics and step ``k-1``'s finish
+        metrics."""
+        fns, plan, ledger, depth = self.fns, self.plan, self.ledger, \
+            self.depth
+        state, slots, aux, led = carry
+        prev, cur = (k - 1) % depth, k % depth
+        f_prev = plan.rev_local(slots[prev])
+        led = ledger.acquire(led, "rev", prev)
+        state, f_carry, m_fin = fns.finish(state, aux, f_prev, ctx)
+        state, aux, payload = fns.begin(state, f_carry, ctx)
+        led = ledger.release(led, "fwd", cur)
+        ext = plan.fwd_local(payload)
+        led = ledger.acquire(led, "fwd", cur)
+        F_ext, m_force = fns.force(ext, ctx)
+        slots[cur] = F_ext
+        led = ledger.release(led, "rev", cur)
+        return (state, slots, aux, led), m_force, m_fin
+
+    def _run_pipelined(self, state, f0, n_steps, ctx):
+        fns, plan, ledger, depth = self.fns, self.plan, self.ledger, \
+            self.depth
+
+        # prologue: step 0's forward half fills slot 0; its force-return
+        # signal is released at once, in flight across the first window
+        state, aux, payload = fns.begin(state, f0, ctx)
+        led = ledger.release(ledger.init(), "fwd", 0)
+        ext = plan.fwd_local(payload)
+        led = ledger.acquire(led, "fwd", 0)
+        F0, m_force0 = fns.force(ext, ctx)
+        slots: List[Any] = [F0] + [None] * (depth - 1)
+        led = ledger.release(led, "rev", 0)
+
+        m_force, m_fin = [m_force0], []
+        carry = (state, slots, aux, led)
+        # the reference unrolls whole windows of depth - 1 steps into one
+        # program region each and drains the rest in an epilogue loop;
+        # issued eagerly, both are this one loop in step order
+        for k in range(1, n_steps):
+            carry, mf, mn = self._pipelined_step(carry, k, ctx)
+            m_force.append(mf)
+            m_fin.append(mn)
+        state, slots, aux, led = carry
+        # the final step's outstanding force return
+        last = (n_steps - 1) % depth
+        f_last = plan.rev_local(slots[last])
+        led = ledger.acquire(led, "rev", last)
+        state, f_carry, m_fin_last = fns.finish(state, aux, f_last, ctx)
+        m_fin.append(m_fin_last)
+        # the windows emitted step k's force metrics beside step k-1's
+        # finish metrics: both lists are in step order now
+        return state, f_carry, {**_stack(m_force), **_stack(m_fin)}, led
+
+    # -- introspection -----------------------------------------------------
+
+    def stats(self, local_shape, **kw) -> dict:
+        """Plan stats at this pipeline mode / depth (overlap + latency)."""
+        kw.setdefault("depth", max(self.depth, 2))
+        return self.plan.stats(local_shape, pipeline=self.mode, **kw)
 
     def __repr__(self):
-        return f"StepPipeline(mode={self.mode!r}, plan={self.plan!r})"
+        return (f"StepPipeline(mode={self.mode!r}, depth={self.depth}, "
+                f"plan={self.plan!r})")

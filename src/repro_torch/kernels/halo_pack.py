@@ -1,24 +1,37 @@
-"""Halo pack / unpack-add: CUDA kernels for Hopper plus their plain forms.
+"""Halo kernels for Hopper plus their plain forms.
 
-Replaces the TPU kernels ``src/repro/kernels/halo_pack.py:pack`` and
-``:unpack_add`` (the ``"pallas"`` halo backend's per-pulse gather and
-force-return scatter-add).  The CUDA source is ``csrc/halo_pack.cu``; its
-header says what bounds the kernels on an H100 (bytes, and at the MD
-path's halo sizes launch latency) and what the design does about it.
+Replaces the TPU kernels of ``src/repro/kernels/halo_pack.py``:
 
-Both functions are batched over the virtual domain mesh: ``src`` is
-``(n_dom, R, F)`` and one index map ``(M,)`` serves every domain, so a
-pulse is one launch whatever the domain count.
+* ``pack`` and ``unpack_add`` (the ``"pallas"`` halo backend's per-pulse
+  gather and force-return scatter-add), CUDA source
+  ``csrc/halo_pack.cu``;
+* ``put_signal`` and ``fused_pulses`` (the ``"signal"`` backend's fused
+  pack + put-with-signal, one pulse or all pulses of a dim per launch),
+  CUDA source ``csrc/halo_signal.cu``.
+
+Each source's header says what bounds its kernels on an H100 (bytes, and
+at the MD path's halo sizes launch latency) and what the design does
+about it.
+
+Every function is batched over the virtual domain mesh: ``src`` is
+``(n_dom, R, F)``, domains row-major over ``mesh_shape``, and one index
+map serves every domain, so a pulse is one launch whatever the domain
+count.  A put to the ring neighbour along ``axis`` is a store into that
+domain's receive slab: the plain forms spell it as a ``torch.roll`` of
+the domain dim (``shift=-1`` is the reference's ``_perm_fwd``, ``+1`` its
+``_perm_rev``).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version beside it.  Each wrapper counts its launches in a
-plain integer attribute (``pack.launches``, ``unpack_add.launches``),
-raised only where the kernel is launched.
+plain integer attribute (``pack.launches`` and so on), raised only where
+the kernel is launched.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Optional, Sequence
 
 import torch
 
@@ -38,6 +51,20 @@ def _lib() -> ctypes.CDLL:
     for sfx in _SUFFIX.values():
         fn = getattr(lib, f"halo_unpack_add_{sfx}")
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _signal_lib() -> ctypes.CDLL:
+    lib = _build.load("halo_signal")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for width in (4, 8):            # bit copies: one entry per width
+        fn = getattr(lib, f"halo_put_signal_b{width}")
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 7 + [ptr]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"halo_fused_pulses_b{width}")
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 8 + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -148,3 +175,157 @@ def unpack_add(dst: torch.Tensor, index_map: torch.Tensor,
 
 
 unpack_add.launches = 0
+
+
+# ---- put_signal -------------------------------------------------------------
+
+def _ring(mesh_shape: Sequence[int], axis: int, n_dom: int):
+    """(ring size, domain stride) of ``axis`` in a row-major mesh."""
+    mesh_shape = tuple(int(n) for n in mesh_shape)
+    if math.prod(mesh_shape) != n_dom:
+        raise ValueError(f"mesh {mesh_shape} does not hold {n_dom} domains")
+    if not 0 <= axis < len(mesh_shape):
+        raise ValueError(f"axis {axis} outside mesh {mesh_shape}")
+    return mesh_shape[axis], math.prod(mesh_shape[axis + 1:])
+
+
+def _words(signal: Optional[torch.Tensor], n: int,
+           device: torch.device) -> torch.Tensor:
+    """The caller's signal words (int32, at least ``n``), or fresh ones."""
+    if signal is None:
+        return torch.empty((n,), dtype=torch.int32, device=device)
+    _check("signal", signal, 1, device, torch.int32)
+    if signal.numel() < n:
+        raise ValueError(f"signal holds {signal.numel()} words, needs {n}")
+    return signal
+
+
+def put_signal_plain(src: torch.Tensor, index_map: torch.Tensor,
+                     mesh_shape: Sequence[int], axis: int,
+                     shift: int) -> torch.Tensor:
+    """Plain form of :func:`put_signal`: the gather, then the ring shift."""
+    packed = pack_plain(src, index_map)
+    n_dom, M, F = packed.shape
+    return torch.roll(packed.reshape(tuple(mesh_shape) + (M, F)), shift,
+                      dims=axis).reshape(n_dom, M, F)
+
+
+def put_signal(src: torch.Tensor, index_map: torch.Tensor,
+               mesh_shape: Sequence[int], axis: int, shift: int,
+               signal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused pack + put to the ring neighbour ``my + shift`` along
+    ``axis``; returns every domain's RECEIVED ``(n_dom, M, F)`` buffer:
+    ``out[nb(b), m] = src[b, index_map[m]]`` (zero row where negative).
+
+    ``src`` (n_dom, R, F) f32 / f64 / int32, domains row-major over
+    ``mesh_shape``; ``index_map`` (M,) int32, entries in ``[-1, R)``; an
+    entry ``>= R`` raises here and traps the kernel on the card.  On the
+    card each row is one chunk and raises its receiver's arrival word in
+    ``signal`` (int32, >= n_dom words, reset by the launch; fresh ones
+    when None), so afterwards ``signal[:n_dom]`` all equal M.
+    """
+    _check("src", src, 3, src.device)
+    _check("index_map", index_map, 1, src.device, torch.int32)
+    n_dom, R, F = src.shape
+    ring, inner = _ring(mesh_shape, axis, n_dom)
+    if src.device.type == "cpu":
+        return put_signal_plain(src, index_map, mesh_shape, axis, shift)
+    if src.device.type != "cuda":
+        raise ValueError(f"put_signal: unsupported device {src.device}")
+    M = index_map.shape[0]
+    out = torch.empty((n_dom, M, F), dtype=src.dtype, device=src.device)
+    if out.numel() == 0:
+        return out
+    words = _words(signal, n_dom, src.device)
+    _launch(getattr(_signal_lib(), f"halo_put_signal_b{src.element_size()}"),
+            src.data_ptr(), index_map.data_ptr(), out.data_ptr(),
+            words.data_ptr(), n_dom, R, M, F, ring, inner, int(shift),
+            device=src.device)
+    put_signal.launches += 1
+    return out
+
+
+put_signal.launches = 0
+
+
+# ---- fused_pulses -----------------------------------------------------------
+
+def _check_fused_maps(index_maps: torch.Tensor, n_local: int) -> None:
+    """The staged-forwarding map contract (the kernel traps otherwise)."""
+    M = index_maps.shape[1]
+    if index_maps.numel() == 0:
+        return
+    if int(index_maps[0].max()) >= n_local:
+        raise IndexError("fused_pulses: pulse 0 index reaches past the "
+                         f"{n_local} local rows (no earlier pulse to read)")
+    if int(index_maps.max()) >= n_local + M:
+        raise IndexError(f"fused_pulses: index past the {n_local} local "
+                         f"rows + {M} forwarded rows")
+
+
+def fused_pulses_plain(src: torch.Tensor, index_maps: torch.Tensor,
+                       n_local: int, mesh_shape: Sequence[int],
+                       axis: int) -> torch.Tensor:
+    """Plain form of :func:`fused_pulses`: a loop over pulses, each a
+    select of local or forwarded rows and a put to the -1 neighbour."""
+    _check_fused_maps(index_maps, n_local)
+    n_dom, _R, F = src.shape
+    n_pulses, M = index_maps.shape
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+    prev, outs = None, []
+    for p in range(n_pulses):
+        idx = index_maps[p].long()
+        dep = idx >= n_local
+        rows = src.index_select(1, torch.where(dep | (idx < 0), 0, idx))
+        if prev is not None:
+            fwd = prev.index_select(1, torch.where(dep, idx - n_local, 0))
+            rows = torch.where(dep[None, :, None], fwd, rows)
+        rows = torch.where((idx >= 0)[None, :, None], rows, zero)
+        prev = torch.roll(rows.reshape(tuple(mesh_shape) + (M, F)), -1,
+                          dims=axis).reshape(n_dom, M, F)
+        outs.append(prev)
+    return torch.stack(outs, dim=1)
+
+
+def fused_pulses(src: torch.Tensor, index_maps: torch.Tensor, n_local: int,
+                 mesh_shape: Sequence[int], axis: int,
+                 words: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All pulses of one dim in one launch (staged forwarding), each put
+    to the -1 neighbour along ``axis``; returns ``(n_dom, n_pulses, M,
+    F)``, every domain's receive buffers.
+
+    ``index_maps`` (n_pulses, M) int32: entries in ``[0, n_local)`` select
+    local rows of ``src`` (n_dom, R, F), entries in ``[n_local, n_local +
+    M)`` rows of the previous pulse's receive buffer, negative entries
+    zero rows.  A pulse-0 entry ``>= n_local`` or any entry ``>= n_local
+    + M`` raises here and traps the kernel on the card.  ``words`` (int32,
+    >= n_dom * n_pulses + 1; fresh when None) hold the arrival word of
+    each (domain, pulse), then the work-item ticket; the launch resets
+    them, and afterwards every arrival word equals M.
+    """
+    _check("src", src, 3, src.device)
+    _check("index_maps", index_maps, 2, src.device, torch.int32)
+    n_dom, R, F = src.shape
+    n_pulses, M = index_maps.shape
+    ring, inner = _ring(mesh_shape, axis, n_dom)
+    if not 1 <= n_local <= R:
+        raise ValueError(f"n_local={n_local} outside [1, {R}]")
+    if src.device.type == "cpu":
+        return fused_pulses_plain(src, index_maps, n_local, mesh_shape, axis)
+    if src.device.type != "cuda":
+        raise ValueError(f"fused_pulses: unsupported device {src.device}")
+    out = torch.empty((n_dom, n_pulses, M, F), dtype=src.dtype,
+                      device=src.device)
+    if out.numel() == 0:
+        return out
+    words = _words(words, n_dom * n_pulses + 1, src.device)
+    _launch(getattr(_signal_lib(),
+                    f"halo_fused_pulses_b{src.element_size()}"),
+            src.data_ptr(), index_maps.data_ptr(), out.data_ptr(),
+            words.data_ptr(), n_dom, R, int(n_local), n_pulses, M, F, ring,
+            inner, device=src.device)
+    fused_pulses.launches += 1
+    return out
+
+
+fused_pulses.launches = 0

@@ -4,8 +4,8 @@ On a 1x1x1 mesh every backend's fwd and rev must equal the JAX plan's
 bit for bit (f32 with wrap shifts, int32 without).  On multi-domain
 virtual meshes the port is held to the reference's own bar: fwd bitwise
 across backends (and equal to a numpy periodic-image oracle), the adjoint
-identity, and pallas rev == serialized rev bitwise.  The accounting dicts
-must equal the JAX plan's exactly.
+identity, and pallas / signal rev == serialized rev bitwise.  The
+accounting dicts must equal the JAX plan's exactly.
 """
 import numpy as np
 import pytest
@@ -24,7 +24,7 @@ from repro_torch.core.halo_plan import HaloPlan, HaloSpec
 from repro_torch.launch.mesh import make_mesh
 
 AXES = ("z", "y", "x")
-BACKENDS = ("serialized", "fused", "pallas")
+BACKENDS = ("serialized", "fused", "pallas", "signal")
 CONFIGS = {"w111": ((1, 1, 1), None), "w121": ((1, 2, 1), None),
            "w222p222": ((2, 2, 2), (2, 2, 2))}
 LOCAL = (4, 3, 5)
@@ -56,9 +56,17 @@ def _payload(rng, shape, dtype):
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 @pytest.mark.parametrize("config", list(CONFIGS))
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_fwd_rev_match_jax_bitwise(backend, config, dtype):
+def test_fwd_rev_match_jax_bitwise(backend, config, dtype, monkeypatch):
     widths, pulses = CONFIGS[config]
     rng = np.random.RandomState(sum(widths) + len(backend))
+    # which path JAX's signal backend takes: with three named mesh axes in
+    # scope its interpret-mode kernels cannot emulate the remote puts, so
+    # it runs its jnp oracle, which has the kernels' semantics
+    kernel_ok = []
+    from repro.core.pipeline.signal_backend import SignalBackend
+    real = SignalBackend._kernel_ok
+    monkeypatch.setattr(SignalBackend, "_kernel_ok", lambda self, plan: (
+        kernel_ok.append(real(self, plan)) or kernel_ok[-1]))
     jplan = jax_halo_plan.HaloPlan.build(
         jax_halo_plan.HaloSpec(axis_names=AXES, widths=widths,
                                backend=backend, pulses=pulses,
@@ -77,8 +85,12 @@ def test_fwd_rev_match_jax_bitwise(backend, config, dtype):
     want_r = np.asarray(jplan.rev(jnp.asarray(y)))
     got_r = plan.rev(torch.from_numpy(y)[None, None, None])
     assert np.array_equal(got_r[0, 0, 0].numpy(), want_r)
-    if backend == "pallas":
-        assert jplan._pallas_broken is False   # the JAX kernels really ran
+    # pallas: the JAX kernels really ran; signal: its oracle ran
+    assert jplan._pallas_broken is False
+    assert kernel_ok == ([False] * len(kernel_ok) if backend == "signal"
+                         else [])
+    if backend == "signal":
+        assert kernel_ok
 
 
 # --------------------------------------------------------------------------
@@ -135,6 +147,7 @@ def test_virtual_mesh_backends_agree(mesh_shape, config):
     for b in BACKENDS:
         assert np.array_equal(exts[b].numpy(), oracle), b
     assert torch.equal(revs["pallas"], revs["serialized"])
+    assert torch.equal(revs["signal"], revs["serialized"])
 
 
 def test_virtual_mesh_int32_pallas_matches_serialized():
@@ -142,11 +155,20 @@ def test_virtual_mesh_int32_pallas_matches_serialized():
     x = torch.from_numpy(rng.randint(-9, 9, (3, 2, 1) + LOCAL + (2,))
                          .astype(np.int32))
     plans = {b: _port_plan(b, (1, 2, 1), None, (3, 2, 1))
-             for b in ("serialized", "pallas")}
+             for b in ("serialized", "pallas", "signal")}
     ext = {b: p.fwd(x, wrap_shift=None) for b, p in plans.items()}
-    assert torch.equal(ext["pallas"], ext["serialized"])
-    assert torch.equal(plans["pallas"].rev(ext["pallas"]),
-                       plans["serialized"].rev(ext["serialized"]))
+    for b in ("pallas", "signal"):
+        assert torch.equal(ext[b], ext["serialized"]), b
+        assert torch.equal(plans[b].rev(ext[b]),
+                           plans["serialized"].rev(ext["serialized"])), b
+
+
+def test_signal_backend_refuses_multi_hop_widths():
+    """A halo wider than the local block needs multi-hop forwarding, which
+    the signal backend (like the reference's) does not implement."""
+    plan = _port_plan("signal", (5, 1, 1), None)
+    with pytest.raises(NotImplementedError, match="multi-hop"):
+        plan.fwd(torch.zeros((1, 1, 1) + LOCAL + (F,)))
 
 
 # --------------------------------------------------------------------------
@@ -220,9 +242,6 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="wire"):
         HaloPlan.build(HaloSpec(AXES, (1, 1, 1), wire_dtype="bfloat16"),
                        mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="signal"):
-        HaloPlan.build(HaloSpec(AXES, (1, 1, 1), backend="signal"), mesh,
-                       device="cpu")
     with pytest.raises(ValueError, match="unknown halo backend"):
         HaloPlan.build(HaloSpec(AXES, (1, 1, 1), backend="nope"), mesh,
                        device="cpu")
@@ -231,5 +250,8 @@ def test_unported_features_raise():
         plan.exchange(torch.zeros((1, 1, 1, 2, 2, 2, 1)))
     with pytest.raises(ValueError, match="no axis"):
         HaloPlan.build(HaloSpec(("q",), (1,)), mesh, device="cpu")
+    with pytest.raises(ValueError, match="unknown verify mode"):
+        HaloPlan.build(HaloSpec(AXES, (1, 1, 1)), mesh, device="cpu",
+                       verify="loud")
     with pytest.raises(ValueError, match="domain dims"):
         plan.fwd(torch.zeros((2, 1, 1, 2, 2, 2, 1)))

@@ -62,6 +62,15 @@ def test_port_imports_and_steps_with_jax_blocked():
         "force_backend='pallas', nstprune=1, device='cpu')\n"
         "_, m, d = eng.simulate(2)\n"
         "assert m['pe'].shape == (2,) and eng.sched_history\n"
+        "eng = MDEngine(make_grappa_like(300, seed=11), "
+        "make_mesh((1, 1, 1), ('z', 'y', 'x')), "
+        "HaloSpec(('z', 'y', 'x'), (1, 1, 1), backend='signal'), "
+        "pipeline='double_buffer', pipeline_depth=3, overlap_rebin=True, "
+        "device='cpu')\n"
+        "rs = eng.begin_run()\n"
+        "m = eng.run_block(rs, 3, fuse=True)\n"
+        "assert m['pe'].shape == (3,) and len(rs.diags) == 2\n"
+        "assert eng.schedule_report.safe\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -1,12 +1,18 @@
-"""Port's halo pack / unpack-add against the JAX Pallas kernels, bitwise.
+"""Port's halo kernels against the JAX Pallas kernels, bitwise.
 
 The JAX side runs its kernels in interpret mode on the CPU; the port's
 oracles (``kernels/ref.py``) and its wrappers' plain forms (which CPU
-tensors take) must give identical bits for f32, f64 and int32.  The
-``cuda`` cases hold the CUDA kernels against the plain forms on the card
-and skip without one.
+tensors take) must give identical bits for f32, f64 and int32.
+``put_signal`` and ``fused_pulses`` put to ring neighbours, so their JAX
+side runs on a 4-device ring in one session subprocess (as
+``tests/dist/check_kernel_halo.py`` does).  The ``cuda`` cases hold the
+CUDA kernels against the plain forms on the card and skip without one.
 """
 import contextlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +22,7 @@ from repro_torch.kernels import halo_pack, ref
 
 DTYPES = [np.float32, np.float64, np.int32]
 SHAPES = [(64, 32, 4), (100, 60, 7), (16, 128, 3)]
+REPO = Path(__file__).resolve().parent.parent
 
 
 class JaxKernels:
@@ -155,11 +162,160 @@ def test_plain_forms_reject_indices_outside_the_block(kernel):
 
 
 def test_cpu_path_launches_no_kernel():
-    before = (halo_pack.pack.launches, halo_pack.unpack_add.launches)
+    kernels = (halo_pack.pack, halo_pack.unpack_add, halo_pack.put_signal,
+               halo_pack.fused_pulses)
+    before = [k.launches for k in kernels]
     src = torch.ones((2, 5, 3))
     idx = torch.tensor([0, 2], dtype=torch.int32)
     halo_pack.unpack_add(src, idx, halo_pack.pack(src, idx))
-    assert (halo_pack.pack.launches, halo_pack.unpack_add.launches) == before
+    halo_pack.put_signal(src, idx, (2,), 0, -1)
+    halo_pack.fused_pulses(src, torch.tensor([[0, 2], [5, 6]], dtype=torch.int32),
+                           5, (2, 1), 0)
+    assert [k.launches for k in kernels] == before
+
+
+# ---- put_signal / fused_pulses against JAX on a 4-device ring --------------
+
+RING, N_LOCAL, RING_F = 4, 6, 3
+PUT_MAPS = {"plain": [0, 1, 4], "padded": [-1, 5, 2, -1, 0]}
+# (n_pulses, M) maps: entries >= N_LOCAL forward rows of the previous
+# pulse's receive buffer; "dep2" is the map of check_kernel_halo.py
+FUSED_MAPS = {
+    "indep": [[0, 1, 2, 3], [5, 4, 3, 2]],
+    "dep2": [[0, 1, 2, 3], [4, N_LOCAL + 1, N_LOCAL + 3, -1]],
+    "dep3": [[5, 0, -1], [N_LOCAL + 0, 2, N_LOCAL + 1],
+             [N_LOCAL + 2, N_LOCAL + 0, 3]],
+}
+
+_JAX_RING_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.compat import shard_map_norep
+from repro.kernels import halo_pack
+from repro.launch.mesh import make_mesh
+put_maps, fused_maps = eval(sys.argv[2]), eval(sys.argv[3])
+RING, N_LOCAL, F = 4, 6, 3
+# an int32 ring size: under x64 a Python int would make the kernels'
+# lax.rem(int32 axis index, int64) refuse to trace
+ring = np.int32(RING)
+assert len(jax.devices()) >= RING
+mesh = make_mesh((RING,), ("z",))
+out = {}
+for dt in ("float32", "float64"):
+    x = np.random.RandomState(0).randn(RING * N_LOCAL, F).astype(dt)
+    out["x_" + dt] = x
+    def run(body):
+        fn = shard_map_norep(body, mesh=mesh, in_specs=(P("z"),),
+                             out_specs=P("z"))
+        return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+    for name, m in put_maps.items():
+        for shift in (-1, 1):
+            idx = jnp.asarray(m, dtype=jnp.int32)
+            out[f"put_{name}_{shift}_{dt}"] = run(
+                lambda lo: halo_pack.put_signal(lo, idx, axis="z", ring=ring,
+                                                shift=np.int32(shift)))
+    for name, m in fused_maps.items():
+        maps = jnp.asarray(np.asarray(m, np.int32))
+        out[f"fused_{name}_{dt}"] = run(
+            lambda lo: halo_pack.fused_pulses(lo, maps, axis="z", ring=ring,
+                                              n_local=N_LOCAL))
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="session")
+def jax_ring(tmp_path_factory):
+    """JAX's put_signal (both shifts) and fused_pulses in interpret mode on
+    a 4-device ring, f32 and f64: one subprocess for the session."""
+    pytest.importorskip("jax")
+    out = tmp_path_factory.mktemp("jax_ring") / "ring.npz"
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={RING}"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = f"{REPO / 'src'}:{env.get('PYTHONPATH', '')}"
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_RING_SCRIPT, str(out), repr(PUT_MAPS),
+         repr(FUSED_MAPS)], capture_output=True, text=True, timeout=600,
+        env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"JAX ring reference failed:\n{proc.stderr}")
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("shift", [-1, 1])
+@pytest.mark.parametrize("name", list(PUT_MAPS))
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_put_signal_plain_matches_jax_ring_bitwise(jax_ring, dt, name, shift):
+    x = torch.from_numpy(jax_ring[f"x_{dt}"]).reshape(RING, N_LOCAL, RING_F)
+    idx = torch.tensor(PUT_MAPS[name], dtype=torch.int32)
+    got = halo_pack.put_signal(x, idx, (RING,), 0, shift)
+    want = jax_ring[f"put_{name}_{shift}_{dt}"].reshape(RING, len(idx),
+                                                         RING_F)
+    assert _bits_equal(got.numpy(), want)
+    assert _bits_equal(halo_pack.put_signal_plain(x, idx, (RING,), 0,
+                                                  shift).numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(FUSED_MAPS))
+@pytest.mark.parametrize("dt", ["float32", "float64"])
+def test_fused_pulses_plain_matches_jax_ring_bitwise(jax_ring, dt, name):
+    x = torch.from_numpy(jax_ring[f"x_{dt}"]).reshape(RING, N_LOCAL, RING_F)
+    maps = torch.tensor(FUSED_MAPS[name], dtype=torch.int32)
+    got = halo_pack.fused_pulses(x, maps, N_LOCAL, (RING,), 0)
+    want = jax_ring[f"fused_{name}_{dt}"].reshape(RING, *maps.shape, RING_F)
+    assert _bits_equal(got.numpy(), want)
+    pad = (maps < 0).numpy()
+    assert not got.numpy()[:, pad].any()         # padding lands as zero rows
+
+
+def test_signal_puts_on_a_3x2_mesh_follow_the_axis():
+    """Each domain of a 3x2 mesh receives from its +1 (shift=-1) or -1
+    (shift=+1) neighbour along the named axis only; size 3 tells the two
+    shifts apart."""
+    src = torch.arange(6 * 4 * 2, dtype=torch.int32).reshape(6, 4, 2)
+    idx = torch.tensor([3, -1, 0], dtype=torch.int32)
+    packed = halo_pack.pack_plain(src, idx).reshape(3, 2, 3, 2)
+    for axis in (0, 1):
+        for shift in (-1, 1):
+            got = halo_pack.put_signal(src, idx, (3, 2), axis, shift)
+            got = got.reshape(3, 2, 3, 2)
+            for a, b in np.ndindex(3, 2):
+                sa, sb = ((a - shift) % 3, b) if axis == 0 else \
+                    (a, (b - shift) % 2)
+                assert torch.equal(got[a, b], packed[sa, sb])
+
+
+@pytest.mark.parametrize("bad,match", [
+    ([[0, 6], [1, 2]], "pulse 0"),
+    ([[0, 1], [1, 8]], "forwarded rows"),
+])
+def test_fused_pulses_plain_rejects_bad_maps(bad, match):
+    """A pulse-0 forward or an entry past the forwarded rows is a fault of
+    the map: the plain form raises (the kernel traps on the card)."""
+    src = torch.zeros((2, 6, 3))
+    with pytest.raises(IndexError, match=match):
+        halo_pack.fused_pulses(src, torch.tensor(bad, dtype=torch.int32), 6,
+                               (2,), 0)
+
+
+def test_signal_wrappers_validate_inputs():
+    src = torch.zeros((4, 5, 3))
+    idx = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not hold"):
+        halo_pack.put_signal(src, idx, (3,), 0, -1)
+    with pytest.raises(ValueError, match="axis"):
+        halo_pack.put_signal(src, idx, (4,), 1, -1)
+    with pytest.raises((IndexError, RuntimeError), match="(?i)ind(ex|ices)"):
+        halo_pack.put_signal(src, torch.tensor([5], dtype=torch.int32), (4,),
+                             0, 1)
+    with pytest.raises(ValueError, match="n_local"):
+        halo_pack.fused_pulses(src, idx[None], 6, (4,), 0)
+    with pytest.raises(TypeError, match="int32"):
+        halo_pack.fused_pulses(src, idx[None].long(), 5, (4,), 0)
 
 
 # ---- the CUDA kernels against their plain forms (on the card) --------------
@@ -361,3 +517,103 @@ def test_cuda_pruned_engine_runs_through_the_kernels(cuda_device):
     for k in ("pe", "ke"):
         assert np.abs(m[k] - cpu[0][k]).max() / np.abs(cpu[0][k]).max() < 1e-9
     assert d == cpu[1]
+
+
+# ---- put_signal / fused_pulses on the card ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,axis", [((2, 2, 2), 0), ((2, 2, 2), 2),
+                                       ((3, 2, 1), 0), ((3, 2, 1), 1)])
+@pytest.mark.parametrize("p,m,f", [(7, 1, 7840), (56, 8, 1120),
+                                   (448, 64, 160), (33, 5, 7)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_put_signal_matches_plain_bitwise(cuda_device, dtype, p, m, f,
+                                               mesh, axis):
+    n_dom = int(np.prod(mesh))
+    rng = np.random.RandomState(p + m + f + n_dom)
+    src = torch.from_numpy(_src(rng, (n_dom, p, f), dtype)).to(cuda_device)
+    idx = torch.from_numpy(rng.randint(-1, p, size=(m,)).astype(np.int32))
+    idx = idx.to(cuda_device)
+    words = torch.full((n_dom + 3,), -7, dtype=torch.int32,
+                       device=cuda_device)
+    for shift in (-1, 1):
+        n0 = halo_pack.put_signal.launches
+        got = halo_pack.put_signal(src, idx, mesh, axis, shift, signal=words)
+        torch.cuda.synchronize()
+        assert halo_pack.put_signal.launches == n0 + 1
+        assert torch.equal(got, halo_pack.put_signal_plain(src, idx, mesh,
+                                                           axis, shift))
+        assert words[:n_dom].tolist() == [m] * n_dom
+        assert words[n_dom:].tolist() == [-7] * 3     # nothing past them
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_MAPS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_fused_pulses_matches_plain_bitwise(cuda_device, dtype, name):
+    """The crafted maps (dependent and padded pulses) on a 3x2 mesh along
+    both axes, repeated to shake out races on the arrival words."""
+    rng = np.random.RandomState(5)
+    src = torch.from_numpy(_src(rng, (6, N_LOCAL, 40), dtype))
+    src = src.to(cuda_device)
+    maps = torch.tensor(FUSED_MAPS[name], dtype=torch.int32,
+                        device=cuda_device)
+    P_, M = maps.shape
+    words = torch.empty((6 * P_ + 1,), dtype=torch.int32, device=cuda_device)
+    for axis in (0, 1):
+        want = halo_pack.fused_pulses_plain(src, maps, N_LOCAL, (3, 2), axis)
+        n0 = halo_pack.fused_pulses.launches
+        for _ in range(200):
+            got = halo_pack.fused_pulses(src, maps, N_LOCAL, (3, 2), axis,
+                                         words=words)
+            assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        assert halo_pack.fused_pulses.launches == n0 + 200
+        assert words[:-1].tolist() == [M] * (6 * P_)
+        assert int(words[-1]) == P_ * 6 * M           # every ticket taken
+
+
+@pytest.mark.cuda
+def test_cuda_signal_engine_runs_through_the_kernels(cuda_device):
+    """A 2x2x2 f64 run on the card with the signal backend under the
+    double-buffered pipeline: put_signal and fused_pulses launch, the run
+    equals serialized / off bitwise and the CPU run to 1e-9."""
+    from repro_torch import HaloSpec, MDEngine, make_grappa_like, make_mesh
+
+    mesh = make_mesh((2, 2, 2), ("z", "y", "x"))
+    kernels = (halo_pack.put_signal, halo_pack.fused_pulses)
+    runs = {}
+    for dev, backend, kw, pulses in (
+            ("cuda", "signal", dict(pipeline="double_buffer",
+                                    pipeline_depth=3, overlap_rebin=True),
+             None),
+            ("cuda", "serialized", {}, None),
+            ("cpu", "signal", dict(pipeline="double_buffer"), None),
+            ("cuda", "signal", dict(pipeline="double_buffer"), (2, 2, 2)),
+            ("cuda", "serialized", {}, (2, 2, 2))):
+        n0 = [k.launches for k in kernels]
+        widths = (1, 1, 1) if pulses is None else (2, 2, 2)
+        # two-pulse dims need local blocks of >= 2 cells: 1600 atoms
+        s = make_grappa_like(900 if pulses is None else 1600, seed=3,
+                             dtype=np.float64)
+        eng = MDEngine(s, mesh, HaloSpec(("z", "y", "x"), widths,
+                                         backend=backend, pulses=pulses),
+                       device=dev, **kw)
+        (cf, ci), m, d = eng.simulate(24)
+        runs[dev, backend, pulses] = (m, d, cf.cpu(), [
+            k.launches - n for k, n in zip(kernels, n0)])
+    sig, ser = runs["cuda", "signal", None], runs["cuda", "serialized", None]
+    assert sig[3][0] > 0 and ser[3] == [0, 0]
+    for k in ("pe", "ke", "mom"):
+        assert np.array_equal(sig[0][k], ser[0][k]), k
+    assert torch.equal(sig[2], ser[2]) and sig[1] == ser[1]
+    cpu = runs["cpu", "signal", None]
+    for k in ("pe", "ke"):
+        assert np.abs(sig[0][k] - cpu[0][k]).max() / \
+            np.abs(cpu[0][k]).max() < 1e-9
+    w2, w2_ser = runs["cuda", "signal", (2, 2, 2)], \
+        runs["cuda", "serialized", (2, 2, 2)]
+    assert min(w2[3]) > 0
+    for k in ("pe", "ke", "mom"):
+        assert np.array_equal(w2[0][k], w2_ser[0][k]), k
+    assert torch.equal(w2[2], w2_ser[2])

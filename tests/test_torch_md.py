@@ -6,12 +6,16 @@ rebin / migration), to stated tolerances where it is arithmetic:
   differs), 5e-5 against the O(N^2) direct oracle; PE to 1e-5 relative;
 * 24-step f64 trajectories: per-step PE / KE to 1e-9 relative and final
   positions to 1e-9 of the box, on 1x1x1 in process and on a 2x2x2 mesh
-  against an 8-virtual-device JAX run in a subprocess.
-Within the port the pallas and serialized halo backends must give
-bitwise-identical trajectories on 2x2x2.
+  against an 8-virtual-device JAX run in a subprocess (dense, pruned, and
+  the signal backend under the depth-3 double-buffered pipeline with the
+  fused rebin).
+Within the port the pallas, signal and serialized halo backends, and the
+off and double_buffer pipelines, must give bitwise-identical trajectories
+(2x2x2, and 3x2x2 for the roll signs).
 """
 import contextlib
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -315,11 +319,16 @@ assert len(jax.devices()) >= 8
 s = make_grappa_like(900, seed=3, dtype=np.float64)
 keys = ("migration_dropped", "migration_lost", "bin_overflow", "n_atoms")
 out = {}
-# the dense run, then the pruned "sparse" backend with nstprune 0 and 4
-for tag, kw in (("", {}), ("sparse0_", dict(force_backend="sparse")),
-                ("sparse4_", dict(force_backend="sparse", nstprune=4))):
+# the dense run, the pruned "sparse" backend with nstprune 0 and 4, and
+# the signal backend under the depth-3 double buffer with the fused rebin
+for tag, backend, kw in (
+        ("", "pallas", {}),
+        ("sparse0_", "pallas", dict(force_backend="sparse")),
+        ("sparse4_", "pallas", dict(force_backend="sparse", nstprune=4)),
+        ("signal_", "signal", dict(pipeline="double_buffer",
+                                   pipeline_depth=3, overlap_rebin=True))):
     eng = MDEngine(s, make_mesh((2, 2, 2), ("z", "y", "x")),
-                   HaloSpec(("z", "y", "x"), (1, 1, 1), backend="pallas"),
+                   HaloSpec(("z", "y", "x"), (1, 1, 1), backend=backend),
                    **kw)
     (cf, ci), m, d = eng.simulate(24)
     pos, = eng.gather_by_id([cf[..., :3]], ci)
@@ -328,7 +337,8 @@ for tag, kw in (("", {}), ("sparse0_", dict(force_backend="sparse")),
                 tag + "diags": np.array([[int(x[k]) for k in keys]
                                          for x in d]),
                 tag + "sched_history": np.array(eng.sched_history)})
-np.savez(sys.argv[1], pallas_broken=eng.plan._pallas_broken, **out)
+    out[tag + "pallas_broken"] = eng.plan._pallas_broken
+np.savez(sys.argv[1], **out)
 """
 
 
@@ -347,41 +357,110 @@ def jax_dd_reference(tmp_path_factory):
     return dict(np.load(out))
 
 
-@pytest.fixture(scope="module")
-def port_dd_f64():
-    s = make_grappa_like(900, seed=3, dtype=np.float64)
-    eng = _port_engine(s, mesh_shape=(2, 2, 2))
+def _ref_run(jax_dd_reference, tag):
+    return {k[len(tag):]: v for k, v in jax_dd_reference.items()
+            if k.startswith(tag)}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_dd_run(mesh_shape=(2, 2, 2), n_atoms=900, seed=3,
+                 backend="pallas", **kw):
+    """One f64 24-step port run on the CPU (cached: several tests compare
+    against the same run)."""
+    s = make_grappa_like(n_atoms, seed=seed, dtype=np.float64)
+    eng = MDEngine(s, make_mesh(mesh_shape, AXES),
+                   HaloSpec(AXES, (1, 1, 1), backend=backend), device="cpu",
+                   **kw)
     (cf, ci), m, d = eng.simulate(24)
     pos, = eng.gather_by_id([cf[..., :3]], ci)
-    return s, m, d, pos
+    return s, eng, (cf, ci), m, d, pos
 
 
-def test_whole_slice_f64_2x2x2_matches_jax(jax_dd_reference, port_dd_f64):
-    ref = jax_dd_reference
+def _assert_runs_bitwise(a, b):
+    """Two ``_port_dd_run`` results: final state, per-step metrics,
+    migration diagnostics and (pruned) schedule history identical."""
+    assert torch.equal(a[2][0], b[2][0]) and torch.equal(a[2][1], b[2][1])
+    for k in ("pe", "ke", "mom"):
+        assert np.array_equal(a[3][k], b[3][k]), k
+    assert a[4] == b[4]
+    assert a[1].sched_history == b[1].sched_history
+
+
+def test_whole_slice_f64_2x2x2_matches_jax(jax_dd_reference):
+    ref = _ref_run(jax_dd_reference, "")
     assert not bool(ref["pallas_broken"])
-    s, m, d, pos = port_dd_f64
+    s, _eng, _state, m, d, pos = _port_dd_run()
     ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
     _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
     assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
+
+
+def test_signal_double_buffer_f64_2x2x2_matches_jax(jax_dd_reference):
+    """signal / double_buffer / depth 3 / overlap_rebin against the same
+    JAX run, and bitwise against the port's serialized / off."""
+    ref = _ref_run(jax_dd_reference, "signal_")
+    run = _port_dd_run(backend="signal", pipeline="double_buffer",
+                       pipeline_depth=3, overlap_rebin=True)
+    s, eng, _state, m, d, pos = run
+    assert (eng.pipeline.mode, eng.pipeline.depth) == ("double_buffer", 3)
+    ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
+    _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
+    assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
+    _assert_runs_bitwise(run, _port_dd_run(backend="serialized"))
 
 
 @pytest.mark.parametrize("nstprune", [0, 4])
 def test_pruned_f64_2x2x2_matches_jax_sparse(jax_dd_reference, nstprune):
     """The port's ``"pallas"`` force backend (its kernels' plain forms on
     the CPU) against JAX's ``"sparse"`` backend on 8 devices."""
-    ref = {k[len(f"sparse{nstprune}_"):]: v
-           for k, v in jax_dd_reference.items()
-           if k.startswith(f"sparse{nstprune}_")}
-    s = make_grappa_like(900, seed=3, dtype=np.float64)
-    eng = MDEngine(s, make_mesh((2, 2, 2), AXES),
-                   HaloSpec(AXES, (1, 1, 1), backend="pallas"),
-                   force_backend="pallas", nstprune=nstprune, device="cpu")
-    (cf, ci), m, d = eng.simulate(24)
-    pos, = eng.gather_by_id([cf[..., :3]], ci)
+    ref = _ref_run(jax_dd_reference, f"sparse{nstprune}_")
+    s, eng, _state, m, d, pos = _port_dd_run(force_backend="pallas",
+                                             nstprune=nstprune)
     ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
     _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
     assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
     assert eng.sched_history == [tuple(r) for r in ref["sched_history"]]
+
+
+@pytest.mark.parametrize("nstprune", [0, 4])
+def test_pruned_signal_double_buffer_equals_off_bitwise(nstprune):
+    """Pruned signal / double_buffer / overlap_rebin against the port's
+    pruned off, bitwise (on jax 0.9 the reference's own sparse off and
+    double_buffer runs differ, so JAX is no bitwise oracle here)."""
+    off = _port_dd_run(force_backend="pallas", nstprune=nstprune)
+    for depth in (2, 3):
+        _assert_runs_bitwise(_port_dd_run(
+            backend="signal", force_backend="pallas", nstprune=nstprune,
+            pipeline="double_buffer", pipeline_depth=depth,
+            overlap_rebin=True), off)
+
+
+@pytest.mark.parametrize("mesh_shape,widths,pulses", [
+    pytest.param((3, 2, 2), (1, 1, 1), None, id="3x2x2"),
+    pytest.param((2, 2, 2), (2, 2, 2), (2, 2, 2), id="2x2x2-w2p2"),
+])
+def test_signal_double_buffer_equals_serialized_off(mesh_shape, widths,
+                                                    pulses):
+    """signal / double_buffer against serialized / off, bitwise, across a
+    fused rebin: on 3x2x2 (size-3 domain axes tell the two put directions
+    apart, which size-2 axes cannot) and with two-pulse dims, which take
+    ``fused_pulses`` (local blocks of 2 cells, so 1600 atoms)."""
+    runs = {}
+    s = make_grappa_like(1600, seed=4)
+    for backend, kw in (("serialized", {}),
+                        ("signal", dict(pipeline="double_buffer",
+                                        pipeline_depth=2,
+                                        overlap_rebin=True))):
+        eng = MDEngine(s, make_mesh(mesh_shape, AXES),
+                       HaloSpec(AXES, widths, backend=backend,
+                                pulses=pulses), device="cpu", **kw)
+        (cf, ci), m, d = eng.simulate(22)
+        runs[backend] = (cf, ci, m, d)
+    p, q = runs["signal"], runs["serialized"]
+    assert torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+    for k in ("pe", "ke", "mom"):
+        assert np.array_equal(p[2][k], q[2][k]), k
+    assert p[3] == q[3] and len(p[3]) == 2
 
 
 def test_pallas_equals_serialized_bitwise_2x2x2():
@@ -413,17 +492,59 @@ def test_short_nve_run_is_stable(f32_system):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pipeline="double_buffer"), "pipeline"),
-    (dict(overlap_rebin=True), "overlap_rebin"),
-    (dict(force_backend="pallas", static_ladder=True), "static_ladder"),
-    (dict(spec=HaloSpec(AXES, (1, 1, 1), wire_dtype="bfloat16")), "wire"),
-    (dict(spec=HaloSpec(AXES, (1, 1, 1), backend="signal")), "signal"),
-    (dict(wire_dtype="bfloat16"), "wire"),
-    (dict(trace=True), "trace"),
-    (dict(inject=True), "inject"),
-    (dict(health=True), "health"),
-    (dict(obs=object()), "obs"),
+    pytest.param(dict(force_backend="pallas", static_ladder=True),
+                 "static_ladder", id="kw2-static_ladder"),
+    pytest.param(dict(spec=HaloSpec(AXES, (1, 1, 1), wire_dtype="bfloat16")),
+                 "wire", id="kw3-wire"),
+    pytest.param(dict(wire_dtype="bfloat16"), "wire", id="kw5-wire"),
+    pytest.param(dict(trace=True), "trace", id="kw6-trace"),
+    pytest.param(dict(inject=True), "inject", id="kw7-inject"),
+    pytest.param(dict(health=True), "health", id="kw8-health"),
+    pytest.param(dict(obs=object()), "obs", id="kw9-obs"),
 ])
 def test_unported_engine_knobs_raise(f32_system, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         MDEngine(f32_system, make_mesh((1, 1, 1), AXES), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(pipeline="double_buffer"), id="pipeline"),
+    pytest.param(dict(overlap_rebin=True), id="overlap_rebin"),
+    pytest.param(dict(spec=HaloSpec(AXES, (1, 1, 1), backend="signal")),
+                 id="signal"),
+])
+def test_ported_engine_knobs_build(f32_system, kw):
+    """The knobs this slice ports build and run (two steps), and the run
+    equals the default engine's bitwise."""
+    runs = [MDEngine(f32_system, make_mesh((1, 1, 1), AXES), device="cpu",
+                     **k).simulate(2)[1] for k in (kw, {})]
+    for k in ("pe", "ke", "mom"):
+        assert runs[0][k].shape[0] == 2
+        assert np.array_equal(runs[0][k], runs[1][k]), k
+
+
+def test_engine_gate_matches_jax(f32_system):
+    """``pipeline_depth`` and the build-time verifier gate: the configs
+    the reference rejects raise the same error class and message."""
+    mesh, jmesh = make_mesh((1, 1, 1), AXES), jax_make_mesh((1, 1, 1), AXES)
+    for kw in (dict(force_backend="sparse", nstprune=25),
+               dict(force_backend="sparse", nstprune=4, r_list_factor=0.5),
+               dict(pipeline="double_buffer", pipeline_depth=1),
+               dict(verify="loud")):
+        with pytest.raises(ValueError) as want:
+            JaxMDEngine(f32_system, jmesh, **kw)
+        with pytest.raises(ValueError) as got:
+            MDEngine(f32_system, mesh, device="cpu", **kw)
+        assert (type(got.value).__name__, str(got.value)) == \
+            (type(want.value).__name__, str(want.value))
+    eng = MDEngine(f32_system, mesh, device="cpu", pipeline="double_buffer",
+                   pipeline_depth=4, overlap_rebin=True)
+    jeng = JaxMDEngine(f32_system, jmesh, pipeline="double_buffer",
+                       pipeline_depth=4, overlap_rebin=True)
+    assert eng.schedule_report.to_dict() == jeng.schedule_report.to_dict()
+    assert eng.halo_stats() == jeng.halo_stats()
+    assert eng.overlap_stats() == jeng.overlap_stats()
+    with pytest.warns(RuntimeWarning, match="rejected by the static"):
+        eng = MDEngine(f32_system, mesh, device="cpu",
+                       force_backend="sparse", nstprune=25, verify="warn")
+    assert eng.schedule_report is None
