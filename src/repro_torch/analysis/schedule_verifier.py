@@ -278,8 +278,8 @@ def check_md_config(*, nstlist: int, nstprune: int, pipeline: str,
 
 
 # --------------------------------------------------------------------------
-# event extraction (mirrors StepPipeline._run_serial / _run_pipelined and
-# the engine's block_sched sub-block unrolling)
+# event extraction (mirrors the reference StepPipeline's serial and windowed
+# schedules and the engine's block_sched sub-block unrolling)
 # --------------------------------------------------------------------------
 
 def _serial_events(n: int, step0: int) -> List[CommEvent]:

@@ -6,26 +6,24 @@ engine's physics:
 
 * ``pipeline="off"``: the strictly serialized reference chain, each step
   ``begin -> fwd halo -> forces -> rev halo -> finish``.
-* ``pipeline="double_buffer"``: the software-pipelined schedule with a
-  ``depth >= 2`` in-flight window.  Extended force buffers live in a
-  ``depth``-slot ring; each step's force-return signal is released when
-  the force pass fills its slot and acquired one step later, right before
-  the integrator consumes it.  The prologue runs step 0's forward half,
-  the skew-one steps follow (the reference's windows of ``depth - 1``
-  steps and its epilogue drain, in step order), and a final finish
-  consumes the last slot.  A :class:`~repro_torch.core.pipeline.ledger.SignalLedger`
-  threads the put-with-signal bookkeeping through the steps.
+* ``pipeline="double_buffer"``: the ledger of the software-pipelined
+  schedule with a ``depth >= 2`` in-flight window.  Step ``k``'s signals
+  live on slot ``k % depth`` of a
+  :class:`~repro_torch.core.pipeline.ledger.SignalLedger`; the build-time
+  verifier replays this mode's windowed release/acquire schedule.
 
-The reference runs both as ``lax.scan`` programs; here each is a Python
-loop issuing every step's work on the device in program order, with
+The reference runs both as ``lax.scan`` programs and lets XLA overlap a
+window's force returns with the next steps' work.  Here both modes are
+one Python loop issuing every step's work on one CUDA stream, with
 per-step metrics kept on the device and stacked at the end (no host read
-inside a block).  Both modes run the same operations in the same order,
-so their trajectories are bitwise identical at every depth: the physics
-chain stays serial (velocity Verlet needs step ``N``'s returned forces
-before step ``N + 1``'s kick-drift); the window deepens the
-communication schedule, never the integrator.  The slot ring is a Python
-list of ``depth`` references to the force passes' fresh output tensors,
-so no slot aliases a buffer a later step writes in place.
+inside a block).  Unrolled, the reference's windowed order (prologue,
+windows of ``depth - 1`` steps, epilogue drain) issues each step's
+``begin -> fwd -> force -> rev -> finish`` and each slot's release /
+acquire events in the serial order, so on one stream it is the serial
+chain: ``double_buffer`` differs from ``off`` only in the ledger slot a
+step's signals use, and both give bitwise identical trajectories at
+every depth.  Real overlap (a second stream, or a CUDA graph per block)
+is later work.
 """
 from __future__ import annotations
 
@@ -105,82 +103,21 @@ class StepPipeline:
         final signal-ledger state."""
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
-        if self.mode == "off":
-            return self._run_serial(state, f0, n_steps, ctx)
-        return self._run_pipelined(state, f0, n_steps, ctx)
-
-    def _run_serial(self, state, f0, n_steps, ctx):
         fns, plan, ledger = self.fns, self.plan, self.ledger
         led, f, per_step = ledger.init(), f0, []
-        for _ in range(n_steps):
+        for k in range(n_steps):
+            buf = k % self.depth
             state, aux, payload = fns.begin(state, f, ctx)
-            led = ledger.release(led, "fwd", 0)
+            led = ledger.release(led, "fwd", buf)
             ext = plan.fwd_local(payload)
-            led = ledger.acquire(led, "fwd", 0)
+            led = ledger.acquire(led, "fwd", buf)
             F_ext, m_force = fns.force(ext, ctx)
-            led = ledger.release(led, "rev", 0)
+            led = ledger.release(led, "rev", buf)
             f_new = plan.rev_local(F_ext)
-            led = ledger.acquire(led, "rev", 0)
+            led = ledger.acquire(led, "rev", buf)
             state, f, m_fin = fns.finish(state, aux, f_new, ctx)
             per_step.append({**m_force, **m_fin})
         return state, f, _stack(per_step), led
-
-    # -- the depth-d window ------------------------------------------------
-
-    def _pipelined_step(self, carry, k: int, ctx):
-        """Drain step ``k-1``'s force return, issue step ``k``'s forward
-        half (the skew-one unit every window is built from).  Returns the
-        carry, step ``k``'s force metrics and step ``k-1``'s finish
-        metrics."""
-        fns, plan, ledger, depth = self.fns, self.plan, self.ledger, \
-            self.depth
-        state, slots, aux, led = carry
-        prev, cur = (k - 1) % depth, k % depth
-        f_prev = plan.rev_local(slots[prev])
-        led = ledger.acquire(led, "rev", prev)
-        state, f_carry, m_fin = fns.finish(state, aux, f_prev, ctx)
-        state, aux, payload = fns.begin(state, f_carry, ctx)
-        led = ledger.release(led, "fwd", cur)
-        ext = plan.fwd_local(payload)
-        led = ledger.acquire(led, "fwd", cur)
-        F_ext, m_force = fns.force(ext, ctx)
-        slots[cur] = F_ext
-        led = ledger.release(led, "rev", cur)
-        return (state, slots, aux, led), m_force, m_fin
-
-    def _run_pipelined(self, state, f0, n_steps, ctx):
-        fns, plan, ledger, depth = self.fns, self.plan, self.ledger, \
-            self.depth
-
-        # prologue: step 0's forward half fills slot 0; its force-return
-        # signal is released at once, in flight across the first window
-        state, aux, payload = fns.begin(state, f0, ctx)
-        led = ledger.release(ledger.init(), "fwd", 0)
-        ext = plan.fwd_local(payload)
-        led = ledger.acquire(led, "fwd", 0)
-        F0, m_force0 = fns.force(ext, ctx)
-        slots: List[Any] = [F0] + [None] * (depth - 1)
-        led = ledger.release(led, "rev", 0)
-
-        m_force, m_fin = [m_force0], []
-        carry = (state, slots, aux, led)
-        # the reference unrolls whole windows of depth - 1 steps into one
-        # program region each and drains the rest in an epilogue loop;
-        # issued eagerly, both are this one loop in step order
-        for k in range(1, n_steps):
-            carry, mf, mn = self._pipelined_step(carry, k, ctx)
-            m_force.append(mf)
-            m_fin.append(mn)
-        state, slots, aux, led = carry
-        # the final step's outstanding force return
-        last = (n_steps - 1) % depth
-        f_last = plan.rev_local(slots[last])
-        led = ledger.acquire(led, "rev", last)
-        state, f_carry, m_fin_last = fns.finish(state, aux, f_last, ctx)
-        m_fin.append(m_fin_last)
-        # the windows emitted step k's force metrics beside step k-1's
-        # finish metrics: both lists are in step order now
-        return state, f_carry, {**_stack(m_force), **_stack(m_fin)}, led
 
     # -- introspection -----------------------------------------------------
 
