@@ -56,7 +56,22 @@ Phases, each asserting (any failure exits non-zero with no result line):
     process, NVE and migration bars as in 5;
 12. the profile of a steady signal / double_buffer step (dense, pruned,
     and dense at widths (2,2,2) / pulses (2,2,2)), as in 6, and the host
-    ms per steady step of off against double_buffer, in turns.
+    ms per steady step of off against double_buffer, in turns;
+13. ``flash_attention``: the kernel against its plain form and the
+    float64 oracle at the serve path's launch shape (BH = 4 x 8, L = S =
+    1024, G = 2, hd = 128) in bf16 and f32, non-causal, ragged L = S =
+    1000, hd 64 and hd 16 (L != S); the serve shape timed in bf16 beside
+    the plain form, SDPA as the yardstick and the bound;
+14. the LM serving path: qwen3-1.7b at full width and depth (28 layers,
+    2,031,739,904 parameters, bf16 compute, random weights from a seeded
+    generator), ``BatchServer`` serving two waves of 4 requests (1024-token
+    prompts, 32 new tokens) with every kernel counter zeroed just before
+    and read just after (``flash_attention`` 56 = 28 layers x 2 prefills);
+    all 32 teacher-forced decode logits against no-cache prefill of the
+    same prefix (bf16 tolerance); prefill ms per wave, decode ms per token,
+    tok/s, peak memory and a profiled wave; and a full-width model cut to
+    2 layers in f32 on the card (kernel) against the CPU (plain form),
+    TF32 off.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1120,6 +1135,282 @@ def host_off_vs_double_buffer(system, rounds: int = 6):
         del engs, state
 
 
+# ---- phase 13: flash_attention at the serve path's shapes ---------------------
+
+BF16_FLOPS = 989e12        # H100 SXM bf16 / fp16 on the tensor cores, dense
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # kernel against plain form
+ORACLE_TOL = {"bfloat16": 0.06, "float32": 2e-5}  # against the f64 oracle
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
+TF_LOGIT_TOL = 5e-2        # bf16 decode vs prefill logits, of max |logit|
+F32_LOGIT_TOL = 1e-4       # card vs CPU prefill logits in f32, of max |logit|
+
+
+def flash_work(BH, L, S, G, hd, causal, elem):
+    """(bytes, operations) one launch needs: q, k, v read once and o
+    written once; 4 operations (a multiply-add in q.k and in p.v) per
+    (query row, key, dim) that the causal mask keeps."""
+    pairs = sum(min(p + 1, S) for p in range(L)) if causal else L * S
+    nbytes = (2 * BH * L * G * hd + 2 * BH * S * hd) * elem
+    return nbytes, 4 * BH * G * hd * pairs
+
+
+def flash_phase():
+    """The kernel against its plain form (and the float64 oracle) at the
+    serve shape (BH = 4 requests x 8 kv heads, L = S = 1024, G = 2,
+    hd = 128) in bf16 and f32, non-causal, ragged L = S = 1000, and hd 64
+    and 16; the serve shape in bf16 timed beside the plain form, SDPA
+    as the yardstick and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    cases = [("serve", 32, 1024, 1024, 2, 128, True),
+             ("full", 32, 1024, 1024, 2, 128, False),
+             ("ragged", 32, 1000, 1000, 2, 128, True),
+             ("hd64", 16, 512, 512, 4, 64, True),
+             ("hd16 full", 8, 256, 300, 2, 16, False)]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    print("flash_attention phase: kernel against its plain form (max abs "
+          f"err; tolerance {FLASH_TOL}; f64 oracle {ORACLE_TOL})")
+    out = None
+    for tag, BH, L, S, G, hd, causal in cases:
+        base = [torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            q, k, v = (x.to(dtype) for x in base)
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(got.shape == q.shape and got.dtype == dtype,
+                  f"flash_attention {tag} {name}: shape / dtype")
+            check(bool(torch.isfinite(got).all()),
+                  f"flash_attention {tag} {name}: non-finite output")
+            err = float((got.double() - want.double()).abs().max())
+            oerr = float((got.double() - ref.flash_attention_ref(
+                q, k, v, causal=causal)).abs().max())
+            print(f"  {tag:9s} {name:8s} BH={BH} L={L} S={S} G={G} hd={hd} "
+                  f"causal={causal}: vs plain {err:.3e}, vs f64 oracle "
+                  f"{oerr:.3e}")
+            check(err <= FLASH_TOL[name], f"flash_attention {tag} {name}: "
+                  f"{err} from its plain form")
+            check(oerr <= ORACLE_TOL[name], f"flash_attention {tag} {name}: "
+                  f"{oerr} from the f64 oracle")
+            errs[name] = max(errs[name], err)
+            if tag != "serve":
+                continue
+            nbytes, ops = flash_work(BH, L, S, G, hd, causal,
+                                     q.element_size())
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
+            t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          n=50, warmup=5)
+            t_p = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                        causal=causal),
+                          n=5, warmup=1)
+            # yardstick: SDPA on the same values in its (N, H, L, E)
+            # layout, kv heads repeated G times (prepared outside the timing)
+            qt = q.transpose(1, 2).contiguous()
+            kt = k[:, None].expand(BH, G, S, hd).contiguous()
+            vt = v[:, None].expand(BH, G, S, hd).contiguous()
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = sdpa(qt, kt, vt, is_causal=causal).transpose(1, 2)
+            lerr = float((lib.double() - want.double()).abs().max())
+            check(lerr <= 2 * FLASH_TOL[name], f"SDPA yardstick {name}: "
+                  f"{lerr} from the plain form: another function")
+            t_l = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=50,
+                          warmup=5)
+            print(f"  serve {name}: kernel {t_k:.6f} ms, plain {t_p:.6f} ms, "
+                  f"SDPA {t_l:.6f} ms (err vs plain {lerr:.3e}), bound "
+                  f"{bound:.6f} ms ({nbytes} bytes, {ops} operations), "
+                  f"kernel at {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+            if dtype == torch.bfloat16:
+                out = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                       "bound_ms": bound, "bytes": nbytes, "ops": ops,
+                       "peak": peak}
+            del qt, kt, vt, lib
+    out["max_abs_err"] = errs["bfloat16"]
+    print(f"flash_attention max abs err against the plain form: bf16 "
+          f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}")
+    return {"flash_attention": out}
+
+
+# ---- phase 14: serve qwen3-1.7b at full width through the kernel --------------
+
+def serve_phase():
+    """qwen3-1.7b, 28 layers, bf16 compute over f32 params from a seeded
+    generator; ``BatchServer`` serves two waves of 4 requests (1024-token
+    prompts, 32 new tokens, max_len 1056) with every kernel counter zeroed
+    just before and read just after: ``flash_attention`` must read 28 x 2
+    (one prefill a wave; decode launches none).  Then: teacher-forced
+    decode logits against no-cache prefill of the same prefix, timings,
+    peak memory, a profiled wave, and a 2-layer full-width f32 model on the
+    card against the same model on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import BatchServer, build_model, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.runtime.serve_loop import Request, throughput_stats
+
+    cfg = get_config("qwen3-1.7b")
+    check(cfg.n_layers == 28 and cfg.compute_dtype == "bfloat16",
+          f"qwen3-1.7b config changed: {cfg}")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 2_031_739_904, f"qwen3-1.7b has {n_params} parameters")
+    print(f"serve phase: qwen3-1.7b, {n_params} parameters "
+          f"({cfg.param_dtype} params, {cfg.compute_dtype} compute), init "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.RandomState(0)
+    max_len = SERVE_PROMPT + SERVE_NEW
+    waves = [[Request(prompt=rng.randint(0, cfg.vocab, size=(SERVE_PROMPT,))
+                      .astype(np.int32), max_new_tokens=SERVE_NEW)
+              for _ in range(SERVE_BATCH)] for _ in range(2)]
+    server = BatchServer(model, batch_size=SERVE_BATCH, max_len=max_len)
+    counters = {**kernel_counters(), "flash_attention": flash_attention}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    done = []
+    for reqs in waves:
+        done += server.serve_wave(reqs)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  counted run: 2 waves x {SERVE_BATCH} requests, launches "
+          f"{launches}; wave latencies "
+          f"{[done[0].latency_s, done[-1].latency_s]} s")
+    check(launches["flash_attention"] == 2 * cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"not {2 * cfg.n_layers}")
+    check(all(n == 0 for name, n in launches.items()
+              if name != "flash_attention"), "an MD kernel ran while serving")
+    for r in done:
+        check(r.out_tokens.shape == (SERVE_NEW,) and
+              0 <= int(r.out_tokens.min()) and
+              int(r.out_tokens.max()) < cfg.vocab,
+              f"served tokens out of range: {r.out_tokens}")
+    stats = throughput_stats(done)
+    wave2 = throughput_stats(done[SERVE_BATCH:])
+    print(f"  serving: {stats['tokens']} tokens in {stats['wall_s']:.4f} s "
+          f"-> {stats['tok_per_s']:.3f} tok/s over both waves "
+          f"({wave2['tok_per_s']:.3f} tok/s, {wave2['wall_s']:.4f} s, "
+          f"in the second); peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+
+    # teacher-forced decode against no-cache prefill of each prefix
+    prompt = torch.from_numpy(np.stack([r.prompt for r in waves[0]])).cuda()
+    gen = torch.from_numpy(np.stack([r.out_tokens
+                                     for r in done[:SERVE_BATCH]])).cuda()
+    cache = model.init_cache(SERVE_BATCH, max_len)
+    logits, cache = model.prefill({"tokens": prompt}, cache)
+    worst = 0.0
+    for t in range(SERVE_NEW):
+        if t:
+            logits, cache = model.decode_step(gen[:, t - 1:t],
+                                              SERVE_PROMPT + t - 1, cache)
+        full, _ = model.prefill({"tokens": torch.cat([prompt, gen[:, :t]],
+                                                     dim=1)})
+        check(bool(torch.isfinite(logits).all()) and
+              bool(torch.isfinite(full).all()), f"non-finite logits at {t}")
+        rel = float((logits.float() - full.float()).abs().max()
+                    / full.float().abs().max())
+        worst = max(worst, rel)
+    print(f"  teacher-forced decode vs no-cache prefill, {SERVE_NEW} "
+          f"positions: max |dlogit| / max |logit| = {worst:.4e} "
+          f"(tolerance {TF_LOGIT_TOL}, bf16)")
+    check(worst <= TF_LOGIT_TOL, f"decode logits {worst} from prefill's")
+    del cache, logits, full
+
+    # steady timings through the entry points (host clock after sync)
+    def timed(fn, n):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return sorted(ts)[n // 2], ts
+
+    def prefill_once():
+        model.prefill({"tokens": prompt},
+                      model.init_cache(SERVE_BATCH, max_len))
+
+    def decode_run():
+        c = model.init_cache(SERVE_BATCH, max_len)
+        lg, c = model.prefill({"tokens": prompt}, c)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(SERVE_NEW):
+            tok.cpu()
+            lg, c = model.decode_step(tok, SERVE_PROMPT + i, c)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / SERVE_NEW
+
+    prefill_ms, prefill_all = timed(prefill_once, 5)
+    decode_all = [decode_run() for _ in range(3)]
+    decode_ms = sorted(decode_all)[1]
+    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: median "
+          f"{prefill_ms:.4f} ms per wave ({prefill_all}); decode: median "
+          f"{decode_ms:.4f} ms per token step of {SERVE_BATCH} rows "
+          f"({decode_all}), {SERVE_BATCH * 1e3 / decode_ms:.3f} tok/s")
+
+    prof = _profile(lambda: server.serve_wave(
+        [Request(prompt=r.prompt, max_new_tokens=SERVE_NEW)
+         for r in waves[1]]), 1)
+    if prof is None:
+        print("  serve profile: device time not measured (no CUDA events)")
+    else:
+        wall, device, n_kern, busy, by_name = prof
+        flash = [(t, k) for name, (t, k) in by_name.items()
+                 if "flash_kernel" in name]
+        ft, fk = sum(f[0] for f in flash), sum(f[1] for f in flash)
+        print(f"  serve profile (torch.profiler, one wave): host wall "
+              f"{wall / 1e3:.4f} ms, device kernel time {device / 1e3:.4f} "
+              f"ms, {n_kern:.0f} kernels, device busy {busy:.4f} of the host "
+              f"wall; flash_attention {fk:.0f} launches, "
+              f"{ft / max(fk, 1):.3f} us/launch, {ft / device:.4f} of device "
+              f"time")
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:10]:
+            print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms "
+                  f"{k:7.0f}x {name[:90]}")
+    del model, server, prompt, gen
+    torch.cuda.empty_cache()
+
+    # a 2-layer full-width model in f32: card (kernel) against CPU (plain)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = build_model(cfg2).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, size=(2, 300))
+                            .astype(np.int32))
+    before = flash_attention.launches
+    on_card, _ = small.prefill({"tokens": toks.cuda()})
+    check(flash_attention.launches == before + 2,
+          "the f32 card prefill did not run the kernel")
+    on_card = on_card.cpu()
+    small.to("cpu")
+    on_cpu, _ = small.prefill({"tokens": toks})
+    rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    print(f"  2-layer full-width f32 prefill (2 x 300 tokens), card vs CPU: "
+          f"max |dlogit| / max |logit| = {rel:.4e} (tolerance "
+          f"{F32_LOGIT_TOL}, TF32 off)")
+    check(bool(torch.isfinite(on_card).all()) and rel <= F32_LOGIT_TOL,
+          f"f32 card logits {rel} from the CPU's")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1141,7 +1432,8 @@ def main():
     # 2. build
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(["halo_pack", "nonbonded", "halo_signal"])
+    built = _build.build(["halo_pack", "nonbonded", "halo_signal",
+                          "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for res in built.values():
         for line in res.log.splitlines():
@@ -1187,29 +1479,41 @@ def main():
     # and its host time against off
     signal_profile_phase(system)
     host_off_vs_double_buffer(system)
+    del system
+
+    # 13. flash_attention at the serve path's shapes
+    flash_kernel = flash_phase()
+
+    # 14. qwen3-1.7b served at full width through the kernel
+    serve_launches = serve_phase()
 
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
                 "fused_pulses": "src/repro/kernels/halo_pack.py:263",
                 "pair_forces": "src/repro/kernels/nonbonded.py:92",
-                "scatter_accum": "src/repro/kernels/nonbonded.py:171"}
+                "scatter_accum": "src/repro/kernels/nonbonded.py:171",
+                "flash_attention": "src/repro/kernels/flash_attention.py:76"}
     sources = {"pack": "src/repro_torch/csrc/halo_pack.cu",
                "unpack_add": "src/repro_torch/csrc/halo_pack.cu",
                "put_signal": "src/repro_torch/csrc/halo_signal.cu",
                "fused_pulses": "src/repro_torch/csrc/halo_signal.cu",
                "pair_forces": "src/repro_torch/csrc/nonbonded.cu",
-               "scatter_accum": "src/repro_torch/csrc/nonbonded.cu"}
+               "scatter_accum": "src/repro_torch/csrc/nonbonded.cu",
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
     modules = {"pack": "halo_pack", "unpack_add": "halo_pack",
                "put_signal": "halo_pack", "fused_pulses": "halo_pack",
-               "pair_forces": "nonbonded", "scatter_accum": "nonbonded"}
+               "pair_forces": "nonbonded", "scatter_accum": "nonbonded",
+               "flash_attention": "flash_attention"}
     main_launches = {**launches, **{k: pruned_launches[k] for k in nb_kernel},
                      "put_signal": sig_launches["put_signal"],
-                     "fused_pulses": w2_launches["fused_pulses"]}
+                     "fused_pulses": w2_launches["fused_pulses"],
+                     "flash_attention": serve_launches["flash_attention"]}
     kernels = []
-    for name, acc in {**per_kernel, **nb_kernel, **sig_kernel}.items():
+    for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
+                      **flash_kernel}.items():
         bound_by = "bytes" if acc["bytes"] / HBM_BPS >= \
-            acc["ops"] / FP32_FLOPS else "operations"
+            acc["ops"] / acc.get("peak", FP32_FLOPS) else "operations"
         kernels.append({
             "name": f"{modules[name]}.{name}", "route": "cuda",
             "source": sources[name], "replaces": replaces[name],
@@ -1224,7 +1528,10 @@ def main():
           "pulses (2,2,2)); launches: pack and unpack_add on the dense main "
           "path, pair_forces and scatter_accum on the pruned one, put_signal "
           "on the dense signal / double_buffer depth-2 run, fused_pulses on "
-          "the two-pulse signal run")
+          "the two-pulse signal run; flash_attention: one bf16 launch at "
+          "the qwen3-1.7b serve shape (BH 32, L = S = 1024, G 2, hd 128), "
+          "its launches over the two served waves, its bound at 989 "
+          "TFLOP/s bf16, its yardstick SDPA")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

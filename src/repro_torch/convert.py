@@ -8,6 +8,10 @@
   against the port's domain-leading ``(Dz, Dy, Dx, cz, cy, cx, K, F)``.
 
 Both layout functions take numpy arrays or torch tensors.
+
+* :func:`lm_params_from_jax` — a reference LM's parameter tree (leaves as
+  numpy arrays, or anything ``numpy.asarray`` takes) as the port's
+  ``LM`` state dict.
 """
 from __future__ import annotations
 
@@ -68,3 +72,32 @@ def cells_to_domains(cell_f_global, cell_i_global, mesh_shape):
 def domains_to_cells(cell_f, cell_i):
     """Domain-leading block arrays -> stacked global cell arrays."""
     return _domains_to_global(cell_f), _domains_to_global(cell_i)
+
+
+def lm_params_from_jax(params) -> dict:
+    """The reference ``LM``'s params as the port's ``LM.state_dict()``.
+
+    The reference stacks each unit leaf as ``(n_units, ...)`` under
+    ``units/layer{i}``; the port holds layer ``u * P + i`` (``P`` layers
+    per unit) in ``layers.{u * P + i}``.  Other leaves keep their names.
+    """
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, prefix + (k,))
+            else:
+                yield prefix + (k,), np.asarray(v)
+
+    units = params["units"]
+    P = len(units)
+    for path, leaf in walk(units, ()):
+        i = int(path[0][len("layer"):])
+        for u in range(leaf.shape[0]):
+            out[".".join((f"layers.{u * P + i}",) + path[1:])] = \
+                torch.from_numpy(np.array(leaf[u]))
+    for path, leaf in walk({k: v for k, v in params.items()
+                            if k != "units"}, ()):
+        out[".".join(path)] = torch.from_numpy(np.array(leaf))
+    return out

@@ -1,0 +1,150 @@
+"""Flash attention for Hopper plus its plain form.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:76``
+(``flash_attention``, kernel ``_flash_kernel`` l.25), CUDA source
+``csrc/flash_attention.cu``, whose header says what bounds it on an H100
+and what the design does about it.
+
+The layout is the reference's: q (BH, L, G, hd) grouped queries, k and v
+(BH, S, hd), BH = batch * kv heads, G = q heads per kv head; the output is
+(BH, L, G, hd) in q's dtype.  Types are float32 and bfloat16, head_dim 16,
+32, 64 or 128; anything else raises, on either device, as does a
+non-contiguous input.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes
+:func:`flash_attention_plain`, the Pallas algorithm in PyTorch.  The
+wrapper counts its launches in ``flash_attention.launches``, raised only
+where the kernel is launched.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"flash_attention_{sfx}")
+        fn.argtypes = [ptr] * 4 + [i64] * 5 + [ctypes.c_int, ctypes.c_float,
+                                               ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention takes q (BH, L, G, hd) and k, v "
+                         f"(BH, S, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, L, G, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"both be ({BH}, S, {hd})")
+    if L == 0 or G == 0 or k.shape[1] == 0 or BH == 0:
+        raise ValueError("flash_attention needs BH, L, G and S >= 1")
+    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported; use one of "
+                         f"{HEAD_DIMS}")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (pass .contiguous())")
+
+
+def _block(n: int, target: int) -> int:
+    """The reference's block size: ``min(target, n)``, lowered until it
+    divides ``n``."""
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, bq: int = 128,
+                          bk: int = 256) -> torch.Tensor:
+    """Plain form of :func:`flash_attention`: the Pallas kernel's online
+    softmax over (bq, bk) blocks in its order, with its rounding points
+    (q scaled in float32 and rounded to k's dtype, float32 logits and
+    sums, p rounded to v's dtype, true division by max(l, 1e-30))."""
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    bq, bk = _block(L, bq), _block(S, bk)
+    scale = hd ** -0.5
+    qs = (q.float() * scale).to(k.dtype).float()
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    for i in range(L // bq):
+        qb = qs[:, i * bq:(i + 1) * bq]                      # (BH, bq, G, hd)
+        m = torch.full((BH, bq, G), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((BH, bq, G), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((BH, bq, G, hd), dtype=torch.float32,
+                          device=q.device)
+        for j in range(S // bk):
+            if causal and i * bq + bq - 1 < j * bk:
+                continue                     # wholly above the diagonal
+            logits = torch.einsum("bqgd,bkd->bqgk", qb,
+                                  kf[:, j * bk:(j + 1) * bk])
+            if causal:
+                qpos = i * bq + torch.arange(bq, device=q.device)
+                kpos = j * bk + torch.arange(bk, device=q.device)
+                mask = qpos[:, None, None] >= kpos[None, None, :]
+                logits = torch.where(mask, logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            m = m_new
+            pv = torch.einsum("bqgk,bkd->bqgd", p.to(v.dtype).float(),
+                              vf[:, j * bk:(j + 1) * bk])
+            acc = acc * corr[..., None] + pv
+        out[:, i * bq:(i + 1) * bq] = \
+            (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 256) -> torch.Tensor:
+    """Grouped-query attention, causal (positions from 0 on both sides:
+    query l sees keys <= l) or full.  ``bq`` / ``bk`` set the plain
+    form's blocking (the reference's defaults); the CUDA kernel picks its
+    own tiles."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    if BH > 65535 or (L * G + 63) // 64 > 2 ** 31 - 1:
+        raise ValueError(f"flash_attention: grid too large for BH={BH}, "
+                         f"L*G={L * G}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = getattr(_lib(), f"flash_attention_{_SUFFIX[q.dtype]}")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, L,
+            G, S, hd, int(bool(causal)), hd ** -0.5, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -72,3 +72,21 @@ def pair_forces_ref(a, b, ta, tb, same, ff, cnt_a=None, cnt_b=None):
                 fb[n, j] -= fac * dx
                 pe[n] += e
     return torch.from_numpy(fa), torch.from_numpy(fb), torch.from_numpy(pe)
+
+
+# ---- flash_attention.flash_attention ---------------------------------------
+
+def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """q: (BH, L, G, hd); k/v: (BH, S, hd) -> (BH, L, G, hd): one float64
+    softmax over all keys (no blocking), masked logits -1e30."""
+    qf = torch.as_tensor(q).double()
+    kf = torch.as_tensor(k).double()
+    vf = torch.as_tensor(v).double()
+    L, hd = qf.shape[1], qf.shape[3]
+    S = kf.shape[1]
+    logits = torch.einsum("blgd,bsd->blgs", qf, kf) / np.sqrt(hd)
+    if causal:
+        mask = torch.arange(L)[:, None] >= torch.arange(S)[None, :]
+        logits = torch.where(mask[None, :, None, :].to(logits.device),
+                             logits, -1e30)
+    return torch.einsum("blgs,bsd->blgd", torch.softmax(logits, dim=-1), vf)

@@ -1,1 +1,1 @@
-"""Launch helpers: the virtual domain mesh."""
+"""Launch helpers: the virtual domain mesh and the serving launcher."""

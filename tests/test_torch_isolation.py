@@ -7,8 +7,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import BatchServer, build_model, get_config
 from repro_torch.core.halo_plan import HaloPlan, HaloSpec
 from repro_torch.core.md import MDEngine, make_grappa_like
+from repro_torch.launch import serve as serve_launch
 from repro_torch.launch.mesh import make_mesh
 
 REPO = Path(__file__).resolve().parent.parent
@@ -71,6 +73,15 @@ def test_port_imports_and_steps_with_jax_blocked():
         "m = eng.run_block(rs, 3, fuse=True)\n"
         "assert m['pe'].shape == (3,) and len(rs.diags) == 2\n"
         "assert eng.schedule_report.safe\n"
+        "import numpy as np, torch\n"
+        "from repro_torch import BatchServer, build_model, get_config\n"
+        "from repro_torch.runtime.serve_loop import Request\n"
+        "lm = build_model(get_config('qwen3-1.7b').reduce(), device='cpu')"
+        ".init(torch.Generator().manual_seed(0))\n"
+        "out = BatchServer(lm, batch_size=2, max_len=12).serve_wave("
+        "[Request(prompt=np.arange(1, 6, dtype=np.int32), "
+        "max_new_tokens=3)])\n"
+        "assert out[0].out_tokens.shape == (3,)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) "
         "for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
@@ -96,3 +107,21 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         HaloPlan.build(spec, mesh)
     with pytest.raises(RuntimeError, match="cuda"):
         MDEngine(system, mesh, spec, device="cuda:0")
+
+
+def test_lm_entry_points_default_to_cuda_and_never_fall_back():
+    cfg = get_config("qwen3-1.7b").reduce()
+    argv = ["--arch", "qwen3-1.7b", "--reduced", "--requests", "1",
+            "--new-tokens", "1"]
+    if torch.cuda.is_available():
+        model = build_model(cfg)
+        assert model.device.type == "cuda"
+        assert BatchServer(model, 1, 16).rng.device.type == "cuda"
+        assert serve_launch.main(argv)[0].out_tokens.shape == (1,)
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_launch.main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg, device="cuda:0")
