@@ -60,8 +60,11 @@ Phases, each asserting (any failure exits non-zero with no result line):
 13. ``flash_attention``: the kernel against its plain form and the
     float64 oracle at the serve path's launch shape (BH = 4 x 8, L = S =
     1024, G = 2, hd = 128) in bf16 and f32, non-causal, ragged L = S =
-    1000, hd 64 and hd 16 (L != S); the serve shape timed in bf16 beside
-    the plain form, SDPA as the yardstick and the bound;
+    1000, hd 64 and hd 16 (L != S); at the serve shape also against the
+    plain form at the bf16 kernel's own tiling (``kernel_tiling``); the
+    serve shape timed in bf16 beside the plain form, SDPA as the
+    yardstick and the bound; ``cuobjdump -sass`` of the built library
+    must show HGMMA (tensor-core) instructions in every bf16 kernel;
 14. the LM serving path: qwen3-1.7b at full width and depth (28 layers,
     2,031,739,904 parameters, bf16 compute, random weights from a seeded
     generator), ``BatchServer`` serving two waves of 4 requests (1024-token
@@ -1154,16 +1157,50 @@ def flash_work(BH, L, S, G, hd, causal, elem):
     return nbytes, 4 * BH * G * hd * pairs
 
 
-def flash_phase():
+def flash_sass_counts(lib_path) -> dict:
+    """HGMMA / HMMA instructions in each bf16 flash kernel of the built
+    library (``cuobjdump -sass``), keyed by head_dim."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            fn = None
+            if "flash_kernel_bf16" in name:   # ..._bf16ILi<hd>EE...
+                fn = int(name.split("flash_kernel_bf16ILi")[1].split("E")[0])
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}." in line:
+                    counts[fn][op] += 1
+    return counts
+
+
+def flash_phase(lib_path):
     """The kernel against its plain form (and the float64 oracle) at the
     serve shape (BH = 4 requests x 8 kv heads, L = S = 1024, G = 2,
     hd = 128) in bf16 and f32, non-causal, ragged L = S = 1000, and hd 64
-    and 16; the serve shape in bf16 timed beside the plain form, SDPA
-    as the yardstick and the bound."""
+    and 16; at the serve shape also against the plain form at the bf16
+    kernel's tiling; the serve shape in bf16 timed beside the plain form,
+    SDPA as the yardstick and the bound; the bf16 kernels' HGMMA counts
+    from the SASS."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention,
+                                                     flash_attention_plain,
+                                                     kernel_tiling)
+
+    sass = flash_sass_counts(lib_path)
+    print(f"flash_attention SASS (cuobjdump -sass): tensor-core "
+          f"instructions per bf16 kernel, by head_dim: {sass}")
+    check(sorted(sass) == sorted(HEAD_DIMS) and
+          all(c["HGMMA"] + c["HMMA"] > 0 for c in sass.values()),
+          f"a bf16 flash kernel holds no HGMMA / HMMA: {sass}")
 
     cases = [("serve", 32, 1024, 1024, 2, 128, True),
              ("full", 32, 1024, 1024, 2, 128, False),
@@ -1201,6 +1238,14 @@ def flash_phase():
             errs[name] = max(errs[name], err)
             if tag != "serve":
                 continue
+            bq, bk = kernel_tiling(G)
+            terr = float((got.double() - flash_attention_plain(
+                q, k, v, causal=causal, bq=bq, bk=bk).double()).abs().max())
+            print(f"  serve {name}: vs the plain form at the bf16 kernel's "
+                  f"tiling (bq {bq}, bk {bk}) {terr:.3e}, at its default "
+                  f"(bq 128, bk 256) {err:.3e}")
+            check(terr <= FLASH_TOL[name], f"flash_attention serve {name}: "
+                  f"{terr} from its plain form at the kernel's tiling")
             nbytes, ops = flash_work(BH, L, S, G, hd, causal,
                                      q.element_size())
             peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
@@ -1482,7 +1527,7 @@ def main():
     del system
 
     # 13. flash_attention at the serve path's shapes
-    flash_kernel = flash_phase()
+    flash_kernel = flash_phase(built["flash_attention"].path)
 
     # 14. qwen3-1.7b served at full width through the kernel
     serve_launches = serve_phase()

@@ -1,5 +1,6 @@
 // Flash attention (causal or full, grouped-query) for Hopper (sm_90a),
-// float32 and bfloat16, head_dim 16, 32, 64 or 128.
+// bfloat16 on the tensor cores and float32 on the CUDA cores, head_dim 16,
+// 32, 64 or 128.
 //
 // Replaces the TPU kernel of the JAX package:
 //   flash_attention_*  <- src/repro/kernels/flash_attention.py:76
@@ -8,57 +9,107 @@
 // Layout as the reference: q (BH, L, G, hd), k and v (BH, S, hd), output
 // (BH, L, G, hd) in q's dtype; BH = batch * kv heads, G = q heads per kv
 // head.  Per bh the query is an (L*G, hd) matrix whose row r is position
-// r / G, so one block takes kRows consecutive rows whatever G is.
+// r / G, so a block takes consecutive rows whatever G is, and GQA needs no
+// change of layout.
 //
-// What it computes is _flash_kernel's contraction, not its TPU grid: one
-// block per (bh, tile of kRows query rows); a loop over kv tiles of kBK
-// keys in order from key 0, each staged in shared memory; the running max,
-// denominator and accumulator of every row in registers, in float32.  The
-// rounding points are the reference's: q is scaled in float32 and rounded
-// to the input dtype before the q.k dot; logits accumulate in float32;
-// p = exp(logit - m_new) is rounded to v's dtype before the p.v dot, whose
-// sum (float32) is added to acc * corr; l = l * corr + sum(p) unrounded;
-// the output is acc / max(l, 1e-30) by true division, written once.  A
-// masked logit is the reference's NEG_INF = -1e30, never -inf (a row
-// whose tile is all masked would give -inf - -inf = NaN).  Keys past S (a
-// ragged last tile) are -inf, so p = 0 exactly; they never enter the max.
-// Tiles wholly above the diagonal are not loaded (the block's key range
-// ends at its last row's position), and a warp skips a loaded tile whose
-// first key lies past all of its rows' positions, which changes nothing:
-// there m_new = m, corr = 1 and every p = 0.  The kv blocking differs from
-// the plain form's (kBK = 64 against bk = 256), so the per-tile maxima and
-// hence the rounding of p differ: results agree to a tolerance, not bits.
+// What both kernels compute is _flash_kernel's contraction, not its TPU
+// grid: one block per (bh, tile of query rows); a loop over kv tiles in
+// order from key 0; the running max, denominator and accumulator of every
+// row in registers, in float32.  The rounding points are the reference's:
+// q is scaled in float32 and rounded to the input dtype before the q.k
+// dot (the scale is not folded into the exponent); logits accumulate in
+// float32; m_new, corr and l = l * corr + sum(p) are float32, p unrounded
+// in the sum; p = exp(logit - m_new) is rounded to v's dtype before the
+// p.v dot, whose float32 sum pv is added as acc = acc * corr + pv; the
+// output is acc / max(l, 1e-30) by true division, rounded once.  A masked
+// logit is the reference's NEG_INF = -1e30, never -inf (a row whose tile
+// is all masked would give -inf - -inf = NaN); keys past S (a ragged last
+// tile) are -inf, so p = 0 exactly and they never enter the max.  Tiles
+// wholly above the diagonal are not loaded.  A loaded tile whose first
+// key lies past all of a row group's positions changes nothing for it
+// (m_new = m, corr = 1, every p = 0): the f32 kernel's warps skip it, the
+// bf16 kernel's consumers run it.  Blocks are issued from the last row
+// tile down, so the causal blocks with the most keys start first and the
+// tail is short.
 //
 // What bounds it.  At the serve shape of qwen3-1.7b (batch 4 x 8 kv heads
-// = BH 32, L = S = 1024, G = 2, hd = 128, bf16) one launch does
+// = BH 32, L = S = 1024, G = 2, hd = 128, bf16, causal) one launch does
 // 4 * BH * G * hd * L(L+1)/2 = 1.72e10 operations and moves q, k, v and o
 // once, 50.3 MB: 17.4 us at the tensor cores' 989 TFLOP/s (bf16) against
-// 15.0 us at 3.35 TB/s, so it is bound by operations.  This first kernel
-// does its products as float32 FMAs on the CUDA cores, whose 67 TFLOP/s
-// alone put the floor at 257 us, ~15x above that bound: the tensor-core
-// path (mma.sync / wgmma with TMA-fed tiles) is a later change.  What the
-// design does within that choice:
-//   * each warp owns kRowsPerWarp rows: for q.k each lane takes two keys
-//     of the tile and walks hd in float4 steps (q rows are broadcast
-//     reads, k rows are padded by 4 floats so a quarter-warp's 16-byte
-//     loads hit distinct banks); for p.v each lane owns hd / 32 columns
-//     and reads p four keys at a time, so the inner loops issue one
-//     shared-memory load per ~5 FMAs;
-//   * row max and row sum are warp shuffles; nothing but the staged tiles
-//     goes through shared memory, and nothing round-trips device memory;
-//   * blocks are issued from the last row tile down, so the causal
-//     blocks with the most keys start first and the tail is short.
+// 15.0 us at 3.35 TB/s, so it is bound by operations, on the tensor cores.
+//
+// bfloat16: flash_kernel_bf16, products on the tensor cores.
+//   * Three warpgroups of 128 threads: a producer (warpgroup 0, one
+//     thread issues every copy) and two consumers, each owning 64
+//     consecutive rows of the block's 128.  setmaxnreg moves registers
+//     from the producer (24 a thread) to the consumers (240).
+//   * TMA (cp.async.bulk.tensor) loads q once per block and the k and v
+//     tiles of kBN = 128 keys into a ring of kStages = 2 stages in shared
+//     memory, in bf16, through 3-D tensor maps (hd, rows, BH): a ragged
+//     last tile reads zeros, never the next bh's rows.  Each stage has
+//     full barriers for k and for v (mbarrier complete_tx), so q.k starts
+//     before v lands, and empty barriers for k and for v on which every
+//     consumer warp arrives once it is done with the tile; the producer
+//     refills a stage's k as soon as both consumers' q.k are done with it.
+//   * A row of hd bf16 values is 32, 64, 128 or 256 bytes: hd 16 / 32 / 64
+//     use the 32B / 64B / 128B swizzle in one panel, hd 128 two 64-column
+//     panels of 128B swizzle.  The TMA maps and the wgmma descriptors use
+//     the same mode.
+//   * q is scaled and rounded in place in shared memory by its consumer
+//     (elementwise, so the swizzle does not matter), then
+//     fence.proxy.async before the tensor cores read it.
+//   * S = q.k^T: wgmma.mma_async m64n128k16, q (A) and k (B) from shared
+//     memory, K-major, f32 accumulators in registers.  The online softmax
+//     works on the accumulator fragments (a thread holds two rows; row max
+//     and sum go through a quad of lanes); the element mask runs only on
+//     tiles that cross the diagonal or run past S.
+//   * pv = p.v: wgmma m64n{hd}k16 with p as the A operand in registers
+//     (the f32 S fragments, rounded to bf16 pairs, map one to one onto
+//     the A fragments of a k16 step) and v (B) from shared memory in the
+//     transposed (MN-major) mode; then acc = acc * corr + pv in f32.
+//     wgmma.fence / commit_group / wait_group bracket every product.
+//   * Ping-pong: the two consumers take turns (named barriers) to issue
+//     their products, so one's softmax overlaps the other's products.
+//     Every consumer runs every tile of its block and never branches
+//     around a product (ptxas serializes wgmmas split by a branch).
+//   * The output is written from the accumulator fragments, rows past
+//     L*G dropped.  No atomics: every run gives the same bits.
+//   Measured by chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at a
+//   700.00 W power limit: 0.0739 ms a launch at the serve shape (233
+//   TFLOP/s, 24 % of the bound) against SDPA's 0.0488 ms in the same run;
+//   the f32-FMA kernel it replaces took 0.9466 ms.  What still bounds it
+//   is each consumer's chain per tile: q.k, then the softmax (expf, the
+//   reference's exp, a few instructions a value on top of the MUFU), then
+//   p.v.  acc and pv are held apart to keep the reference's rounding
+//   point acc * corr + pv; at hd 128 those 128 registers a thread leave
+//   no room to issue the next tile's q.k before the softmax (tried: it
+//   spills and ptxas serializes the wgmmas).
+//
+// float32: flash_kernel_f32, the port's first kernel, on the CUDA cores.
+// TF32 on the tensor cores keeps about 3 decimal digits and would break
+// the 2e-5 float32 bar, so float32 (which serves the tests and the float32
+// card-against-CPU check, not the bf16 serving path) keeps f32 FMAs: 8 rows
+// a warp, 64-key tiles staged in shared memory as float32, hd / 32 output
+// columns a lane, row max and sum by warp shuffles.  Choosing the entry
+// point by dtype is a dispatch, not a fallback.
 //
 // Kernels run on the caller's stream, allocate nothing and do not
 // synchronise.  Each C entry point returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a head_dim it was not built for).
+// (cudaErrorInvalidValue for a head_dim it was not built for or a tensor
+// map the driver refuses).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+constexpr float kNegInf = -1e30f;              // the reference's NEG_INF
+
+// ---- float32: CUDA-core kernel ---------------------------------------------
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;
@@ -66,29 +117,6 @@ constexpr int kRows = kWarps * kRowsPerWarp;   // query rows per block
 constexpr int kBK = 64;                        // keys per staged tile
 constexpr int kKeysPerLane = kBK / 32;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;              // the reference's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T (round to nearest even) and read back as float
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -107,18 +135,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 // the k tile (kBK, hd + 4), the v tile (kBK, hd) and each warp's p rows
 // (kRows, kBK).
 template <int HD>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   return sizeof(float) * (static_cast<size_t>(kRows) * HD +
                           static_cast<size_t>(kBK) * (HD + 4) +
                           static_cast<size_t>(kBK) * HD +
                           static_cast<size_t>(kRows) * kBK);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int64_t L,
-                 int64_t G, int64_t S, int causal, float scale) {
+    flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int64_t L, int64_t G, int64_t S, int causal,
+                     float scale) {
   constexpr int KS = HD + 4;                    // padded k row
   constexpr int DPL = HD >= 32 ? HD / 32 : 1;   // output columns per lane
   extern __shared__ float4 smem4[];
@@ -138,11 +167,9 @@ __global__ void __launch_bounds__(kThreads)
   k += bh * S * HD;
   v += bh * S * HD;
 
-  // q tile: scaled in float32, rounded to the input dtype (l.44-46)
-  for (int e = tid; e < kRows * HD; e += kThreads) {
-    const float x = r0 * HD + e < LG * HD ? to_f32(q[r0 * HD + e]) : 0.f;
-    qs[e] = round_to<T>(__fmul_rn(x, scale));
-  }
+  // q tile: scaled in float32 (l.44-46; the rounding to float32 is exact)
+  for (int e = tid; e < kRows * HD; e += kThreads)
+    qs[e] = r0 * HD + e < LG * HD ? __fmul_rn(q[r0 * HD + e], scale) : 0.f;
 
   const int64_t last_row = (r0 + kRows < LG ? r0 + kRows : LG) - 1;
   int64_t n_keys = S;
@@ -173,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int j = e / HD;
       const bool in = j0 + j < S;
-      ks[j * KS + e % HD] = in ? to_f32(k[j0 * HD + e]) : 0.f;
-      vs[e] = in ? to_f32(v[j0 * HD + e]) : 0.f;
+      ks[j * KS + e % HD] = in ? k[j0 * HD + e] : 0.f;
+      vs[e] = in ? v[j0 * HD + e] : 0.f;
     }
     __syncthreads();
     if (!live || (causal && j0 > w_pos_max)) continue;
@@ -204,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // online softmax: mask, tile max, p rounded to v's dtype, l and corr
+    // online softmax: mask, tile max, p, l and corr
     float corr[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -225,7 +252,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < kKeysPerLane; ++c) {
         const float p = expf(s[r][c] - m_new);
         psum += p;
-        pw[r * kBK + lane + 32 * c] = round_to<T>(p);
+        pw[r * kBK + lane + 32 * c] = p;
       }
       l[r] = l[r] * corr[r] + warp_sum(psum);
       m[r] = m_new;
@@ -287,42 +314,636 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= LG) break;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      o[row * HD + lane + 32 * i] = from_f32<T>(acc[r][i] / den);
+    for (int i = 0; i < DPL; ++i) o[row * HD + lane + 32 * i] = acc[r][i] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
-           int64_t L, int64_t G, int64_t S, int causal, float scale,
-           void* stream) {
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+// ---- bfloat16: tensor-core kernel ------------------------------------------
+
+constexpr int kWG = 128;                  // threads in a warpgroup
+constexpr int kBM = 64;                   // query rows per consumer warpgroup
+constexpr int kConsumers = 2;
+constexpr int kBlockRows = kConsumers * kBM;
+constexpr int kBN = 128;                  // keys per kv tile
+constexpr int kStages = 2;                // depth of the k / v ring
+constexpr int kThreadsBf16 = (1 + kConsumers) * kWG;
+
+// ---- PTX wrappers: mbarrier, TMA, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (try_wait
+// suspends the thread in hardware between polls).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Named barriers among the consumer threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One TMA box of a 3-D map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pins accumulator registers at this point of the program, so that the
+// compiler neither reads them before wgmma_wait_all nor writes them after
+// the wgmma that reads them has been issued.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of wgmma: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle mode (1 = 128B,
+// 2 = 64B, 3 = 32B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(mode) << 62;
+}
+
+#define D8(c, i)                                                 \
+  c(d[(i)]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3]), c(d[(i) + 4]), \
+      c(d[(i) + 5]), c(d[(i) + 6]), c(d[(i) + 7])
+
+// wgmma_ss: D (64 x N, f32) = or += A (64 x 16, shared, K-major) *
+// B (16 x N, shared, K-major).  wgmma_rs: the same with A in registers
+// (four bf16 pairs a thread) and B MN-major (the transposed mode, which
+// 16-bit types allow).  kAcc = false overwrites D (its registers are
+// outputs only, so they need not stay live across the loop).
+#define FA_SS128                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14," \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27," \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40," \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53," \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+  "%64, %65, p, 1, 1, 0, 0;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_SS128
+        : D8("+f", 0), D8("+f", 8), D8("+f", 16), D8("+f", 24),
+          D8("+f", 32), D8("+f", 40), D8("+f", 48), D8("+f", 56)
+        : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(FA_SS128
+        : D8("=f", 0), D8("=f", 8), D8("=f", 16), D8("=f", 24),
+          D8("=f", 32), D8("=f", 40), D8("=f", 48), D8("=f", 56)
+        : "l"(da), "l"(db), "r"(0));
+}
+#undef FA_SS128
+
+#define FA_RS16                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7}, " \
+  "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_RS16
+        : D8("+f", 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS16
+        : D8("=f", 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+#undef FA_RS16
+
+#define FA_RS32                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14," \
+  "%15}, " \
+  "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_RS32
+        : D8("+f", 0), D8("+f", 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS32
+        : D8("=f", 0), D8("=f", 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+#undef FA_RS32
+
+#define FA_RS64                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14," \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27," \
+  "%28, %29, %30, %31}, " \
+  "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_RS64
+        : D8("+f", 0), D8("+f", 8), D8("+f", 16), D8("+f", 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS64
+        : D8("=f", 0), D8("=f", 8), D8("=f", 16), D8("=f", 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+#undef FA_RS64
+
+#define FA_RS128                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14," \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27," \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40," \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53," \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_RS128
+        : D8("+f", 0), D8("+f", 8), D8("+f", 16), D8("+f", 24),
+          D8("+f", 32), D8("+f", 40), D8("+f", 48), D8("+f", 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(FA_RS128
+        : D8("=f", 0), D8("=f", 8), D8("=f", 16), D8("=f", 24),
+          D8("=f", 32), D8("=f", 40), D8("=f", 48), D8("=f", 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+#undef FA_RS128
+
+#undef D8
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared-memory plan of the bf16 kernel at head dim HD.  A tile of R rows
+// is NP panels of (R, PW) bf16, each row of a panel ROWB bytes under the
+// ROWB-byte swizzle; every region starts on a 1024-byte boundary.
+template <int HD>
+struct Plan {
+  static constexpr int PW = HD < 64 ? HD : 64;   // panel width, elements
+  static constexpr int NP = HD / PW;
+  static constexpr int ROWB = PW * 2;
+  static constexpr uint32_t MODE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle SWIZZLE =
+      ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr uint32_t Q_BYTES = kBM * HD * 2;   // one warpgroup's q
+  static constexpr uint32_t KV_BYTES = kBN * HD * 2;  // one k or v tile
+  static constexpr uint32_t K_OFF = kConsumers * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + kStages * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + kStages * KV_BYTES;
+  // mbarriers: q full, then per stage k full, v full, k empty, v empty
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// The online softmax of one tile on the S fragments of a thread (rows
+// row0 = 16w + g and row1 = row0 + 8 of its warpgroup, keys j0 + 8 * (i / 4)
+// + 2 * qd + (i & 1) of fragment i): mask, m_new, corr, p, l; p rounded to
+// bf16 into the A fragments of p.v (keys 16kk..16kk+15 are the kk-th k16
+// step).
+template <int NS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sacc)[NS], uint32_t (&pa)[NS / 8][4], float& m0, float& m1,
+    float& l0, float& l1, float& corr0, float& corr1, int j0, int S,
+    int causal, int pos0, int pos1, int pos_min, int qd) {
+  constexpr int kBNt = 2 * NS;
+  // mask (only where the tile crosses the diagonal or runs past S): keys
+  // from j0 on, the first past S and the last each row sees
+  if (j0 + kBNt > S || (causal && j0 + kBNt - 1 > pos_min)) {
+    const int end = min(S - j0, kBNt);
+    const int see0 = causal ? max(min(pos0 - j0, kBNt), -1) : kBNt;
+    const int see1 = causal ? max(min(pos1 - j0, kBNt), -1) : kBNt;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int key = 8 * (i / 4) + 2 * qd + (i & 1);
+      sacc[i] = key >= end                       ? -CUDART_INF_F
+                : key > ((i & 2) ? see1 : see0) ? kNegInf
+                                                  : sacc[i];
+    }
+  }
+  // row max (four partial maxima a row, then the quad), m_new, corr
+  float x0[4], x1[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x0[j] = x1[j] = -CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < NS; i += 4) {
+    x0[i / 4 % 4] = fmaxf(x0[i / 4 % 4], fmaxf(sacc[i], sacc[i + 1]));
+    x1[i / 4 % 4] = fmaxf(x1[i / 4 % 4], fmaxf(sacc[i + 2], sacc[i + 3]));
+  }
+  const float mn0 =
+      fmaxf(m0, quad_max(fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x0[2], x0[3]))));
+  const float mn1 =
+      fmaxf(m1, quad_max(fmaxf(fmaxf(x1[0], x1[1]), fmaxf(x1[2], x1[3]))));
+  // corr = exp(m - m_new) and p = exp(x - m_new) as the reference writes
+  // them: the difference in float32, then expf (the accurate float32 exp,
+  // as torch.exp on the card); four partial sums a row
+  corr0 = expf(m0 - mn0);
+  corr1 = expf(m1 - mn1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x0[j] = x1[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; i += 4) {
+    sacc[i] = expf(sacc[i] - mn0);
+    sacc[i + 1] = expf(sacc[i + 1] - mn0);
+    sacc[i + 2] = expf(sacc[i + 2] - mn1);
+    sacc[i + 3] = expf(sacc[i + 3] - mn1);
+    x0[i / 4 % 4] += sacc[i] + sacc[i + 1];
+    x1[i / 4 % 4] += sacc[i + 2] + sacc[i + 3];
+  }
+  // l = l * corr + sum(p) with the tile's row sum, the product and the
+  // sum rounded as the reference rounds them (no FMA)
+  l0 = __fadd_rn(__fmul_rn(l0, corr0),
+                 quad_sum((x0[0] + x0[1]) + (x0[2] + x0[3])));
+  l1 = __fadd_rn(__fmul_rn(l1, corr1),
+                 quad_sum((x1[0] + x1[1]) + (x1[2] + x1[3])));
+  m0 = mn0;
+  m1 = mn1;
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ o, int LG, int G, int S,
+                      int causal, float scale) {
+  using P = Plan<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + P::BAR_OFF;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * kStages + s); };
+
+  // blocks of the last row tile (most keys under the causal mask) first
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int last_row = min(r0 + kBlockRows, LG) - 1;
+  const int n_keys = causal ? min(S, last_row / G + 1) : S;
+  const int n_tiles = (n_keys + kBN - 1) / kBN;
+  const int wg = threadIdx.x / kWG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers * 4);   // one arrival a warp
+      mbar_init(v_empty(s), kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: q once (rows past L*G read as zeros), then the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kConsumers * P::Q_BYTES);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int p = 0; p < P::NP; ++p)
+          tma_load(base + c * P::Q_BYTES + p * kBM * P::ROWB, &tq, q_full,
+                   p * P::PW, r0 + c * kBM, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t parity = ((t / kStages) & 1) ^ 1;
+        const uint32_t koff = base + P::K_OFF + s * P::KV_BYTES;
+        const uint32_t voff = base + P::V_OFF + s * P::KV_BYTES;
+        if (t >= kStages) mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), P::KV_BYTES);
+        for (int p = 0; p < P::NP; ++p)
+          tma_load(koff + p * kBN * P::ROWB, &tk, k_full(s), p * P::PW,
+                   t * kBN, bh);
+        if (t >= kStages) mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), P::KV_BYTES);
+        for (int p = 0; p < P::NP; ++p)
+          tma_load(voff + p * kBN * P::ROWB, &tv, v_full(s), p * P::PW,
+                   t * kBN, bh);
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, every tile of the block.  A tile
+    // whose keys all lie past a row's position changes nothing for it
+    // (m_new = m, corr = 1, every p = 0), so no warpgroup branches around
+    // a product, which would make ptxas serialize the wgmmas.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    constexpr int NS = kBN / 2;   // S fragment floats a thread
+    constexpr int NO = HD / 2;    // output fragment floats a thread
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * kWG;
+    const int w = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int rw = r0 + c * kBM;                          // first row
+    const int row0 = rw + 16 * w + g, row1 = row0 + 8;    // this thread's
+    const int pos0 = row0 / G, pos1 = row1 / G;
+    const int pos_min = rw / G;
+    const uint32_t q_base = base + c * P::Q_BYTES;
+
+    // q scaled in float32 and rounded to bf16, in place (l.44-46)
+    mbar_wait(q_full, 0);
+    uint4* qv = reinterpret_cast<uint4*>(smem + c * P::Q_BYTES);
+    for (int i = tid; i < static_cast<int>(P::Q_BYTES / 16); i += kWG) {
+      uint4 x = qv[i];
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        h[j] = __floats2bfloat162_rn(__fmul_rn(f.x, scale),
+                                     __fmul_rn(f.y, scale));
+      }
+      qv[i] = x;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + c, kWG);
+
+    float sacc[NS], pv[NO], acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    // Ping-pong: the two consumers take turns to issue their products
+    // (a turn ends right after the commit), so the tensor cores run one
+    // warpgroup's products while the other computes its softmax, and the
+    // two softmaxes do not contend for the exponential units.  Consumer 0
+    // goes first; each takes 2 * n_tiles turns.
+    constexpr int kTurn = 1 + kConsumers;   // named barriers kTurn + c
+    if (c == 1) bar_arrive(kTurn, 2 * kWG);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t parity = (t / kStages) & 1;
+      const int j0 = t * kBN;
+
+      // S = q.k^T over hd in k16 steps
+      bar_sync(kTurn + c, 2 * kWG);
+      mbar_wait(k_full(s), parity);
+      const uint32_t k_base = base + P::K_OFF + s * P::KV_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t panel = kk * 16 / P::PW;
+        const uint32_t off = (kk * 16 % P::PW) * 2;   // bytes into a row
+        const uint64_t da = smem_desc(q_base + panel * kBM * P::ROWB + off,
+                                      16, 8 * P::ROWB, P::MODE);
+        const uint64_t db = smem_desc(k_base + panel * kBN * P::ROWB + off,
+                                      16, 8 * P::ROWB, P::MODE);
+        if (kk == 0)
+          wgmma_ss<false>(sacc, da, db);
+        else
+          wgmma_ss<true>(sacc, da, db);
+      }
+      wgmma_commit();
+      bar_arrive(kTurn + 1 - c, 2 * kWG);
+      wgmma_wait_all();
+      fence_regs(sacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(k_empty(s));   // one arrival a warp
+
+      float corr0, corr1;
+      uint32_t pa[kBN / 16][4];
+      softmax_tile(sacc, pa, m0, m1, l0, l1, corr0, corr1, j0, S, causal,
+                   pos0, pos1, pos_min, qd);
+
+      // pv = p.v over the tile's keys in k16 steps
+      bar_sync(kTurn + c, 2 * kWG);
+      mbar_wait(v_full(s), parity);
+      const uint32_t v_base = base + P::V_OFF + s * P::KV_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t db = smem_desc(v_base + kk * 16 * P::ROWB,
+                                      kBN * P::ROWB, 8 * P::ROWB, P::MODE);
+        if (kk == 0)
+          wgmma_rs<false>(pv, pa[kk], db);
+        else
+          wgmma_rs<true>(pv, pa[kk], db);
+      }
+      wgmma_commit();
+      if (!(c == 1 && t == n_tiles - 1))
+        bar_arrive(kTurn + 1 - c, 2 * kWG);
+      wgmma_wait_all();
+      fence_regs(pv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(v_empty(s));
+#pragma unroll
+      for (int i = 0; i < NO; ++i)
+        acc[i] =
+            __fadd_rn(__fmul_rn(acc[i], (i & 2) ? corr1 : corr0), pv[i]);
+    }
+
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * LG * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (row0 < LG)
+        *reinterpret_cast<__nv_bfloat162*>(ob + int64_t{row0} * HD + col) =
+            __floats2bfloat162_rn(acc[4 * j] / den0, acc[4 * j + 1] / den0);
+      if (row1 < LG)
+        *reinterpret_cast<__nv_bfloat162*>(ob + int64_t{row1} * HD + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] / den1,
+                                  acc[4 * j + 3] / den1);
+    }
+  }
+}
+
+// ---- launchers --------------------------------------------------------------
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               int64_t BH, int64_t L, int64_t G, int64_t S, int causal,
+               float scale, void* stream) {
+  constexpr size_t smem = smem_bytes_f32<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>((L * G + kRows - 1) / kRows),
                   static_cast<unsigned>(BH));
-  flash_kernel<T, HD><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, G, S, causal, scale);
+  flash_kernel_f32<HD><<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), L, G, S, causal,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
-             int causal, float scale, void* stream) {
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map (hd, rows, BH) of a contiguous bf16 tensor, boxes of
+// (PW, box_rows, 1); reads past `rows` fill with zeros.
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t BH,
+                uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(rows) * HD * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Plan<HD>::PW), box_rows,
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, Plan<HD>::SWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                int64_t BH, int64_t L, int64_t G, int64_t S, int causal,
+                float scale, void* stream) {
+  constexpr size_t smem = Plan<HD>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_kernel_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<HD>(&tq, q, L * G, BH, kBM) ||
+      !tensor_map<HD>(&tk, k, S, BH, kBN) ||
+      !tensor_map<HD>(&tv, v, S, BH, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(BH),
+                  static_cast<unsigned>((L * G + kBlockRows - 1) / kBlockRows));
+  flash_kernel_bf16<HD><<<grid, kThreadsBf16, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<int>(L * G),
+      static_cast<int>(G), static_cast<int>(S), causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch(std::integral_constant<int, hd>) for a head_dim the kernels are
+// built for, else cudaErrorInvalidValue.
+template <typename Launch>
+int by_head_dim(int64_t hd, Launch&& launch) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, o, BH, L, G, S, causal, scale, stream);
+      return launch(std::integral_constant<int, 16>{});
     case 32:
-      return launch<T, 32>(q, k, v, o, BH, L, G, S, causal, scale, stream);
+      return launch(std::integral_constant<int, 32>{});
     case 64:
-      return launch<T, 64>(q, k, v, o, BH, L, G, S, causal, scale, stream);
+      return launch(std::integral_constant<int, 64>{});
     case 128:
-      return launch<T, 128>(q, k, v, o, BH, L, G, S, causal, scale, stream);
+      return launch(std::integral_constant<int, 128>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -330,12 +951,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int64_t BH,
                                    int64_t L, int64_t G, int64_t S,
                                    int64_t hd, int causal, float scale,
                                    void* stream) {
-  return dispatch<float>(q, k, v, o, BH, L, G, S, hd, causal, scale, stream);
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_f32<decltype(HD)::value>(q, k, v, o, BH, L, G, S, causal,
+                                           scale, stream);
+  });
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
@@ -343,6 +968,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t L, int64_t G, int64_t S,
                                     int64_t hd, int causal, float scale,
                                     void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, BH, L, G, S, hd, causal, scale,
-                                 stream);
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_bf16<decltype(HD)::value>(q, k, v, o, BH, L, G, S, causal,
+                                            scale, stream);
+  });
 }

@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:76``
 (``flash_attention``, kernel ``_flash_kernel`` l.25), CUDA source
 ``csrc/flash_attention.cu``, whose header says what bounds it on an H100
-and what the design does about it.
+and what the design does about it: bfloat16 on the tensor cores (wgmma,
+TMA-fed k / v ring), float32 on the CUDA cores (the dtype picks the entry
+point).
 
 The layout is the reference's: q (BH, L, G, hd) grouped queries, k and v
 (BH, S, hd), BH = batch * kv heads, G = q heads per kv head; the output is
@@ -28,6 +30,11 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The bf16 kernel's blocking: KERNEL_ROWS rows of the (L*G, hd) query per
+# block, kv tiles of KERNEL_BK keys (csrc/flash_attention.cu, kBlockRows
+# and kBN).
+KERNEL_ROWS = 128
+KERNEL_BK = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,6 +71,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (pass .contiguous())")
+
+
+def kernel_tiling(G: int) -> tuple[int, int]:
+    """``(bq, bk)`` at which :func:`flash_attention_plain` follows the bf16
+    kernel's blocking: ``bq = KERNEL_ROWS // G`` positions (a block's row
+    tile), ``bk = KERNEL_BK`` keys.  Each row then meets the kernel's kv
+    tiles in its order (tiles past a row's position are exact no-ops in
+    both), so only the order of the float32 sums inside a product differs;
+    where ``bk`` does not divide S the plain form lowers it, as the
+    reference does."""
+    return max(1, KERNEL_ROWS // G), KERNEL_BK
 
 
 def _block(n: int, target: int) -> int:
@@ -133,9 +151,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     BH, L, G, hd = q.shape
     S = k.shape[1]
-    if BH > 65535 or (L * G + 63) // 64 > 2 ** 31 - 1:
+    if BH > 65535 or (L * G + 127) // 128 > 65535 or S > 2 ** 31 - 1:
         raise ValueError(f"flash_attention: grid too large for BH={BH}, "
                          f"L*G={L * G}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must start on a "
+                         "16-byte boundary (the kernel reads them by TMA)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = getattr(_lib(), f"flash_attention_{_SUFFIX[q.dtype]}")

@@ -38,7 +38,8 @@ from repro_torch import BatchServer, build_model, get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 kernel_tiling)
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -154,6 +155,35 @@ def test_plain_flash_bf16(jx):
     assert np.abs(got - want).max() <= 2.0 ** -6
     oracle = ref.flash_attention_ref(q, k, v, causal=True).numpy()
     assert np.abs(got - oracle).max() < 0.06
+
+
+# the bf16 kernel's own blocking (kernel_tiling: bq = 128 // G positions,
+# bk = 128 keys) on shapes both forms take unchanged (bq | L, bk | S)
+TILED_CASES = ([(2, 256, 256, g, hd, causal) for causal in (True, False)
+                for hd in (16, 64) for g in (1, 2)]
+               + [(2, 128, 384, 2, 16, False), (2, 128, 256, 1, 64, False)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,l,s,g,hd,causal", TILED_CASES)
+def test_plain_flash_at_kernel_tiling_matches_jax_kernel(jx, dtype, bh, l, s,
+                                                         g, hd, causal):
+    bq, bk = kernel_tiling(g)
+    assert l % bq == 0 and s % bk == 0
+    rng = np.random.RandomState(l + s + hd + g)
+    q = rng.randn(bh, l, g, hd).astype(np.float32)
+    k = rng.randn(bh, s, hd).astype(np.float32)
+    v = rng.randn(bh, s, hd).astype(np.float32)
+    jdt = getattr(jx.jnp, dtype)
+    want = np.asarray(jx.ops.flash_attention(
+        *(jx.jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal, bq=bq,
+        bk=bk), np.float64)
+    got = flash_attention_plain(
+        *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+        causal=causal, bq=bq, bk=bk)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (bh, l, g, hd)
+    tol = 2e-5 if dtype == "float32" else 2.0 ** -6
+    assert np.abs(got.double().numpy() - want).max() <= tol
 
 
 @pytest.mark.parametrize("what", ["dtype", "head_dim", "layout", "shape"])
@@ -488,9 +518,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the last seven stress the bf16 kernel's tiling (64-row warpgroups,
+# 128-row blocks, 128-key tiles): L*G = 135 and 200 (not multiples of 64),
+# S = 50 (under one key tile) and 200 (ragged), G = 8, 4 and 1, L = 1
 CUDA_FLASH = [(4, 128, 128, 2, 128, True), (3, 100, 100, 2, 64, True),
               (2, 70, 70, 4, 32, False), (2, 33, 90, 1, 16, False),
-              (2, 65, 65, 3, 16, True)]
+              (2, 65, 65, 3, 16, True), (2, 45, 45, 3, 64, True),
+              (2, 20, 50, 2, 32, False), (1, 200, 200, 1, 128, True),
+              (1, 64, 64, 8, 128, True), (2, 96, 96, 4, 16, True),
+              (2, 130, 130, 1, 64, True), (3, 1, 77, 2, 128, False)]
 
 
 @pytest.mark.cuda
@@ -514,6 +550,19 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, bh, l, s, g, hd,
     oracle = ref.flash_attention_ref(q, k, v, causal=causal)
     assert float((got.double() - oracle).abs().max()) <= \
         (2e-5 if dtype == torch.float32 else 0.06)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bf16_is_bitwise_repeatable(cuda_device, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for shape in ((8, 300, 2, 128), (8, 300, 128), (8, 300, 128)))
+    first = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 @pytest.mark.cuda
