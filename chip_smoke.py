@@ -22,6 +22,10 @@ Phases, each asserting (any failure exits non-zero with no result line):
    the same run with ``backend="serialized"``, which must be bitwise equal;
 6. a torch.profiler (CUPTI) window over steady steps: device time by
    kernel, the halo kernels' device time per launch, device busy share;
+   the steady dense block must copy nothing from the host (no ``Memcpy
+   HtoD``, no ``cudaStreamSynchronize``), and its host ms per step with
+   the force pass's constants built per call (as before they were
+   cached) against now, in turns;
 7. the pruned kernels: ``nonbonded.pair_forces`` and
    ``nonbonded.scatter_accum`` against their plain forms at the six tier
    shapes of the grappa-45k pruned schedule (taken from the engine's own
@@ -74,7 +78,26 @@ Phases, each asserting (any failure exits non-zero with no result line):
     same prefix (bf16 tolerance); prefill ms per wave, decode ms per token,
     tok/s, peak memory and a profiled wave; and a full-width model cut to
     2 layers in f32 on the card (kernel) against the CPU (plain form),
-    TF32 off.
+    TF32 off;
+15. compressed halo payloads (``wire_dtype``) on grappa-45k in float64:
+    the converting ``pack`` (B1w) and ``put_signal`` (B3w) at every
+    forward launch shape of the f64 pallas / signal paths (f64 rows to
+    f32), bitwise against their plain forms, timed beside the plain form,
+    ``index_select`` + ``.to`` (+ ``roll``) and the byte bound; every other
+    conversion (f64 -> bf16 / f16, f32 -> bf16 / f16) on a crafted
+    near-tie tensor, with ``1 + 2**-11 + 2**-40`` -> float16 rounded once;
+    ``simulate(40)`` for each of None, float32, bfloat16, float16 and
+    int8_ef through pallas / off, signal / double_buffer depth 2 and
+    serialized / off (pruned forces), every counter zeroed just before
+    and read just after: B1w launched on the pallas runs, B3w on the
+    signal runs, the three bitwise equal per format, float32 unlike the
+    dense payload, bfloat16 within 1e-1, NVE and migration bars; a dense
+    pallas run at bfloat16 against its serialized twin; ``int8`` refused
+    at build and built under ``verify="warn"``; each format's drift over
+    200 steps held to the reference's classification; a profiled steady
+    block per format (the converting kernels' device us per launch);
+    host ms per steady step for the dense payload, bfloat16 and int8_ef,
+    in turns.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -357,12 +380,13 @@ def main_path_phase():
     return launches
 
 
-def _profile(fn, n: int, steps_per_call: int = 1):
+def _profile(fn, n: int, steps_per_call: int = 1, host_calls=None):
     """torch.profiler (CUPTI) over ``n`` calls of ``fn``, each advancing
     ``steps_per_call`` steps: host wall us per step, device kernel us per
     step, kernels per step, the device busy share of the host wall, and
     device us per kernel name per step.  Returns None if the profiler
-    records no device kernels."""
+    records no device kernels.  ``host_calls`` (a dict), when given, is
+    filled with the count of each CUDA runtime call the host made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,6 +401,11 @@ def _profile(fn, n: int, steps_per_call: int = 1):
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if host_calls is not None:
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU and \
+                    e.name.startswith("cuda"):
+                host_calls[e.name] = host_calls.get(e.name, 0) + 1
     if not kern:
         return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
@@ -411,11 +440,21 @@ def profile_phase(n_steps: int = 5):
                    HaloSpec(AXES, (1, 1, 1), backend="pallas"))
     rs = eng.begin_run()
     nst = eng.system.params.nstlist
-    step = _profile(lambda: eng.run_block(rs, nst), 1, nst)
+    host = {}
+    step = _profile(lambda: eng.run_block(rs, nst), 1, nst, host_calls=host)
     if step is None:
         print("profile: device time not measured (no CUDA events)")
         return
     wall, device, n_kern, busy, by_name = step
+    # C1: the dense block copies nothing from the host and never blocks
+    htod = sum(k for name, (_t, k) in by_name.items() if "HtoD" in name)
+    syncs = host.get("cudaStreamSynchronize", 0)
+    print(f"profile: dense block, Memcpy HtoD {htod * nst:.0f}, "
+          f"cudaStreamSynchronize {syncs}, cudaMemcpyAsync "
+          f"{host.get('cudaMemcpyAsync', 0)} (host runtime calls: "
+          f"{json.dumps(host, sort_keys=True)})")
+    check(htod == 0 and syncs == 0, "a steady dense block copies from the "
+          f"host ({htod * nst:.0f} Memcpy HtoD) or syncs ({syncs})")
     print(f"profile (torch.profiler, one steady {nst}-step pallas "
           f"block, per step): host "
           f"wall {wall / 1e3:.4f} ms/step under the profiler, device kernel "
@@ -445,6 +484,49 @@ def profile_phase(n_steps: int = 5):
         if k:
             print(f"  halo {tag}: {k:.2f} launches/step, device "
                   f"{t / k:.3f} us/launch, {t:.2f} us/step")
+    host_constants_before_after(eng, rs)
+
+
+def host_constants_before_after(eng, rs, rounds: int = 4):
+    """Dense host ms per steady step with the force pass's constants
+    built by ``torch.tensor`` on every call (a blocking host copy each,
+    as before they were cached) against now: one 20-step block from the
+    same state per timing, the two in turns.  A repair, not a claim."""
+    import contextlib
+    import statistics
+    import torch
+    from repro_torch.core.md import forces
+
+    @contextlib.contextmanager
+    def per_call_constants():
+        old = forces._const, forces.ff_tables
+        forces._const = lambda v, like: torch.tensor(
+            v, dtype=like.dtype, device=like.device)
+        forces.ff_tables = forces.ff_tables.__wrapped__
+        try:
+            yield
+        finally:
+            forces._const, forces.ff_tables = old
+
+    state = (rs.cell_f, rs.cell_i)
+    nst = eng.system.params.nstlist
+    times = {"per-call": [], "cached": []}
+    for r in range(rounds):
+        for mode in (("per-call", "cached") if r % 2 == 0
+                     else ("cached", "per-call")):
+            run = eng.begin_run(state)
+            ctx = per_call_constants() if mode == "per-call" else \
+                contextlib.nullcontext()
+            with ctx:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run_block(run, nst)
+                torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3 / nst)
+    print("dense host ms/step, constants built per call (before) against "
+          f"cached (now), {rounds} steady blocks each in turns: " + ", ".join(
+              f"{m} median {statistics.median(t):.4f} {t}"
+              for m, t in times.items()))
 
 
 # ---- phase 7: the pruned kernels at the tier shapes ----------------------------
@@ -769,23 +851,23 @@ def pruned_profile_phase(system, n_calls: int = 5):
 SIGNAL_KERNELS = ("put_signal", "fused_pulses")
 
 
-def recorded(thunk):
-    """Run ``thunk`` with the signal kernels' wrappers wrapped; returns its
-    result and the (kernel, args) of every call, as the main path made
-    them."""
+def recorded(thunk, kernels=SIGNAL_KERNELS):
+    """Run ``thunk`` with the named ``halo_pack`` wrappers wrapped; returns
+    its result and the (kernel, args, kwargs) of every call, as the main
+    path made them."""
     from repro_torch.kernels import halo_pack
-    calls, real = [], {k: getattr(halo_pack, k) for k in SIGNAL_KERNELS}
+    calls, real = [], {k: getattr(halo_pack, k) for k in kernels}
 
     def wrap(kernel):
         def wrapper(*args, **kw):
-            calls.append((kernel, args))
+            calls.append((kernel, args, kw))
             return real[kernel](*args, **kw)
         # the wrapper stands in the module while it runs, so the real
         # function's `fn.launches += 1` lands here; handed back below
-        wrapper.launches = 0
+        wrapper.launches = wrapper.wire_launches = 0
         return wrapper
 
-    wrappers = {k: wrap(k) for k in SIGNAL_KERNELS}
+    wrappers = {k: wrap(k) for k in kernels}
     for k, fn in wrappers.items():
         setattr(halo_pack, k, fn)
     try:
@@ -794,6 +876,8 @@ def recorded(thunk):
         for k, fn in real.items():
             setattr(halo_pack, k, fn)
             fn.launches += wrappers[k].launches
+            if hasattr(fn, "wire_launches"):
+                fn.wire_launches += wrappers[k].wire_launches
     return out, calls
 
 
@@ -816,7 +900,7 @@ def signal_cases(system):
 
     def add(label, calls):
         seen = {}
-        for kernel, args in calls:
+        for kernel, args, _kw in calls:
             axis = AXES[args[3] if kernel == "put_signal" else args[4]]
             seen[axis] = seen.get(axis, -1) + 1
             cases.append((kernel, f"{label}-{axis}"
@@ -990,14 +1074,20 @@ def run_counted(eng, n_steps=40):
     state = eng.init_state()
     torch.cuda.synchronize()
     counters = kernel_counters()
+    wire = {k: fn for k, fn in counters.items()
+            if hasattr(fn, "wire_launches")}
     for fn in counters.values():
         fn.launches = 0
+    for fn in wire.values():
+        fn.wire_launches = 0
     t0 = time.perf_counter()
     (cf, ci), m, diags = eng.simulate(n_steps, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (cf, ci), m, diags, wall, {k: fn.launches
-                                      for k, fn in counters.items()}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches.update({f"{k}_wire": fn.wire_launches
+                     for k, fn in wire.items()})
+    return (cf, ci), m, diags, wall, launches
 
 
 def same_run(a, b, label, eng_a=None, eng_b=None):
@@ -1456,6 +1546,354 @@ def serve_phase():
     return launches
 
 
+# ---- phase 15: compressed halo payloads on grappa-45k in f64 ------------------
+
+WIRE_FORMATS = (None, "float32", "bfloat16", "float16", "int8_ef")
+WIRE_KERNELS = ("pack", "put_signal")
+# the float16 trap: one rounding gives 1.0009765625, two (through f32) 1.0
+TIE = 1 + 2.0 ** -11 + 2.0 ** -40
+
+
+def wire_engine(system, backend, wire_dtype, **kw):
+    """grappa-45k on 2x2x2 with a wire format; the pruned pallas force
+    backend unless ``force_backend`` says otherwise."""
+    from repro_torch import HaloSpec, MDEngine, make_md_mesh
+    kw.setdefault("force_backend", "pallas")
+    return MDEngine(system, make_md_mesh(8),
+                    HaloSpec(AXES, (1, 1, 1), backend=backend),
+                    wire_dtype=wire_dtype, **kw)
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaN slots need only both be NaN)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
+    return bool(torch.equal(na, nb)) and \
+        bool(torch.equal(a.view(ints)[~na], b.view(ints)[~nb]))
+
+
+def wire_cases(system):
+    """(kernel, tag, args, kwargs) of every converting launch of one f64
+    coordinate exchange, recorded from the plans on real post-rebin
+    state: the pallas path's three pulses (B1w) and the signal path's
+    three dims (B3w), f64 rows to f32."""
+    cases = []
+    for backend, kernel in (("pallas", "pack"), ("signal", "put_signal")):
+        eng = wire_engine(system, backend, "float32")
+        cf, ci, _f, _d = eng.rebin_fn(*eng.init_state())
+        _ext, calls = recorded(
+            lambda: eng.plan.fwd(cf[..., :4].contiguous()),
+            kernels=(kernel,))
+        for i, (k, args, kw) in enumerate(calls):
+            check(kw.get("wire_dtype") == "float32",
+                  f"{kernel}: the f64 forward launched without the wire")
+            axis = args[3] if k == "put_signal" else i
+            cases.append((k, f"fwd-{AXES[axis]}-f64", args, kw))
+        check(len(calls) == 3, f"{kernel}: {len(calls)} forward launches")
+        del eng, cf, ci, _f, _ext
+    return cases
+
+
+def tie_tensor(shape, dtype, device):
+    """Values at and beside the float16 and bfloat16 ties, NaN / Inf /
+    signed zeros, ``TIE`` first."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(15)
+    n = math.prod(shape)
+    e = rng.randint(-20, 14, n)
+    tie = (1 + rng.randint(0, 1024, n) / 1024.0 + 2.0 ** -11) * 2.0 ** e
+    near = tie * (1 + rng.choice([-1.0, 0.0, 1.0], n)
+                  * 2.0 ** rng.randint(-50, -24, n))
+    bf = (1 + rng.randint(0, 128, n) / 128.0 + 2.0 ** -8) * 2.0 ** e
+    pick = rng.randint(0, 3, n)
+    x = np.where(pick == 0, near, np.where(pick == 1, bf,
+                                           rng.randn(n) * 3.0))
+    x *= rng.choice([-1.0, 1.0], n)
+    x[:9] = [TIE, -TIE, np.nan, np.inf, -np.inf, 0.0, -0.0, 7e4, 2.0 ** -26]
+    return torch.from_numpy(x.astype(dtype).reshape(shape)).to(device)
+
+
+def wire_kernel_phase(system):
+    """B1w and B3w against their plain forms, bitwise: at every forward
+    launch shape of the f64 main path (timed beside the plain form, the
+    library calls and the byte bound), then every other conversion on a
+    crafted near-tie tensor."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import halo_pack
+
+    acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0, "ops": 0}
+           for k in WIRE_KERNELS}
+    cases = wire_cases(system)
+    dev = cases[0][2][0].device
+    words = torch.empty((8 * 2 + 1,), dtype=torch.int32, device=dev)
+
+    def kern(kernel, args, wd):
+        if kernel == "pack":
+            return halo_pack.pack(*args[:2], wire_dtype=wd)
+        return halo_pack.put_signal(*args[:5], signal=words, wire_dtype=wd)
+
+    def plain(kernel, args, wd):
+        if kernel == "pack":
+            return halo_pack.pack_plain(*args[:2], wd)
+        return halo_pack.put_signal_plain(*args[:5], wd)
+
+    def library(kernel, args):
+        src, li = args[0], args[1].long()
+        if kernel == "pack":
+            return lambda: torch.index_select(src, 1, li).to(torch.float32)
+        mesh, axis, shift = args[2:5]
+
+        def call():
+            rows = torch.index_select(src, 1, li)
+            rows = torch.roll(rows.reshape(tuple(mesh) + rows.shape[1:]),
+                              shift, dims=axis).reshape(rows.shape)
+            return rows.to(torch.float32)
+        return call
+
+    print("wire kernel phase: B1w / B3w at the grappa-45k f64 forward "
+          "launch shapes, f64 rows to f32 (ms per launch; bound = f64 rows "
+          "read + f32 rows written + the map, / 3.35 TB/s)")
+    for kernel, tag, args, _kw in cases:
+        got = kern(kernel, args, "float32")
+        want = plain(kernel, args, "float32")
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and torch.equal(got, want),
+              f"{kernel} {tag} (wire): kernel differs from its plain form")
+        err = float((got.double() - want.double()).abs().max())
+        check(int(args[1].min()) >= 0, f"{kernel} {tag}: padded map")
+        lib = library(kernel, args)
+        check(torch.equal(lib(), want),
+              f"{kernel} {tag}: yardstick computes another function")
+        n_dom, _, F = args[0].shape
+        M = args[1].shape[0]
+        nbytes = n_dom * M * F * (8 + 4) + M * 4
+        bound = nbytes / HBM_BPS * 1e3
+        t_k = cuda_ms(lambda: kern(kernel, args, "float32"))
+        t_p = cuda_ms(lambda: plain(kernel, args, "float32"))
+        t_l = cuda_ms(lib)
+        print(f"  {kernel:10s} {tag:10s} [{'x'.join(map(str, args[0].shape))}"
+              f" M {M}] kernel {t_k:.6f} plain {t_p:.6f} library {t_l:.6f} "
+              f"bound {bound:.6f} bytes {nbytes} err {err}")
+        a = acc[kernel]
+        a["max_abs_err"] = max(a["max_abs_err"], err)
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bound_ms", bound), ("bytes", nbytes)):
+            a[key] += v
+
+    # every conversion, on values at and beside the ties
+    n_ok = 0
+    for sdt, wd in ((np.float64, "float32"), (np.float64, "bfloat16"),
+                    (np.float64, "float16"), (np.float32, "bfloat16"),
+                    (np.float32, "float16")):
+        src = tie_tensor((8, 64, 160), sdt, dev)
+        idx = torch.arange(48, dtype=torch.int32, device=dev) * 5 % 64
+        idx[7::9] = -1
+        for kernel, args in (("pack", (src, idx)),
+                             ("put_signal", (src, idx, (2, 2, 2), 0, -1)),
+                             ("put_signal", (src, idx, (2, 2, 2), 2, 1))):
+            got = kern(kernel, args, wd)
+            torch.cuda.synchronize()
+            check(same_bits(got, plain(kernel, args, wd)),
+                  f"{kernel} {np.dtype(sdt).name} -> {wd}: kernel differs "
+                  "from its plain form on the near-tie tensor")
+            n_ok += 1
+        if (np.dtype(sdt).name, wd) == ("float64", "float16"):
+            v = float(halo_pack.pack(src, idx, wire_dtype=wd)[0, 0, 0])
+            check(v == 1.0009765625, f"f64 -> f16 of 1 + 2**-11 + 2**-40 "
+                  f"gave {v}, not the single rounding 1.0009765625")
+    print(f"  near-tie tensor (8x64x160, padded map, NaN / Inf / signed "
+          f"zeros): {n_ok} launches over f64 -> f32 / bf16 / f16 and f32 -> "
+          "bf16 / f16, bitwise equal to the plain forms; f64 -> f16 of "
+          "1 + 2**-11 + 2**-40 = 1.0009765625 (one rounding)")
+    return acc
+
+
+def wire_path_phase(system):
+    """grappa-45k in f64 with every wire format through the pallas / off,
+    signal / double_buffer depth-2 and serialized / off halo paths (pruned
+    forces), 40 steps each with every counter zeroed just before and read
+    just after: the converting kernels launched, the three backends
+    bitwise equal per format, NVE and migration bars; one dense pallas
+    run at bfloat16 against its serialized twin; the drift gate."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core.wire import WireDriftError
+
+    n = system.n_atoms
+    out, pos = {}, {}
+    for wd in WIRE_FORMATS:
+        runs = {}
+        for label, backend, kw in (
+                ("pallas/off", "pallas", {}),
+                ("signal/db2", "signal", dict(pipeline="double_buffer",
+                                              pipeline_depth=2)),
+                ("serialized/off", "serialized", {})):
+            eng = wire_engine(system, backend, wd, **kw)
+            run = run_counted(eng)
+            (cf, ci), m, diags, wall, lc = run
+            drift = check_nve(m, diags, n, f"{wd} {label}")
+            if wd is None or backend == "serialized":
+                check(lc["pack_wire"] == 0 and lc["put_signal_wire"] == 0,
+                      f"{wd} {label}: converting kernels ran {lc}")
+            elif backend == "pallas":
+                check(lc["pack_wire"] > 0 and lc["pair_forces"] > 0,
+                      f"{wd} {label}: B1w not launched {lc}")
+            else:
+                check(lc["put_signal_wire"] > 0 and lc["pair_forces"] > 0,
+                      f"{wd} {label}: B3w not launched {lc}")
+            runs[label] = (run, eng)
+            print(f"wire path {wd} {label}: {wall * 1e3 / 40:.4f} ms/step "
+                  f"over 40 steps incl. rebins, drift/atom {drift:.3e}, "
+                  f"launches {lc}")
+        ref, ref_eng = runs["serialized/off"]
+        for label in ("pallas/off", "signal/db2"):
+            same_run(runs[label][0], ref, f"{wd}: {label} vs serialized/off",
+                     runs[label][1], ref_eng)
+        out[wd] = {k: r[0][4] for k, r in runs.items()}
+        out[wd]["m"] = ref[1]
+        (cf, ci) = ref[0]
+        pos[wd], = ref_eng.gather_by_id([cf[..., :3]], ci)
+        print(f"wire path {wd}: pallas/off and signal/db2 bitwise equal to "
+              "serialized/off in PE, KE, momentum, final state, migration "
+              "and schedule")
+        del runs, ref, ref_eng
+    check(not np.array_equal(out["float32"]["m"]["pe"], out[None]["m"]["pe"]),
+          "float32 wire equals the dense run: f64 forces were not rounded")
+    dpos = float(np.abs(pos["bfloat16"] - pos[None]).max())
+    check(0 < dpos < 1e-1, f"bfloat16 wire moved positions by {dpos}")
+    for wd in WIRE_FORMATS[1:]:
+        rel = float(np.abs(out[wd]["m"]["pe"] - out[None]["m"]["pe"]).max()
+                    / np.abs(out[None]["m"]["pe"]).max())
+        print(f"  {wd} vs dense: per-step PE {rel:.3e} relative, final "
+              f"positions {float(np.abs(pos[wd] - pos[None]).max()):.3e}")
+
+    # the dense force path at bfloat16, against its serialized twin
+    dense = {}
+    for backend in ("pallas", "serialized"):
+        eng = wire_engine(system, backend, "bfloat16", force_backend="dense")
+        run = run_counted(eng)
+        (_s, m, diags, wall, lc) = run
+        drift = check_nve(m, diags, n, f"dense bfloat16 {backend}")
+        dense[backend] = run
+        print(f"wire path dense bfloat16 {backend}/off: {wall * 1e3 / 40:.4f}"
+              f" ms/step, drift/atom {drift:.3e}, launches {lc}")
+        del eng
+    check(dense["pallas"][4]["pack_wire"] > 0, "dense bfloat16: B1w not "
+          f"launched {dense['pallas'][4]}")
+    same_run(dense["pallas"], dense["serialized"],
+             "dense bfloat16: pallas vs serialized")
+
+    # the drift gate: "int8" (no error feedback) is refused at build and
+    # builds with verify="warn"
+    try:
+        wire_engine(system, "pallas", "int8")
+        fail("wire_dtype='int8' built without verify='warn'")
+    except WireDriftError as e:
+        print(f"wire gate: int8 refused at build ({str(e)[:60]}...)")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        wire_engine(system, "pallas", "int8", verify="warn")
+    check(any(issubclass(w.category, RuntimeWarning) for w in caught),
+          "int8 under verify='warn' gave no warning")
+    print("wire gate: int8 builds under verify='warn' with a RuntimeWarning")
+    return out
+
+
+def wire_drift_phase(system, n_steps: int = 200):
+    """Each accepted format's energy drift over 200 f64 steps (pallas /
+    off, pruned), ``(E.max - E.min) / n_atoms``, held to the reference's
+    classification: under the dense-f32 bound and at most twice the
+    dense drift plus 1e-5."""
+    import numpy as np
+    from repro_torch.core.wire import DENSE_F32_DRIFT_BOUND
+
+    drift = {}
+    for wd in WIRE_FORMATS:
+        eng = wire_engine(system, "pallas", wd)
+        t0 = time.perf_counter()
+        _s, m, _d = eng.simulate(n_steps)
+        E = m["pe"] + m["ke"]
+        check(bool(np.all(np.isfinite(E))), f"{wd}: non-finite energy")
+        drift[wd] = float((E.max() - E.min()) / system.n_atoms)
+        print(f"wire drift {wd}: {drift[wd]:.6e} per atom over {n_steps} f64 "
+              f"steps ({time.perf_counter() - t0:.2f} s)")
+        del eng
+    for wd in WIRE_FORMATS[1:]:
+        check(drift[wd] < DENSE_F32_DRIFT_BOUND
+              and drift[wd] <= 2 * drift[None] + 1e-5,
+              f"{wd}: drift {drift[wd]} against dense {drift[None]} and the "
+              f"bound {DENSE_F32_DRIFT_BOUND}")
+    return drift
+
+
+def wire_profile(system):
+    """A steady f64 pruned block per wire format under the profiler:
+    device time and kernels per step, busy share, and the converting
+    kernels' device us per launch (measurement only)."""
+    for wd, backend, kw in ((None, "pallas", {}),
+                            ("float32", "pallas", {}),
+                            ("bfloat16", "pallas", {}),
+                            ("int8_ef", "pallas", {}),
+                            ("float32", "signal",
+                             dict(pipeline="double_buffer"))):
+        eng = wire_engine(system, backend, wd, **kw)
+        rs = eng.begin_run()
+        nst = eng.system.params.nstlist
+        step = _profile(lambda: eng.run_block(rs, nst), 1, nst)
+        if step is None:
+            print(f"wire profile {wd} {backend}: device time not measured "
+                  "(no CUDA events)")
+            continue
+        wall, device, n_kern, busy, by_name = step
+        line = (f"wire profile {wd} {backend} (f64, pruned, one steady "
+                f"{nst}-step block, per step): host wall {wall / 1e3:.4f} ms "
+                f"under the profiler, device {device / 1e3:.4f} ms, "
+                f"{n_kern:.2f} kernels, busy {busy:.4f}")
+        for tag in ("pack_convert_kernel", "put_signal_convert_kernel"):
+            hits = [(t, k) for name, (t, k) in by_name.items() if tag in name]
+            t, k = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            if k:
+                line += (f"; {tag} {k:.2f}/step, {t / k:.3f} us/launch, "
+                         f"{t:.2f} us/step")
+        print(line)
+        del eng, rs
+
+
+def wire_speed(system, rounds: int = 5):
+    """Host ms per steady step (one 20-step block from the same
+    post-rebin state, after a sync), dense payload against bfloat16 and
+    int8_ef, pallas / off, in turns."""
+    import statistics
+    import torch
+
+    fmts = (None, "bfloat16", "int8_ef")
+    engs = {wd: wire_engine(system, "pallas", wd) for wd in fmts}
+    state = engs[None].init_state()
+    nst = system.params.nstlist
+    times = {wd: [] for wd in fmts}
+    for r in range(rounds):
+        for wd in (fmts if r % 2 == 0 else fmts[::-1]):
+            rs = engs[wd].begin_run(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engs[wd].run_block(rs, nst)
+            torch.cuda.synchronize()
+            times[wd].append((time.perf_counter() - t0) * 1e3 / nst)
+    print(f"wire speed, host ms per steady step (f64, pruned, pallas/off, "
+          f"{rounds} blocks each in turns): " + ", ".join(
+              f"{wd}: median {statistics.median(t):.4f} {t}"
+              for wd, t in times.items()))
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1487,6 +1925,7 @@ def main():
                 print(f"  ptxas {res.name}: {line.strip()}")
 
     # 3. kernels at the main path's shapes, on the main path's state
+    import numpy as np
     from repro_torch import HaloSpec, MDEngine, make_grappa_like, make_md_mesh
     system = make_grappa_like(45_000, seed=0)
     eng = MDEngine(system, make_md_mesh(8),
@@ -1532,10 +1971,22 @@ def main():
     # 14. qwen3-1.7b served at full width through the kernel
     serve_launches = serve_phase()
 
+    # 15. compressed halo payloads: grappa-45k in f64, every wire format
+    # through the pallas, signal and serialized paths
+    system64 = make_grappa_like(45_000, seed=0, dtype=np.float64)
+    wire_kernel = wire_kernel_phase(system64)
+    wire_runs = wire_path_phase(system64)
+    wire_drift_phase(system64)
+    wire_profile(system64)
+    wire_speed(system64)
+    del system64
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
                 "fused_pulses": "src/repro/kernels/halo_pack.py:263",
+                "pack_wire": "src/repro/kernels/halo_pack.py:57",
+                "put_signal_wire": "src/repro/kernels/halo_pack.py:165",
                 "pair_forces": "src/repro/kernels/nonbonded.py:92",
                 "scatter_accum": "src/repro/kernels/nonbonded.py:171",
                 "flash_attention": "src/repro/kernels/flash_attention.py:76"}
@@ -1543,20 +1994,29 @@ def main():
                "unpack_add": "src/repro_torch/csrc/halo_pack.cu",
                "put_signal": "src/repro_torch/csrc/halo_signal.cu",
                "fused_pulses": "src/repro_torch/csrc/halo_signal.cu",
+               "pack_wire": "src/repro_torch/csrc/halo_pack.cu",
+               "put_signal_wire": "src/repro_torch/csrc/halo_signal.cu",
                "pair_forces": "src/repro_torch/csrc/nonbonded.cu",
                "scatter_accum": "src/repro_torch/csrc/nonbonded.cu",
                "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
     modules = {"pack": "halo_pack", "unpack_add": "halo_pack",
                "put_signal": "halo_pack", "fused_pulses": "halo_pack",
+               "pack_wire": "halo_pack", "put_signal_wire": "halo_pack",
                "pair_forces": "nonbonded", "scatter_accum": "nonbonded",
                "flash_attention": "flash_attention"}
     main_launches = {**launches, **{k: pruned_launches[k] for k in nb_kernel},
                      "put_signal": sig_launches["put_signal"],
                      "fused_pulses": w2_launches["fused_pulses"],
-                     "flash_attention": serve_launches["flash_attention"]}
+                     "flash_attention": serve_launches["flash_attention"],
+                     "pack_wire": wire_runs["float32"]["pallas/off"][
+                         "pack_wire"],
+                     "put_signal_wire": wire_runs["float32"]["signal/db2"][
+                         "put_signal_wire"]}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
-                      **flash_kernel}.items():
+                      **flash_kernel,
+                      **{f"{k}_wire": a for k, a in wire_kernel.items()}
+                      }.items():
         bound_by = "bytes" if acc["bytes"] / HBM_BPS >= \
             acc["ops"] / acc.get("peak", FP32_FLOPS) else "operations"
         kernels.append({
@@ -1576,7 +2036,11 @@ def main():
           "the two-pulse signal run; flash_attention: one bf16 launch at "
           "the qwen3-1.7b serve shape (BH 32, L = S = 1024, G 2, hd 128), "
           "its launches over the two served waves, its bound at 989 "
-          "TFLOP/s bf16, its yardstick SDPA")
+          "TFLOP/s bf16, its yardstick SDPA; pack_wire / put_signal_wire "
+          "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "
+          "f64 rows to f32, launches on the grappa-45k f64 float32-wire "
+          "pallas / off and signal / double_buffer runs, yardsticks "
+          "index_select + .to (put_signal_wire: + roll)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

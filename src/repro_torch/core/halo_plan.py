@@ -7,6 +7,19 @@ The port of the JAX package's ``core/halo_plan.py``: a frozen
 is kept so that specs read alike in both packages; here it drives the
 CUDA pack / unpack-add kernels of :mod:`repro_torch.kernels.halo_pack`.
 
+Compressed payloads (``HaloSpec.wire_dtype``, :mod:`repro_torch.core.wire`)
+are quantized at the plan seam, as in the reference: :meth:`HaloPlan.fwd`
+grids an f64 payload to the float32 floor before the sends and splices
+the exact body back; :meth:`HaloPlan.rev` rounds the force return to the
+named format.  The pallas and signal backends then ship f32 rows through
+the kernels' converting forms (quantize-into-pack).  One deliberate
+difference: they apply the periodic wrap shifts after the exchange, not
+per hop, so every row they convert is a copy of a gridded payload row and
+the cast is exact.  The reference shifts per hop and its kernels round
+the shifted rows a later dim forwards (the corner and edge cells) once
+more, so with wrap shifts its pallas and signal backends differ from its
+serialized one; here every backend gives the serialized result.
+
 Block tensors carry every domain: ``(D_0, .., D_{nd-1}, *local)`` with
 one leading dim per decomposed axis, in ``spec.axis_names`` order.  The
 pure-arithmetic accounting (:func:`compute_exchange_stats`,
@@ -29,6 +42,7 @@ from repro_torch.analysis.schedule_verifier import (
     check_halo_config,
 )
 from repro_torch.core import halo as _halo
+from repro_torch.core import wire as _wire
 from repro_torch.core.schedule import PulseSchedule
 from repro_torch.device import resolve_device
 from repro_torch.kernels import halo_pack
@@ -52,8 +66,10 @@ class HaloSpec:
     paper's ``coordShift``), stored as a nested tuple.  ``dtype`` /
     ``feature_elems`` feed the byte accounting of :meth:`HaloPlan.stats`.
     ``pulses`` is the per-dim pulse count (``None`` = one per dim).
-    ``wire_dtype`` (compressed payloads) belongs to a later slice of the
-    port: a plan with one set raises ``NotImplementedError``.
+    ``wire_dtype`` (one of :data:`repro_torch.core.wire.WIRE_DTYPES`)
+    compresses floating payloads: the coordinate (forward) direction at
+    the float32 floor, the force return in the named format; integer
+    payloads (the MD engine's ``cell_i`` exchange) ride dense.
     """
 
     axis_names: Tuple[str, ...]
@@ -66,6 +82,11 @@ class HaloSpec:
     wire_dtype: Optional[str] = None
 
     def __post_init__(self):
+        if self.wire_dtype is not None and \
+                self.wire_dtype not in _wire.WIRE_DTYPES:
+            raise ValueError(
+                f"unknown wire_dtype {self.wire_dtype!r}; "
+                f"available: {_wire.WIRE_DTYPES} or None")
         object.__setattr__(self, "axis_names", tuple(self.axis_names))
         object.__setattr__(self, "widths",
                            tuple(int(w) for w in self.widths))
@@ -114,6 +135,12 @@ class HaloBackend:
 
     def rev(self, plan: "HaloPlan", ext: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def ships_fwd_wire(self, plan: "HaloPlan",
+                       local_shape: Sequence[int]) -> bool:
+        """Whether the forward direction ships the plan's wire dtype at
+        this local shape (what :meth:`HaloPlan.stats` accounts)."""
+        return True
 
     def _local_shape(self, plan: "HaloPlan", ext: torch.Tensor
                      ) -> Tuple[int, ...]:
@@ -164,6 +191,10 @@ class PallasBackend(HaloBackend):
     the same map holds for all domains.  Pulses run in serialized order,
     so the serialized critical-path model applies.  On a CUDA block the
     kernels run or raise; on a CPU block their plain forms run.
+
+    With an f64 payload under a wire format the forward packs convert to
+    f32 rows (B1w) and the receiver casts back; the wrap shifts then wait
+    until every halo has arrived (:meth:`_fwd_wire`).
     """
 
     name = "pallas"
@@ -215,6 +246,47 @@ class PallasBackend(HaloBackend):
         plan._index_maps[local_shape] = (tuple(fwd_maps), tuple(rev_maps))
         return plan._index_maps[local_shape]
 
+    def ships_fwd_wire(self, plan, local_shape: Sequence[int]) -> bool:
+        """False for a plan with a pulse that forwards its own dim's halo
+        (a halo wider than the block, several hops): see :meth:`_fwd_wire`."""
+        return not any(p.offset + p.width > local_shape[p.dim]
+                       for p in plan.sched.serialized_order())
+
+    def _fwd_wire(self, plan, local: torch.Tensor) -> Optional[str]:
+        """The forward packs' wire dtype, or None to ship dense.
+
+        The payload reaching the backend is already on the float32 grid
+        (the plan seam rounded it), so converting a packed row is exact
+        as long as the row is a copy of a payload row.  The wrap shifts
+        break that (a shifted coordinate is off the grid), so the wire
+        path ships unshifted rows and :meth:`_shift_halos` applies the
+        shifts afterwards.  A multi-hop plan would need them per hop: it
+        ships dense, and :meth:`HaloPlan.stats` counts its forward bytes
+        dense.
+        """
+        nd = plan.spec.ndim
+        if not self.ships_fwd_wire(plan, local.shape[nd:2 * nd]):
+            return None
+        return plan.wire_pack_dtype(local.dtype)
+
+    @staticmethod
+    def _shift_halos(plan, ext: torch.Tensor, wrap_shift,
+                     local_shape: Sequence[int]) -> torch.Tensor:
+        """Add the wrap shifts to ``ext``'s halos in place, dim by dim in
+        pulse order: every element gets the additions the serialized
+        exchange gives it, in the same order (a halo cell of dim ``d``
+        holds the same shifts of earlier dims whichever domain along
+        ``d`` forwarded it), so the result is the serialized one."""
+        if wrap_shift is None:
+            return ext
+        nd = plan.spec.ndim
+        shifter = _halo._Shifter(plan.axis_sizes, wrap_shift)
+        for d, w in enumerate(plan.spec.widths):
+            if w:
+                halo = ext.narrow(nd + d, local_shape[d], w)
+                halo.copy_(shifter(halo, d))
+        return ext
+
     @staticmethod
     def _rows2d(x: torch.Tensor, nd: int, d: int) -> torch.Tensor:
         """``(n_dom, prod(local[:d+1]), -1)`` view of a block tensor."""
@@ -225,18 +297,26 @@ class PallasBackend(HaloBackend):
     def fwd(self, plan, local, wrap_shift):
         sched = plan.sched
         nd = plan.spec.ndim
-        shifter = _halo._Shifter(plan.axis_sizes, wrap_shift)
-        fwd_maps, _ = self._maps(plan, tuple(local.shape[nd:2 * nd]))
+        local_shape = tuple(local.shape[nd:2 * nd])
+        wire = self._fwd_wire(plan, local)
+        shifter = _halo._Shifter(plan.axis_sizes,
+                                 wrap_shift if wire is None else None)
+        fwd_maps, _ = self._maps(plan, local_shape)
         ext = local
         for pulse, idx in zip(sched.serialized_order(), fwd_maps):
             if idx is None:
                 continue
             d, w = pulse.dim, pulse.width
             shape = ext.shape
-            slab = halo_pack.pack(self._rows2d(ext, nd, d), idx).reshape(
+            slab = halo_pack.pack(self._rows2d(ext, nd, d), idx,
+                                  wire_dtype=wire).reshape(
                 shape[:nd + d] + (w,) + shape[nd + d + 1:])
-            recv = shifter(_halo.recv_from_next(slab, d), d)
-            ext = torch.cat([ext, recv], dim=nd + d)
+            recv = _halo.recv_from_next(slab, d)
+            if wire is not None:
+                recv = recv.to(local.dtype)     # dequantize after receive
+            ext = torch.cat([ext, shifter(recv, d)], dim=nd + d)
+        if wire is not None:
+            ext = self._shift_halos(plan, ext, wrap_shift, local_shape)
         return ext
 
     def rev(self, plan, ext):
@@ -428,8 +508,9 @@ class HaloPlan:
 
     Build with :meth:`HaloPlan.build`; execute with :meth:`fwd` /
     :meth:`rev` (or their aliases :meth:`fwd_local` / :meth:`rev_local`,
-    kept so that engine code reads as in the reference).  Block tensors
-    must lie on the plan's device.
+    kept so that engine code reads as in the reference) or the
+    differentiable :meth:`exchange`.  Block tensors must lie on the
+    plan's device.
     """
 
     def __init__(self, spec: HaloSpec, mesh: DomainMesh, device="cuda",
@@ -441,15 +522,15 @@ class HaloPlan:
         if verify not in VERIFY_MODES:
             raise ValueError(f"unknown verify mode {verify!r}; "
                              f"available: {VERIFY_MODES}")
-        if spec.wire_dtype is not None:
-            raise NotImplementedError(
-                f"wire_dtype={spec.wire_dtype!r} is not ported yet: "
-                "compressed halo payloads come with the wire-compression "
-                "slice of the port")
         self.device = resolve_device(device)
         self.spec = spec
         self.mesh = mesh
         self.backend = get_backend(spec.backend)
+        # the wire-format gate first: a format whose measured NVE drift
+        # exceeds the dense-f32 bound is rejected here (verify="warn" /
+        # "off" are the escape hatches); the int8 scale is one per domain
+        self.wire = _wire.make_codec(spec.wire_dtype, n_lead=spec.ndim)
+        self.wire_drift = _wire.gate_wire_config(spec.wire_dtype, verify)
         # nonsense (widths, pulses) combinations fail here, with the
         # verifier's messages
         self.sched: PulseSchedule = check_halo_config(
@@ -484,8 +565,10 @@ class HaloPlan:
               occupancy: Optional[float] = None) -> dict:
         """Byte / critical-path stats for this plan's schedule, with the
         alpha-beta ``latency`` model, the step-``pipeline`` overlap model,
-        the side-channel index bytes and the occupancy-adjusted
-        ``useful_bytes``; the dense wire fields equal the payload's."""
+        the side-channel index bytes, the occupancy-adjusted
+        ``useful_bytes`` and the per-direction wire accounting (with a
+        wire format, ``latency_wire``: the same model at the mean wire
+        itemsize)."""
         if itemsize is None:
             itemsize = int(np.dtype(self.spec.dtype).itemsize)
         if feature_elems is None:
@@ -502,14 +585,29 @@ class HaloPlan:
             stats["useful_bytes"] = (
                 None if occupancy is None
                 else int(round(stats["total_bytes"] * occupancy)))
-            # payloads ride dense in this slice: both directions at the
-            # payload itemsize, no scale words
-            stats["wire_dtype"] = None
-            stats["wire_itemsize_fwd"] = itemsize
-            stats["wire_itemsize_rev"] = itemsize
-            stats["wire_itemsize"] = itemsize
-            stats["wire_bytes_fwd"] = cells * feature_elems * itemsize
-            stats["wire_bytes_rev"] = cells * feature_elems * itemsize
+            # per direction: coordinates (fwd) at the float32 floor (dense
+            # where the backend ships them dense), the force return (rev)
+            # in the named format, int8 with one 4-byte scale per
+            # serialized message; ``wire_bytes`` covers both directions
+            # of a step against ``2 * total_bytes`` dense
+            wire = self.wire
+            stats["wire_dtype"] = self.spec.wire_dtype
+            stats["wire_itemsize_fwd"] = (
+                itemsize if wire is None
+                or not self.backend.ships_fwd_wire(self, local_shape)
+                else wire.fwd_itemsize(self.spec.dtype))
+            stats["wire_itemsize_rev"] = (itemsize if wire is None
+                                          else wire.wire_itemsize)
+            stats["wire_itemsize"] = stats["wire_itemsize_rev"]
+            n_msgs = len([b for b in stats["serialized_pulse_bytes"]
+                          if b > 0])
+            scale_overhead = (0 if wire is None or wire.is_float
+                              else 4 * n_msgs)
+            stats["wire_bytes_fwd"] = (cells * feature_elems
+                                       * stats["wire_itemsize_fwd"])
+            stats["wire_bytes_rev"] = (cells * feature_elems
+                                       * stats["wire_itemsize_rev"]
+                                       + scale_overhead)
             stats["wire_bytes"] = (stats["wire_bytes_fwd"]
                                    + stats["wire_bytes_rev"])
             stats["wire_reduction"] = (
@@ -517,6 +615,23 @@ class HaloPlan:
                 if stats["wire_bytes"] else 1.0)
             stats["latency"] = latency_model(stats, link_latency_s,
                                              bandwidth_Bps)
+            if wire is not None:
+                # the same alpha-beta model at the mean wire itemsize:
+                # latency terms unchanged, bandwidth terms scaled
+                mean_itemsize = (stats["wire_itemsize_fwd"]
+                                 + stats["wire_itemsize_rev"]) / 2
+                lat_w = latency_model(
+                    compute_exchange_stats(self.sched, tuple(local_shape),
+                                           mean_itemsize, feature_elems),
+                    link_latency_s, bandwidth_Bps)
+                lat_w["wire_speedup_fused"] = (
+                    stats["latency"]["fused_time_s"] / lat_w["fused_time_s"]
+                    if lat_w["fused_time_s"] else 1.0)
+                lat_w["wire_speedup_serialized"] = (
+                    stats["latency"]["serialized_time_s"]
+                    / lat_w["serialized_time_s"]
+                    if lat_w["serialized_time_s"] else 1.0)
+                stats["latency_wire"] = lat_w
             overlap = overlap_model(stats, self.backend.critical_path,
                                     pipeline, depth)
             stats["overlap"] = overlap
@@ -546,31 +661,126 @@ class HaloPlan:
                 f"leading domain dims {tuple(x.shape[:nd])} do not match "
                 f"the mesh {self.axis_sizes} (axes {self.spec.axis_names})")
 
+    def _wire_active(self, x: torch.Tensor) -> bool:
+        """Wire compression applies to floating payloads only: integer
+        side channels (the MD engine's ``cell_i`` exchange) ride dense."""
+        return self.wire is not None and x.is_floating_point()
+
+    def wire_pack_dtype(self, dtype: torch.dtype) -> Optional[str]:
+        """Wire dtype of the forward direction's converting pack / put
+        kernels: the float32 floor, so f64 payloads pack f32 rows and
+        narrower (or integer) payloads pack dense."""
+        if self.wire is None or not dtype.is_floating_point:
+            return None
+        return self.wire.fwd_wire_dtype(dtype)
+
+    def _body_idx(self, local_shape: Sequence[int]) -> Tuple[slice, ...]:
+        """Index of every domain's local body inside extended blocks
+        (halos are appended at the high end of each decomposed dim)."""
+        return (slice(None),) * self.spec.ndim + tuple(
+            slice(0, int(n)) for n in local_shape)
+
     def fwd(self, local: torch.Tensor, wrap_shift=_UNSET) -> torch.Tensor:
         """Coordinate exchange: ``(*domains, *local)`` -> extended blocks
-        (each local dim ``d`` grows by ``widths[d]``)."""
+        (each local dim ``d`` grows by ``widths[d]``).
+
+        With ``spec.wire_dtype`` an f64 payload is gridded to the float32
+        floor before the sends and the exact body spliced back after:
+        received halo data is wire-lossy, local data never is.
+        """
         self._check(local)
-        return self.backend.fwd(self, local, self._resolve_shift(wrap_shift))
+        shift = self._resolve_shift(wrap_shift)
+        if self.wire_pack_dtype(local.dtype) is None:
+            return self.backend.fwd(self, local, shift)
+        # the backend's extended block is a new tensor: splice in place
+        ext = self.backend.fwd(self, self.wire.fwd_roundtrip(local), shift)
+        ext[self._body_idx(local.shape[self.spec.ndim:])] = local
+        return ext
 
     def rev(self, ext: torch.Tensor) -> torch.Tensor:
-        """Force-return exchange (adjoint of :meth:`fwd`)."""
+        """Force-return exchange (adjoint of :meth:`fwd`).  With a wire
+        format the halo-region contributions are wire-rounded before the
+        return puts; the body (never sent) stays exact."""
         self._check(ext)
-        return self.backend.rev(self, ext)
+        if not self._wire_active(ext):
+            return self.backend.rev(self, ext)
+        return self.backend.rev(self, self._rev_wire(ext, None)[0])
 
     # the reference's device-local names; every call here sees all domains
     fwd_local = fwd
     rev_local = rev
 
+    def rev_local_ef(self, ext: torch.Tensor, ef: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`rev` with error-feedback state (``ext``-shaped)."""
+        self._check(ext)
+        q, new_ef = self._rev_wire(ext, ef)
+        return self.backend.rev(self, q), new_ef
+
+    def rev_local_raw(self, ext: torch.Tensor) -> torch.Tensor:
+        """Reverse exchange with no wire seam, for a buffer that is
+        already wire-gridded (the step pipeline's slot ring decodes at
+        drain; quantizing again would apply error feedback twice)."""
+        self._check(ext)
+        return self.backend.rev(self, ext)
+
+    def _rev_wire(self, ext, ef):
+        q, new_ef = self.wire.roundtrip(ext, ef)
+        if q is ext:            # a cast to the payload's own dtype
+            return ext, new_ef
+        body = self._body_idx(self.backend._local_shape(self, ext))
+        q[body] = ext[body]
+        return q, new_ef
+
+    # -- wire-format slot-ring codec (pipeline extended-force buffers) -----
+
+    def wire_encode_ext(self, F_ext: torch.Tensor,
+                        ef: Optional[torch.Tensor] = None):
+        """Encode an extended-force buffer into slot-ring parts:
+        ``(parts, new_ef)``, the wire-dtyped tensor (and the int8 scale)
+        followed by the exact body.  :meth:`wire_decode_ext` inverts it;
+        the composition equals :meth:`_rev_wire` bitwise, which keeps
+        ``off`` == ``double_buffer``."""
+        parts, new_ef = self.wire.encode(F_ext, ef)
+        body = self._body_idx(self.backend._local_shape(self, F_ext))
+        return parts + (F_ext[body],), new_ef
+
+    def wire_decode_ext(self, parts, dtype) -> torch.Tensor:
+        """Decode slot-ring parts back to the wire-gridded extended-force
+        buffer with the exact body spliced in (drain side)."""
+        wire_parts, bodyv = parts[:-1], parts[-1]
+        F = self.wire.decode(wire_parts, dtype)
+        if F is wire_parts[0]:  # a cast to the payload's own dtype
+            F = F.clone()
+        F[self._body_idx(bodyv.shape[self.spec.ndim:2 * self.spec.ndim])] \
+            = bodyv
+        return F
+
     def exchange(self, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "HaloPlan.exchange (the autograd exchange whose backward is "
-            "the reverse path) is not ported yet: it comes with a later "
-            "slice of the port")
+        """Differentiable coordinate exchange whose backward *is* the
+        reverse exchange (paper Alg. 6 as an autograd rule): a gradient
+        through ``plan.exchange`` runs this plan's force-return path."""
+        return _Exchange.apply(x, self)
 
     def __repr__(self):
         return (f"HaloPlan(backend={self.spec.backend!r}, "
                 f"axes={self.spec.axis_names}, widths={self.spec.widths}, "
                 f"mesh={self.mesh.shape}, device={str(self.device)!r})")
+
+
+class _Exchange(torch.autograd.Function):
+    """``plan.fwd`` forward, ``plan.rev`` backward.  The exchange is
+    affine in ``x`` (the wrap shifts are constants), so it saves no
+    residuals: the backward is the exact linear adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return plan.fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.rev(g.contiguous()), None
 
 
 # the "signal" backend lives with the step pipeline and registers on

@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import const
+
 
 @dataclasses.dataclass(frozen=True)
 class CellLayout:
@@ -94,14 +96,14 @@ def bin_to_cells(pos, feats_f, feats_i, layout: CellLayout, domain_index):
     K = layout.capacity
     dev, dtype = pos.device, pos.dtype
     B, P = pos.shape[0], pos.shape[1]
-    csz = torch.tensor(layout.cell_size, dtype=dtype, device=dev)
+    csz = const(tuple(layout.cell_size), dtype, dev)
     origin = domain_index.to(dtype) * \
-        torch.tensor(layout.cells_per_domain, dtype=dtype, device=dev) * csz
+        const(tuple(layout.cells_per_domain), dtype, dev) * csz
 
     valid = feats_i[..., 0] >= 0
     rel = (pos - origin[:, None, :]) / csz
     cell3 = torch.floor(rel).to(torch.int32)
-    hi = torch.tensor([cz - 1, cy - 1, cx - 1], dtype=torch.int32, device=dev)
+    hi = const((cz - 1, cy - 1, cx - 1), torch.int32, dev)
     cell3 = torch.clamp(cell3, min=torch.zeros_like(hi), max=hi)
     cell_id = (cell3[..., 0] * cy + cell3[..., 1]) * cx + cell3[..., 2]
     n_cells = cz * cy * cx

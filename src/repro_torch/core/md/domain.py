@@ -17,6 +17,7 @@ from repro_torch.core.md.cells import (
     cells_to_pool,
     domain_coords,
 )
+from repro_torch.device import const
 
 AXES = ("z", "y", "x")
 
@@ -82,7 +83,7 @@ def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
     tensors) that must stay zero in healthy runs.
     """
     dev = pool_f.device
-    box = torch.tensor(layout.box, dtype=pool_f.dtype, device=dev)
+    box = const(tuple(layout.box), pool_f.dtype, dev)
     dropped_total = torch.zeros((), dtype=torch.int32, device=dev)
     lost_total = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -94,9 +95,8 @@ def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
         S = layout.mesh_shape[d]
         if S == 1:
             continue
-        extent = torch.tensor(layout.cells_per_domain[d]
-                              * layout.cell_size[d],
-                              dtype=pool_f.dtype, device=dev)
+        extent = const(layout.cells_per_domain[d] * layout.cell_size[d],
+                       pool_f.dtype, dev)
         valid = pool_i[..., 0] >= 0
         dest = torch.floor(pool_f[..., d] / extent).to(torch.int32)
         dest = torch.clamp(dest, 0, S - 1)

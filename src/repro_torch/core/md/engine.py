@@ -34,9 +34,14 @@ the rebin / migration (and, pruned, the boundary prune) right after its
 steps, as one block call; the final block runs plain.  Both paths run
 the same operations in the same order, so they are bitwise identical.
 
-The reference's other knobs (the static ladder, wire compression,
-tracing, fault injection, health monitors) come with later slices of the
-port; asking for any of them raises ``NotImplementedError``.
+``wire_dtype`` compresses the halo payloads (:mod:`repro_torch.core.wire`):
+f64 coordinates cross the wire as f32, the force return in the named
+format; the plan build rejects a format whose measured drift exceeds the
+dense-f32 bound (``verify="warn"`` / ``"off"`` waive it).
+
+The reference's other knobs (the static ladder, tracing, fault
+injection, health monitors) come with later slices of the port; asking
+for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -118,8 +123,9 @@ class MDEngine:
     ``pipeline_depth`` its in-flight window (ring slots, >= 2); every
     (mode, depth) gives bitwise-identical trajectories, as does
     ``overlap_rebin``.  ``verify`` (``"error"`` / ``"warn"`` / ``"off"``)
-    is the build-time gate of the schedule verifier.  ``device`` defaults
-    to ``"cuda"`` and raises when CUDA is absent.
+    is the build-time gate of the schedule verifier and of the wire
+    format's drift (``wire_dtype``, or ``spec.wire_dtype``).  ``device``
+    defaults to ``"cuda"`` and raises when CUDA is absent.
     """
 
     def __init__(self, system: MDSystem, mesh: DomainMesh,
@@ -165,9 +171,6 @@ class MDEngine:
             _not_ported("static_ladder", static_ladder,
                         "the serving slice (the worst-case pair-schedule "
                         "ladder of its replica buckets)")
-        if wire_dtype is not None or spec.wire_dtype is not None:
-            _not_ported("wire_dtype", wire_dtype or spec.wire_dtype,
-                        "the wire-compression slice")
         for knob, value in (("obs", obs), ("trace", trace),
                             ("inject", inject), ("health", health)):
             if value:
@@ -240,7 +243,13 @@ class MDEngine:
             spec = spec.with_wrap_shift(ws)
         # byte accounting: each exchanged cell carries `capacity` slots of
         # 4 floats (x, y, z, charge); the (K, 2) int32 cell_i exchange is
-        # reported separately (halo_stats' bytes_index)
+        # reported separately (halo_stats' bytes_index).  ``wire_dtype``
+        # compresses the floating payload on the wire (cell_i rides
+        # dense); the plan build runs the drift gate with this engine's
+        # verify mode
+        if wire_dtype is not None:
+            spec = dataclasses.replace(spec, wire_dtype=wire_dtype)
+        self.wire_dtype = spec.wire_dtype
         self.plan = HaloPlan.build(
             dataclasses.replace(spec, dtype=np.dtype(system.pos.dtype).name,
                                 feature_elems=4 * self.layout.capacity),

@@ -8,12 +8,14 @@ gives 14 zone products per base cell (the cell with itself plus 13
 pairs of disjoint offsets in {0,1}^3).  Periodic images are pre-shifted
 by the halo exchange, so no minimum-image logic appears here.
 
-Constants are made as tensors of the working dtype on the working
-device, so an f32 pass stays f32 (and an f64 pass f64) and every
-division is a true division, as in the reference.
+Constants are tensors of the working dtype on the working device, made
+once per (value, dtype, device) (:func:`repro_torch.device.const`), so
+an f32 pass stays f32 (and an f64 pass f64), every division is a true
+division, as in the reference, and no pass copies from the host.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import List, Tuple
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core.md.cells import CellLayout
 from repro_torch.core.md.system import ForceField
+from repro_torch.device import const
 
 Offset = Tuple[int, int, int]
 
@@ -46,7 +49,15 @@ def _zone(arr, off, shape):
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    return const(float(v), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def ff_tables(eps, sigma, dtype: torch.dtype, device: torch.device):
+    """The force field's (T, T) LJ tables on the device, made once (a
+    copy to the card per call would stall the host)."""
+    return (torch.tensor(eps, dtype=dtype, device=device),
+            torch.tensor(sigma, dtype=dtype, device=device))
 
 
 def pair_terms(dx, r2, qa, qb, eps, sig, ff: ForceField, mask):
@@ -87,8 +98,7 @@ def compute_forces(ext_f, ext_i, layout: CellLayout, ff: ForceField):
     shape = layout.cells_per_domain
     dtype, dev = ext_f.dtype, ext_f.device
     lead = ext_f.dim() - 5
-    eps_t = torch.tensor(ff.eps, dtype=dtype, device=dev)
-    sig_t = torch.tensor(ff.sigma, dtype=dtype, device=dev)
+    eps_t, sig_t = ff_tables(ff.eps, ff.sigma, dtype, dev)
     n_types = eps_t.shape[0]
     rc2 = _const(ff.r_cut * ff.r_cut, ext_f)
     K = layout.capacity

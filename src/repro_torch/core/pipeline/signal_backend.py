@@ -5,9 +5,13 @@ end-to-end consumer of the two kernels the paper's GPU-initiated
 redesign is built from (:mod:`repro_torch.kernels.halo_pack`):
 
 * single-pulse dims run ``put_signal(shift=-1)``: the fused pack + put
-  whose arrival word is the data signal (paper Alg. 3/5);
+  whose arrival word is the data signal (paper Alg. 3/5); with an f64
+  payload under a wire format the put ships f32 rows (its converting
+  form, B3w) and the receiver casts them back;
 * multi-pulse dims (``HaloSpec.pulses``) run ``fused_pulses``: one launch
-  per dim, the pulses chained through their arrival words (Alg. 4);
+  per dim, the pulses chained through their arrival words (Alg. 4); they
+  always ship dense, as in the reference (staged forwarding would
+  re-round at every hop);
 * the reverse (force-return) path runs ``put_signal(shift=+1)`` per pulse
   in reversed serialized order, then a slab add (Alg. 6's CommUnpackF in
   its canonical form), so it launches no ``unpack_add``.
@@ -101,9 +105,13 @@ class SignalBackend(PallasBackend):
     def fwd(self, plan, local, wrap_shift):
         sched = plan.sched
         nd = plan.spec.ndim
-        shifter = _halo._Shifter(plan.axis_sizes, wrap_shift)
+        local_shape = tuple(local.shape[nd:2 * nd])
         words = self._words(plan)
-        per_dim = self._dim_fwd_maps(plan, tuple(local.shape[nd:2 * nd]))
+        per_dim = self._dim_fwd_maps(plan, local_shape)
+        # the wire path shifts after the exchange, as the pallas one does
+        wire = self._fwd_wire(plan, local)
+        shifter = _halo._Shifter(plan.axis_sizes,
+                                 wrap_shift if wire is None else None)
         ext = local
         for d in range(nd):
             if per_dim[d] is None:
@@ -115,7 +123,7 @@ class SignalBackend(PallasBackend):
             if len(pulses) == 1:
                 recvs = [halo_pack.put_signal(
                     src, padded[0, :counts[0]], plan.axis_sizes, d, -1,
-                    signal=words)]
+                    signal=words, wire_dtype=wire).to(ext.dtype)]
             else:
                 out = halo_pack.fused_pulses(src, padded, src.shape[1],
                                              plan.axis_sizes, d, words=words)
@@ -124,6 +132,8 @@ class SignalBackend(PallasBackend):
                 slab = rows.reshape(shape[:nd + d] + (pulse.width,)
                                     + shape[nd + d + 1:])
                 ext = torch.cat([ext, shifter(slab, d)], dim=nd + d)
+        if wire is not None:
+            ext = self._shift_halos(plan, ext, wrap_shift, local_shape)
         return ext
 
     def rev(self, plan, ext):

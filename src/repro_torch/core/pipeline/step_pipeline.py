@@ -24,6 +24,17 @@ chain: ``double_buffer`` differs from ``off`` only in the ledger slot a
 step's signals use, and both give bitwise identical trajectories at
 every depth.  Real overlap (a second stream, or a CUDA graph per block)
 is later work.
+
+With a wire format (``HaloSpec.wire_dtype``) the force return carries
+the named format, quantized at the plan seam in both modes
+(``plan.rev_local``, or ``plan.rev_local_ef`` threading the ``int8_ef``
+error-feedback residual step by step).  The reference's
+``double_buffer`` keeps its in-flight slot ring in wire form
+(``plan.wire_encode_ext`` at fill, ``plan.wire_decode_ext`` and
+``plan.rev_local_raw`` at drain); that pair equals the seam bitwise, and
+with no window in flight here there is nothing for it to hold, so one
+path serves both modes until a real ring exists.  The coordinate
+direction's float32 floor sits inside ``plan.fwd_local``.
 """
 from __future__ import annotations
 
@@ -96,6 +107,18 @@ class StepPipeline:
 
     # -- execution -----------------------------------------------------------
 
+    def _rev(self, F_ext: torch.Tensor, wire_on: bool, wef):
+        """One step's force return: ``(f, new_ef)``.  ``wire_on`` is the
+        reference's ``_wire_state``: a wire format and a floating
+        payload; ``wef`` the ``int8_ef`` residual (None until the first
+        step sizes it)."""
+        plan = self.plan
+        if not (wire_on and plan.wire.stateful):
+            return plan.rev_local(F_ext), wef
+        if wef is None:
+            wef = torch.zeros_like(F_ext)
+        return plan.rev_local_ef(F_ext, wef)
+
     def run_local(self, state, f0: torch.Tensor, n_steps: int, ctx=None
                   ) -> Tuple[Any, torch.Tensor, Metrics, LedgerState]:
         """Run ``n_steps`` steps; returns the final state, the last step's
@@ -105,15 +128,18 @@ class StepPipeline:
             raise ValueError("n_steps must be >= 1")
         fns, plan, ledger = self.fns, self.plan, self.ledger
         led, f, per_step = ledger.init(), f0, []
+        wire_on, wef = False, None
         for k in range(n_steps):
             buf = k % self.depth
             state, aux, payload = fns.begin(state, f, ctx)
+            if k == 0:
+                wire_on = plan._wire_active(payload)
             led = ledger.release(led, "fwd", buf)
             ext = plan.fwd_local(payload)
             led = ledger.acquire(led, "fwd", buf)
             F_ext, m_force = fns.force(ext, ctx)
             led = ledger.release(led, "rev", buf)
-            f_new = plan.rev_local(F_ext)
+            f_new, wef = self._rev(F_ext, wire_on, wef)
             led = ledger.acquire(led, "rev", buf)
             state, f, m_fin = fns.finish(state, aux, f_new, ctx)
             per_step.append({**m_force, **m_fin})

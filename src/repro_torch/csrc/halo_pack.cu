@@ -2,7 +2,9 @@
 // virtual domain mesh.
 //
 // Replaces the TPU kernels of the JAX package:
-//   halo_pack_*        <- src/repro/kernels/halo_pack.py:pack (_pack_kernel)
+//   halo_pack_b*       <- src/repro/kernels/halo_pack.py:pack (_pack_kernel)
+//   halo_pack_<s>_to_<w>  <- the same with wire_dtype= (the gathered rows
+//                         rounded to the wire dtype before the store)
 //   halo_unpack_add_*  <- src/repro/kernels/halo_pack.py:unpack_add
 //                         (_unpack_add_kernel)
 //
@@ -22,7 +24,11 @@
 //     indexed add.
 // Kernels run on the caller's stream, allocate nothing and do not
 // synchronise.  Each C entry point returns cudaGetLastError().
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "wire_conv.cuh"
 
 #include <cstdint>
 
@@ -77,6 +83,34 @@ __global__ void pack_kernel(const W* __restrict__ src,
   }
   const W* row = src + (b * R + i) * F;
   for (int64_t f = threadIdx.x; f < F; f += blockDim.x) dst[f] = row[f];
+}
+
+// ---- converting pack: out[b, m, :] = wire(src[b, idx[m], :]) --------------
+//
+// The wire form (compressed halo payloads): the gathered row is rounded to
+// the wire dtype in registers and only the narrow row is stored, so the
+// source rows are read once and the wire rows written once.  Each cast
+// rounds as XLA's convert does (WireConv, wire_conv.cuh).  A padding row
+// is the wire dtype's +0.
+
+template <typename S, typename D>
+__global__ void pack_convert_kernel(const S* __restrict__ src,
+                                    const int32_t* __restrict__ idx,
+                                    D* __restrict__ out, int64_t R,
+                                    int64_t M, int64_t F) {
+  const int64_t m = blockIdx.x;
+  const int64_t b = blockIdx.y;
+  const int32_t i = idx[m];
+  D* dst = out + (b * M + m) * F;
+  if (i >= R) __trap();
+  if (i < 0) {
+    const D zero = WireConv<S, D>::apply(S(0));
+    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) dst[f] = zero;
+    return;
+  }
+  const S* row = src + (b * R + i) * F;
+  for (int64_t f = threadIdx.x; f < F; f += blockDim.x)
+    dst[f] = WireConv<S, D>::apply(row[f]);
 }
 
 // ---- unpack-add: out[b, idx[m], :] += rows[b, m, :] (out holds dst) -------
@@ -141,6 +175,20 @@ int launch_pack(const void* src, const void* idx, void* out, int64_t n_dom,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, typename D>
+int launch_pack_convert(const void* src, const void* idx, void* out,
+                        int64_t n_dom, int64_t R, int64_t M, int64_t F,
+                        void* stream) {
+  if (!grid_ok(n_dom, M) || F < 1 || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(n_dom));
+  pack_convert_kernel<S, D><<<grid, threads_for(F), 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(src), static_cast<const int32_t*>(idx),
+      static_cast<D*>(out), R, M, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_unpack_add(const void* dst, const void* idx, const void* rows,
                       void* out, int64_t n_dom, int64_t R, int64_t M,
@@ -186,8 +234,22 @@ int launch_unpack_add(const void* dst, const void* idx, const void* rows,
                                 stream);                                    \
   }
 
+// the converting pack by (source, wire) element type
+#define REPRO_PACK_CONVERT_ENTRY(NAME, S, D)                                \
+  extern "C" int halo_pack_##NAME(const void* src, const void* idx,         \
+                                  void* out, int64_t n_dom, int64_t R,      \
+                                  int64_t M, int64_t F, void* stream) {     \
+    return launch_pack_convert<S, D>(src, idx, out, n_dom, R, M, F,         \
+                                     stream);                               \
+  }
+
 REPRO_PACK_ENTRY(4, uint32_t)
 REPRO_PACK_ENTRY(8, uint64_t)
+REPRO_PACK_CONVERT_ENTRY(f64_to_f32, double, float)
+REPRO_PACK_CONVERT_ENTRY(f64_to_bf16, double, __nv_bfloat16)
+REPRO_PACK_CONVERT_ENTRY(f64_to_f16, double, __half)
+REPRO_PACK_CONVERT_ENTRY(f32_to_bf16, float, __nv_bfloat16)
+REPRO_PACK_CONVERT_ENTRY(f32_to_f16, float, __half)
 REPRO_UNPACK_ADD_ENTRY(f32, float)
 REPRO_UNPACK_ADD_ENTRY(f64, double)
 REPRO_UNPACK_ADD_ENTRY(i32, int32_t)

@@ -4,6 +4,8 @@
 // Replaces the TPU kernels of the JAX package:
 //   halo_put_signal_b*    <- src/repro/kernels/halo_pack.py:put_signal
 //                            (_put_signal_kernel)
+//   halo_put_signal_<s>_to_<w>  <- the same with wire_dtype= (scratch, put
+//                            and receive buffer in the wire dtype)
 //   halo_fused_pulses_b*  <- src/repro/kernels/halo_pack.py:fused_pulses
 //                            (_fused_pulses_kernel)
 //
@@ -50,10 +52,20 @@
 // practice; the design keeps each pulse (put_signal) or each dim
 // (fused_pulses) to one launch for all domains, and moves 16-byte words
 // where the row width and the bases allow.  Kernels are bit copies keyed
-// on element width (b4 serves f32 and int32, b8 f64), run on the caller's
-// stream, allocate nothing and do not synchronise.  Each C entry point
+// on element width (b4 serves f32 and int32, b8 f64), except put_signal's
+// converting form, keyed on (source, wire) element type: it rounds each
+// gathered element to the wire dtype in registers and stores only the
+// narrow row in the receiver's slab (the reference's wire-dtyped scratch
+// and put), so the wire rows are written once and never staged.  It rounds
+// as XLA's convert does (WireConv, wire_conv.cuh, shared with halo_pack.cu).
+// Kernels run on the caller's stream, allocate nothing and do not
+// synchronise.  Each C entry point
 // returns cudaGetLastError() (or the memset's error).
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "wire_conv.cuh"
 
 #include <cstdint>
 
@@ -117,6 +129,34 @@ __global__ void put_signal_kernel(const W* __restrict__ src,
   } else {
     const W* row = src + (b * R + i) * F;
     for (int64_t f = threadIdx.x; f < F; f += blockDim.x) to[f] = row[f];
+  }
+  release(signal + dst);
+}
+
+// ---- put_signal, converting: recv[nb(b), m, :] = wire(src[b, idx[m], :]) --
+//
+// Each element rounds as WireConv says; a padding row is the wire dtype's +0.
+
+template <typename S, typename D>
+__global__ void put_signal_convert_kernel(const S* __restrict__ src,
+                                          const int32_t* __restrict__ idx,
+                                          D* __restrict__ out, int* signal,
+                                          int64_t R, int64_t M, int64_t F,
+                                          int64_t ring, int64_t inner,
+                                          int64_t shift) {
+  const int64_t m = blockIdx.x;
+  const int64_t b = blockIdx.y;
+  const int64_t dst = neighbour(b, ring, inner, shift);
+  const int32_t i = idx[m];
+  if (i >= R) __trap();
+  D* to = out + (dst * M + m) * F;
+  if (i < 0) {
+    const D zero = WireConv<S, D>::apply(S(0));
+    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) to[f] = zero;
+  } else {
+    const S* row = src + (b * R + i) * F;
+    for (int64_t f = threadIdx.x; f < F; f += blockDim.x)
+      to[f] = WireConv<S, D>::apply(row[f]);
   }
   release(signal + dst);
 }
@@ -199,6 +239,25 @@ int launch_put_signal(const void* src, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, typename D>
+int launch_put_signal_convert(const void* src, const void* idx, void* out,
+                              void* signal, int64_t n_dom, int64_t R,
+                              int64_t M, int64_t F, int64_t ring,
+                              int64_t inner, int64_t shift, void* stream) {
+  if (!mesh_ok(n_dom, ring, inner) || n_dom > 65535 || M < 1 ||
+      M > 2147483647 || F < 1 || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(signal, 0, n_dom * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(n_dom));
+  put_signal_convert_kernel<S, D><<<grid, threads_for(F), 0, s>>>(
+      static_cast<const S*>(src), static_cast<const int32_t*>(idx),
+      static_cast<D*>(out), static_cast<int*>(signal), R, M, F, ring, inner,
+      shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename W>
 int launch_fused_pulses(const void* src, const void* idx, void* out,
                         void* words, int64_t n_dom, int64_t R,
@@ -249,5 +308,21 @@ int launch_fused_pulses(const void* src, const void* idx, void* out,
                                   P, M, F, ring, inner, stream);             \
   }
 
+// put_signal's converting form by (source, wire) element type
+#define REPRO_PUT_SIGNAL_CONVERT_ENTRY(NAME, S, D)                           \
+  extern "C" int halo_put_signal_##NAME(                                     \
+      const void* src, const void* idx, void* out, void* signal,             \
+      int64_t n_dom, int64_t R, int64_t M, int64_t F, int64_t ring,          \
+      int64_t inner, int64_t shift, void* stream) {                          \
+    return launch_put_signal_convert<S, D>(src, idx, out, signal, n_dom, R,  \
+                                           M, F, ring, inner, shift,         \
+                                           stream);                          \
+  }
+
 REPRO_SIGNAL_ENTRIES(4, unsigned int)
 REPRO_SIGNAL_ENTRIES(8, unsigned long long)
+REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_f32, double, float)
+REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_bf16, double, __nv_bfloat16)
+REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_f16, double, __half)
+REPRO_PUT_SIGNAL_CONVERT_ENTRY(f32_to_bf16, float, __nv_bfloat16)
+REPRO_PUT_SIGNAL_CONVERT_ENTRY(f32_to_f16, float, __half)

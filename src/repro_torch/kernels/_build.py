@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and no
 PyTorch headers, so ``nvcc`` compiles it in seconds.  Libraries go into
 ``build/repro_torch/`` under the repository root (git-ignored), named by
-a hash of the source and flags: an unchanged source is built once.
+a hash of the source, the shared ``csrc/*.cuh`` headers and the flags:
+an unchanged source is built once.
 Nothing is built when a module is imported; the first launch builds.
 """
 from __future__ import annotations
@@ -46,9 +47,12 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the shared headers under csrc/ are part of every source's hash
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

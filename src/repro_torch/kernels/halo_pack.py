@@ -13,6 +13,14 @@ Each source's header says what bounds its kernels on an H100 (bytes, and
 at the MD path's halo sizes launch latency) and what the design does
 about it.
 
+``pack`` and ``put_signal`` take ``wire_dtype=`` (compressed halo
+payloads): the gathered rows are rounded to the wire dtype in registers
+and only the narrow rows are stored, the reference's quantize-into-pack.
+Sources f32 / f64, wires f32 (from f64), bf16 and f16, each rounded as
+XLA rounds (:func:`repro_torch.core.wire.wire_cast`); a wire equal to the
+source dtype is the plain bit copy.  The converting launches are counted
+apart, in ``pack.wire_launches`` and ``put_signal.wire_launches``.
+
 Every function is batched over the virtual domain mesh: ``src`` is
 ``(n_dom, R, F)``, domains row-major over ``mesh_shape``, and one index
 map serves every domain, so a pulse is one launch whatever the domain
@@ -35,9 +43,20 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.wire import FP_WIRE, wire_cast
 from repro_torch.kernels import _build
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32"}
+_WIRE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
+# the converting entry points: (source, wire) element types
+_CONVERTS = ((torch.float64, torch.float32), (torch.float64, torch.bfloat16),
+             (torch.float64, torch.float16), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float16))
+
+
+def _convert_name(src: torch.dtype, wire: torch.dtype) -> str:
+    return f"{_SUFFIX[src]}_to_{_WIRE_SUFFIX[wire]}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,6 +65,10 @@ def _lib() -> ctypes.CDLL:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     for width in (4, 8):            # pack is a bit copy: one entry per width
         fn = getattr(lib, f"halo_pack_b{width}")
+        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    for src, wire in _CONVERTS:
+        fn = getattr(lib, f"halo_pack_{_convert_name(src, wire)}")
         fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
     for sfx in _SUFFIX.values():
@@ -65,6 +88,10 @@ def _signal_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"halo_fused_pulses_b{width}")
         fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 8 + [ptr]
+        fn.restype = ctypes.c_int
+    for src, wire in _CONVERTS:
+        fn = getattr(lib, f"halo_put_signal_{_convert_name(src, wire)}")
+        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 7 + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -86,6 +113,22 @@ def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device,
         raise ValueError(f"{name} must be contiguous (pass .contiguous())")
 
 
+def _wire_dtype(src: torch.Tensor, wire_dtype) -> Optional[torch.dtype]:
+    """The wire dtype a pack of ``src`` converts to, or None for the plain
+    bit copy (no ``wire_dtype``, or one equal to the source's)."""
+    if wire_dtype is None:
+        return None
+    wire = FP_WIRE.get(wire_dtype) if isinstance(wire_dtype, str) \
+        else wire_dtype
+    if wire == src.dtype:
+        return None
+    if (src.dtype, wire) not in _CONVERTS:
+        raise TypeError(f"no wire conversion {src.dtype} -> {wire_dtype}: "
+                        "sources float32 / float64, wires float32 (from "
+                        "float64), bfloat16 and float16")
+    return wire
+
+
 def _launch(fn, *args, device: torch.device) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*args, stream)
@@ -95,39 +138,51 @@ def _launch(fn, *args, device: torch.device) -> None:
 
 # ---- pack -------------------------------------------------------------------
 
-def pack_plain(src: torch.Tensor, index_map: torch.Tensor) -> torch.Tensor:
-    """Plain form of :func:`pack`: gather plus a mask."""
+def pack_plain(src: torch.Tensor, index_map: torch.Tensor,
+               wire_dtype=None) -> torch.Tensor:
+    """Plain form of :func:`pack`: gather, mask, then the wire cast."""
+    wire = _wire_dtype(src, wire_dtype)
     rows = src.index_select(1, index_map.clamp(min=0).long())
-    return torch.where((index_map >= 0)[None, :, None], rows,
+    rows = torch.where((index_map >= 0)[None, :, None], rows,
                        torch.zeros((), dtype=src.dtype, device=src.device))
+    return rows if wire is None else wire_cast(rows, wire)
 
 
-def pack(src: torch.Tensor, index_map: torch.Tensor) -> torch.Tensor:
+def pack(src: torch.Tensor, index_map: torch.Tensor,
+         wire_dtype=None) -> torch.Tensor:
     """``out[b, m] = src[b, index_map[m]]`` (zero row where negative).
 
     ``src`` (n_dom, R, F) f32 / f64 / int32; ``index_map`` (M,) int32 on
     the same device, entries in ``[-1, R)``; an entry ``>= R`` raises
-    here and traps the kernel on the card.  Returns (n_dom, M, F).
+    here and traps the kernel on the card.  Returns (n_dom, M, F), in
+    ``wire_dtype`` when one is given (a name or a torch dtype).
     """
     _check("src", src, 3, src.device)
     _check("index_map", index_map, 1, src.device, torch.int32)
+    wire = _wire_dtype(src, wire_dtype)
     if src.device.type == "cpu":
-        return pack_plain(src, index_map)
+        return pack_plain(src, index_map, wire)
     if src.device.type != "cuda":
         raise ValueError(f"pack: unsupported device {src.device}")
     n_dom, R, F = src.shape
     M = index_map.shape[0]
-    out = torch.empty((n_dom, M, F), dtype=src.dtype, device=src.device)
+    out = torch.empty((n_dom, M, F), dtype=wire or src.dtype,
+                      device=src.device)
     if out.numel() == 0:
         return out
-    _launch(getattr(_lib(), f"halo_pack_b{src.element_size()}"),
-            src.data_ptr(), index_map.data_ptr(), out.data_ptr(),
-            n_dom, R, M, F, device=src.device)
-    pack.launches += 1
+    name = (f"halo_pack_b{src.element_size()}" if wire is None
+            else f"halo_pack_{_convert_name(src.dtype, wire)}")
+    _launch(getattr(_lib(), name), src.data_ptr(), index_map.data_ptr(),
+            out.data_ptr(), n_dom, R, M, F, device=src.device)
+    if wire is None:
+        pack.launches += 1
+    else:
+        pack.wire_launches += 1
     return out
 
 
 pack.launches = 0
+pack.wire_launches = 0
 
 
 # ---- unpack_add -------------------------------------------------------------
@@ -202,9 +257,10 @@ def _words(signal: Optional[torch.Tensor], n: int,
 
 def put_signal_plain(src: torch.Tensor, index_map: torch.Tensor,
                      mesh_shape: Sequence[int], axis: int,
-                     shift: int) -> torch.Tensor:
-    """Plain form of :func:`put_signal`: the gather, then the ring shift."""
-    packed = pack_plain(src, index_map)
+                     shift: int, wire_dtype=None) -> torch.Tensor:
+    """Plain form of :func:`put_signal`: the gather (and wire cast), then
+    the ring shift."""
+    packed = pack_plain(src, index_map, wire_dtype)
     n_dom, M, F = packed.shape
     return torch.roll(packed.reshape(tuple(mesh_shape) + (M, F)), shift,
                       dims=axis).reshape(n_dom, M, F)
@@ -212,7 +268,8 @@ def put_signal_plain(src: torch.Tensor, index_map: torch.Tensor,
 
 def put_signal(src: torch.Tensor, index_map: torch.Tensor,
                mesh_shape: Sequence[int], axis: int, shift: int,
-               signal: Optional[torch.Tensor] = None) -> torch.Tensor:
+               signal: Optional[torch.Tensor] = None,
+               wire_dtype=None) -> torch.Tensor:
     """Fused pack + put to the ring neighbour ``my + shift`` along
     ``axis``; returns every domain's RECEIVED ``(n_dom, M, F)`` buffer:
     ``out[nb(b), m] = src[b, index_map[m]]`` (zero row where negative).
@@ -222,30 +279,40 @@ def put_signal(src: torch.Tensor, index_map: torch.Tensor,
     entry ``>= R`` raises here and traps the kernel on the card.  On the
     card each row is one chunk and raises its receiver's arrival word in
     ``signal`` (int32, >= n_dom words, reset by the launch; fresh ones
-    when None), so afterwards ``signal[:n_dom]`` all equal M.
+    when None), so afterwards ``signal[:n_dom]`` all equal M.  With
+    ``wire_dtype`` the put and the receive buffer are wire-dtyped (the
+    receiver casts back).
     """
     _check("src", src, 3, src.device)
     _check("index_map", index_map, 1, src.device, torch.int32)
+    wire = _wire_dtype(src, wire_dtype)
     n_dom, R, F = src.shape
     ring, inner = _ring(mesh_shape, axis, n_dom)
     if src.device.type == "cpu":
-        return put_signal_plain(src, index_map, mesh_shape, axis, shift)
+        return put_signal_plain(src, index_map, mesh_shape, axis, shift,
+                                wire)
     if src.device.type != "cuda":
         raise ValueError(f"put_signal: unsupported device {src.device}")
     M = index_map.shape[0]
-    out = torch.empty((n_dom, M, F), dtype=src.dtype, device=src.device)
+    out = torch.empty((n_dom, M, F), dtype=wire or src.dtype,
+                      device=src.device)
     if out.numel() == 0:
         return out
     words = _words(signal, n_dom, src.device)
-    _launch(getattr(_signal_lib(), f"halo_put_signal_b{src.element_size()}"),
-            src.data_ptr(), index_map.data_ptr(), out.data_ptr(),
-            words.data_ptr(), n_dom, R, M, F, ring, inner, int(shift),
-            device=src.device)
-    put_signal.launches += 1
+    name = (f"halo_put_signal_b{src.element_size()}" if wire is None
+            else f"halo_put_signal_{_convert_name(src.dtype, wire)}")
+    _launch(getattr(_signal_lib(), name), src.data_ptr(),
+            index_map.data_ptr(), out.data_ptr(), words.data_ptr(), n_dom, R,
+            M, F, ring, inner, int(shift), device=src.device)
+    if wire is None:
+        put_signal.launches += 1
+    else:
+        put_signal.wire_launches += 1
     return out
 
 
 put_signal.launches = 0
+put_signal.wire_launches = 0
 
 
 # ---- fused_pulses -----------------------------------------------------------

@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.md.forces import pair_terms
+from repro_torch.core.md.forces import ff_tables, pair_terms
 from repro_torch.core.md.system import ForceField
 from repro_torch.kernels import _build
 from repro_torch.kernels.halo_pack import _check, _launch
@@ -50,14 +50,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr]
         fn.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _tables(eps, sigma, dtype: torch.dtype, device: torch.device):
-    """The force field's (T, T) LJ tables on the device, made once (a
-    copy to the card per call would stall the host)."""
-    return (torch.tensor(eps, dtype=dtype, device=device),
-            torch.tensor(sigma, dtype=dtype, device=device))
 
 
 def _float_check(name: str, t: torch.Tensor, ndim: int,
@@ -97,7 +89,7 @@ def pair_forces_plain(a, b, ta, tb, same, ff: ForceField, cnt_a=None,
     the pair terms of the dense path (``forces.pair_terms``)."""
     N, K = _pair_args(a, b, ta, tb, same, cnt_a, cnt_b)
     dev, dtype = a.device, a.dtype
-    eps_t, sig_t = _tables(ff.eps, ff.sigma, dtype, dev)
+    eps_t, sig_t = ff_tables(ff.eps, ff.sigma, dtype, dev)
     n_types = eps_t.shape[0]
     if cnt_a is not None:
         # binning packs each cell's atoms into a contiguous slot prefix,
@@ -154,7 +146,7 @@ def pair_forces(a, b, ta, tb, same, ff: ForceField, cnt_a=None,
     pe = torch.empty((N,), dtype=a.dtype, device=a.device)
     if N == 0:
         return fa, fb, pe
-    eps_t, sig_t = _tables(ff.eps, ff.sigma, a.dtype, a.device)
+    eps_t, sig_t = ff_tables(ff.eps, ff.sigma, a.dtype, a.device)
     _launch(getattr(_lib(), f"nb_pair_forces_{_SUFFIX[a.dtype]}"),
             a.data_ptr(), b.data_ptr(), ta.data_ptr(), tb.data_ptr(),
             same.data_ptr(),

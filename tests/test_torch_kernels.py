@@ -223,6 +223,22 @@ for dt in ("float32", "float64"):
         out[f"fused_{name}_{dt}"] = run(
             lambda lo: halo_pack.fused_pulses(lo, maps, axis="z", ring=ring,
                                               n_local=N_LOCAL))
+    # the wire forms, on values at and beside the wire grids' ties
+    k = np.arange(RING * N_LOCAL * F, dtype=np.float64)
+    xw = ((1 + (k % 1024) / 1024 + 2.0 ** -11 + (-1) ** k * 2.0 ** -40)
+          * 2.0 ** (k % 13 - 6) * (-1) ** (k // 2)).astype(dt)
+    xw = xw.reshape(RING * N_LOCAL, F)
+    out["xw_" + dt] = x = xw
+    wires = ("bfloat16", "float16") + (("float32",) if dt == "float64"
+                                       else ())
+    for wire in wires:
+        for shift in (-1, 1):
+            idx = jnp.asarray(put_maps["padded"], dtype=jnp.int32)
+            out[f"putw_{shift}_{dt}_{wire}"] = run(
+                lambda lo: halo_pack.put_signal(
+                    lo, idx, axis="z", ring=ring, shift=np.int32(shift),
+                    wire_dtype=wire)).view(np.uint16 if wire != "float32"
+                                           else np.uint32)
 np.savez(sys.argv[1], **out)
 """
 
@@ -258,6 +274,30 @@ def test_put_signal_plain_matches_jax_ring_bitwise(jax_ring, dt, name, shift):
     assert _bits_equal(got.numpy(), want)
     assert _bits_equal(halo_pack.put_signal_plain(x, idx, (RING,), 0,
                                                   shift).numpy(), want)
+
+
+WIRE_CASES = [("float64", "float32"), ("float64", "bfloat16"),
+              ("float64", "float16"), ("float32", "bfloat16"),
+              ("float32", "float16")]
+
+
+@pytest.mark.parametrize("shift", [-1, 1])
+@pytest.mark.parametrize("dt,wire", WIRE_CASES)
+def test_put_signal_wire_plain_matches_jax_ring_bitwise(jax_ring, dt, wire,
+                                                        shift):
+    """B3w's plain form (the put and the receive buffer in the wire
+    dtype) against JAX's ``put_signal(wire_dtype=)`` on near-tie values;
+    JAX's result comes back as raw bits."""
+    x = torch.from_numpy(jax_ring[f"xw_{dt}"]).reshape(RING, N_LOCAL,
+                                                      RING_F)
+    idx = torch.tensor(PUT_MAPS["padded"], dtype=torch.int32)
+    got = halo_pack.put_signal(x, idx, (RING,), 0, shift, wire_dtype=wire)
+    assert got.dtype == getattr(torch, wire)
+    bits = got.view(torch.int16 if got.element_size() == 2
+                    else torch.int32).numpy()
+    want = jax_ring[f"putw_{shift}_{dt}_{wire}"].reshape(RING, len(idx),
+                                                         RING_F)
+    assert np.array_equal(bits.view(want.dtype), want)
 
 
 @pytest.mark.parametrize("name", list(FUSED_MAPS))

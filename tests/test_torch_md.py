@@ -491,20 +491,33 @@ def test_short_nve_run_is_stable(f32_system):
         assert dg["n_atoms"] == f32_system.n_atoms
 
 
+def _wire_spec(wire_dtype):
+    return dict(spec=HaloSpec(AXES, (1, 1, 1), wire_dtype=wire_dtype))
+
+
 @pytest.mark.parametrize("kw,match", [
     pytest.param(dict(force_backend="pallas", static_ladder=True),
                  "static_ladder", id="kw2-static_ladder"),
-    pytest.param(dict(spec=HaloSpec(AXES, (1, 1, 1), wire_dtype="bfloat16")),
-                 "wire", id="kw3-wire"),
-    pytest.param(dict(wire_dtype="bfloat16"), "wire", id="kw5-wire"),
+    # wire compression is ported: through spec= and through the knob, the
+    # drift gate rejects "int8" and an unknown name raises, as in JAX
+    pytest.param(_wire_spec, "wire", id="kw3-wire"),
+    pytest.param(lambda wd: dict(wire_dtype=wd), "wire", id="kw5-wire"),
     pytest.param(dict(trace=True), "trace", id="kw6-trace"),
     pytest.param(dict(inject=True), "inject", id="kw7-inject"),
     pytest.param(dict(health=True), "health", id="kw8-health"),
     pytest.param(dict(obs=object()), "obs", id="kw9-obs"),
 ])
 def test_unported_engine_knobs_raise(f32_system, kw, match):
+    mesh = make_mesh((1, 1, 1), AXES)
+    if callable(kw):
+        from repro_torch.core.wire import WireDriftError
+        with pytest.raises(WireDriftError, match="exceeds the dense-f32"):
+            MDEngine(f32_system, mesh, device="cpu", **kw("int8"))
+        with pytest.raises(ValueError, match="unknown wire_dtype"):
+            MDEngine(f32_system, mesh, device="cpu", **kw("nope"))
+        return
     with pytest.raises(NotImplementedError, match=match):
-        MDEngine(f32_system, make_mesh((1, 1, 1), AXES), device="cpu", **kw)
+        MDEngine(f32_system, mesh, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [
