@@ -10,15 +10,26 @@ Phases, each asserting (any failure exits non-zero with no result line):
    sm_90a, printing the ptxas register / shared-memory lines;
 3. kernels: ``halo_pack.pack`` and ``halo_pack.unpack_add`` against their
    plain PyTorch forms at the exact shapes of the grappa-45k main path
-   (f32 payload, int32 index exchange, f32 force return) plus f64 cases,
-   bitwise; timed with CUDA events beside the plain form, a one-call
-   PyTorch yardstick and the byte bound;
+   (f32 payload, int32 index exchange, f32 force return; unpack_add with
+   the plan's inverse maps) plus f64 cases, bitwise; timed with CUDA
+   events beside the plain form, a one-call PyTorch yardstick and the
+   byte bound; per case the host us per call with no sync (kernel and
+   yardstick, ``perf_counter`` over 1,000 calls, then one sync), the
+   device operations per launch from a CUDA graph capture of 10 calls
+   (each kernel must be one operation a launch: B2 copies nothing
+   before its kernel) and the device us per launch from torch.profiler
+   ("not measured" when no session records every launch); the host
+   us of each way to read the current stream, each checked to follow
+   ``torch.cuda.stream(s)``; the host us of each part of one B1 call
+   (checks, allocation, ctypes, launch) beside the whole call and
+   ``index_select``;
 4. a small reference: a 300-atom system on the card against the O(N^2)
    direct-force oracle and against the same run on the CPU;
 5. the main path: grappa-45k (45,000 atoms) on a 2x2x2 virtual domain
    mesh, ``HaloSpec(backend="pallas")``, f32, ``simulate(40)`` (two
    nstlist=20 blocks with a rebin / migration between them), with the
-   kernels' launch counters zeroed just before and read just after; then
+   kernels' launch counters zeroed just before and read just after (and
+   no inverse map built by ``unpack_add``: the plan passes its own); then
    the same run with ``backend="serialized"``, which must be bitwise equal;
 6. a torch.profiler (CUPTI) window over steady steps: device time by
    kernel, the halo kernels' device time per launch, device busy share;
@@ -157,7 +168,8 @@ def card_line() -> str:
 def main_path_cases(eng, cell_f, cell_i):
     """Every pack / unpack-add launch of one engine force pass, on real
     state: (kernel, tag, args), args exactly as the pallas backend passes
-    them (per-pulse (n_dom, rows, F) views, shared int32 maps)."""
+    them (per-pulse (n_dom, rows, F) views, shared int32 maps and, for
+    unpack-add, the map's inverse)."""
     from repro_torch.core.md.forces import compute_forces
 
     plan, nd = eng.plan, 3
@@ -182,16 +194,16 @@ def main_path_cases(eng, cell_f, cell_i):
         shape[d] += pulse.width
     F_ext, _ = compute_forces(ext_f, ext_i, eng.layout,
                               eng.system.params.ff)
-    for pulse, (pack_idx, add_idx) in zip(
-            reversed(plan.sched.serialized_order()), rev_maps):
+    for pulse, maps in zip(reversed(plan.sched.serialized_order()),
+                           rev_maps):
         d = pulse.dim
         src = rows2d(F_ext, shape, d)
-        cases.append(("pack", f"rev-{AXES[d]}-f32", (src, pack_idx)))
+        cases.append(("pack", f"rev-{AXES[d]}-f32", (src, maps.pack_idx)))
         shape[d] -= pulse.width
         dst = rows2d(F_ext, shape, d)
-        rows = src[:, pack_idx.long()].contiguous()
+        rows = src[:, maps.pack_idx.long()].contiguous()
         cases.append(("unpack_add", f"rev-{AXES[d]}-f32",
-                      (dst, add_idx, rows)))
+                      (dst, maps.add_idx, rows, maps.add_inv)))
     # one f64 case per kernel, at the x pulse's shapes
     for kernel, tag, args in list(cases):
         if tag in ("fwd-x-f32", "rev-x-f32"):
@@ -207,10 +219,150 @@ def case_bytes_ops(kernel, args):
         n_dom, _, F = src.shape
         moved = 2 * n_dom * idx.shape[0] * F * src.element_size()
         return moved + idx.numel() * 4, 0
-    dst, idx, rows = args
+    dst, idx, rows, _inv = args
     return (2 * dst.numel() * dst.element_size()
             + rows.numel() * rows.element_size() + idx.numel() * 4,
             rows.numel())
+
+
+def host_us(fn, n: int = 1000, warmup: int = 20) -> float:
+    """Host us per call of ``fn`` with no sync: ``perf_counter`` over ``n``
+    back-to-back calls, then one sync (not timed)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, kernel: str, n: int = 50, tries: int = 5):
+    """torch.profiler over ``n`` calls of ``fn``, each of which launches
+    the kernel named ``kernel`` once: the device us of one launch, or
+    None when no session is whole.  A session that shows fewer than
+    ``n`` of those launches lost events (CUPTI drops a whole session now
+    and then, and in one run three in a row) and is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if len(mine) >= n:
+            return sum(e.time_range.elapsed_us() for e in mine) / len(mine)
+    return None
+
+
+# CUgraphNodeType, in the order of cuda.h
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                    "wait_event", "event_record", "ext_semas_signal",
+                    "ext_semas_wait", "mem_alloc", "mem_free",
+                    "batch_mem_op", "conditional")
+
+
+def graph_ops(fn, n: int = 10) -> dict:
+    """The device operations that one call of ``fn`` enqueues, counted by
+    type: ``n`` calls are captured into a CUDA graph and its nodes read
+    through the driver API.  Unlike a profiler session, a capture loses
+    no operation."""
+    import ctypes
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(graph, None, ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes failed: CUDA error {rc}")
+    nodes = (ctypes.c_void_p * count.value)()
+    rc = cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes failed: CUDA error {rc}")
+    kinds = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        rc = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        check(rc == 0, f"cuGraphNodeGetType failed: CUDA error {rc}")
+        name = GRAPH_NODE_TYPES[t.value] \
+            if 0 <= t.value < len(GRAPH_NODE_TYPES) else f"type {t.value}"
+        kinds[name] = kinds.get(name, 0) + 1
+    del g
+    torch.cuda.synchronize()
+    return {k: v / n for k, v in kinds.items()}
+
+
+def stream_readers():
+    """The host us of each way to read the current stream, each checked to
+    give the stream of ``with torch.cuda.stream(s):``."""
+    import torch
+    from repro_torch.kernels import _launch
+    index = torch.cuda.current_device()
+    device = torch.device("cuda", index)
+    readers = {
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(device).cuda_stream,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index) (_launch.stream)":
+            lambda: _launch.stream(index)}
+    side = torch.cuda.Stream()
+    for name, read in readers.items():
+        with torch.cuda.stream(side):
+            check(read() == side.cuda_stream,
+                  f"{name} does not follow torch.cuda.stream(s)")
+        check(read() == torch.cuda.current_stream().cuda_stream,
+              f"{name} does not read the current stream")
+        print(f"  stream reader: {host_us(read, 10_000):.4f} host us/call "
+              f"{name}")
+
+
+def pack_host_parts(src, idx):
+    """The host us of each part of one B1 call, beside the whole call and
+    ``index_select`` on the same arguments: where a wrapper's host time
+    goes."""
+    import torch
+    from repro_torch.kernels import _launch, halo_pack
+    dev = src.get_device()
+    n_dom, R, F = src.shape
+    M = idx.numel()
+    out = src.new_empty(n_dom, M, F)
+    fn = halo_pack._PACK[src.element_size()]
+    s = _launch.stream(dev)
+    ptrs = (src.data_ptr(), idx.data_ptr(), out.data_ptr())
+    li = idx.long()
+    parts = {
+        "check of both tensors": lambda: (
+            _launch.check("src", src, 3, dev, halo_pack._SUFFIX),
+            _launch.check("index_map", idx, 1, dev, torch.int32)),
+        "new_empty": lambda: src.new_empty(n_dom, M, F),
+        "3 data_ptr + stream": lambda: (
+            src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            _launch.stream(dev)),
+        # n_dom 0: the entry point returns before any CUDA call
+        "ctypes call, refused before the launch": lambda: fn(
+            *ptrs, 0, R, M, F, s),
+        "ctypes call with its launch": lambda: fn(*ptrs, n_dom, R, M, F, s),
+        "whole pack call": lambda: halo_pack.pack(src, idx),
+        "index_select": lambda: torch.index_select(src, 1, li),
+    }
+    shape = "x".join(map(str, src.shape))
+    for name, f in parts.items():
+        print(f"  B1 host part [{shape} {M}]: {host_us(f, 10_000):.4f} "
+              f"host us/call {name}")
 
 
 def kernel_phase(eng, cell_f, cell_i):
@@ -218,7 +370,8 @@ def kernel_phase(eng, cell_f, cell_i):
     from repro_torch.kernels import halo_pack
 
     plain = {"pack": halo_pack.pack_plain,
-             "unpack_add": halo_pack.unpack_add_plain}
+             "unpack_add": lambda dst, idx, rows, _inv:
+                 halo_pack.unpack_add_plain(dst, idx, rows)}
     kern = {"pack": halo_pack.pack, "unpack_add": halo_pack.unpack_add}
 
     def library(kernel, args):
@@ -226,15 +379,20 @@ def kernel_phase(eng, cell_f, cell_i):
             src, idx = args
             li = idx.long()
             return lambda: torch.index_select(src, 1, li)
-        dst, idx, rows = args
+        dst, idx, rows, _inv = args
         li = idx.long()
         return lambda: dst.index_add(1, li, rows)
 
     per_kernel = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
-                      "ops": 0} for k in kern}
+                      "ops": 0, "host_us": 0.0, "library_host_us": 0.0,
+                      "device_us": 0.0, "device_n": 0, "launches": 0}
+                  for k in kern}
     print("kernel phase: per launch at grappa-45k main-path shapes "
-          "(ms; bound = bytes / 3.35 TB/s)")
+          "(ms; bound = bytes / 3.35 TB/s; host us per call with no sync "
+          "over 1,000 calls; device operations per launch from a CUDA "
+          "graph of 10 calls; device us per launch from torch.profiler "
+          "over 50)")
     for kernel, tag, args in main_path_cases(eng, cell_f, cell_i):
         got = kern[kernel](*args)
         want = plain[kernel](*args)
@@ -252,10 +410,22 @@ def kernel_phase(eng, cell_f, cell_i):
         t_k = cuda_ms(lambda: kern[kernel](*args))
         t_p = cuda_ms(lambda: plain[kernel](*args))
         t_l = cuda_ms(library(kernel, args))
+        h_k = host_us(lambda: kern[kernel](*args))
+        h_l = host_us(library(kernel, args))
+        dev_ops = graph_ops(lambda: kern[kernel](*args))
+        check(dev_ops == {"kernel": 1.0}, f"{kernel} {tag}: device "
+              f"operations a launch {dev_ops}, expected its one kernel")
+        d_us = device_us(lambda: kern[kernel](*args), f"{kernel}_kernel")
+        d_txt = "not measured (no whole profiler session)" \
+            if d_us is None else f"{d_us:.3f} us/launch"
         shapes = " ".join("x".join(map(str, a.shape)) for a in args)
         print(f"  {kernel:10s} {tag:11s} [{shapes}] kernel {t_k:.6f} "
               f"plain {t_p:.6f} library {t_l:.6f} bound {bound:.6f} "
-              f"bytes {nbytes} err {err}")
+              f"bytes {nbytes} err {err}; host us/call kernel {h_k:.3f} "
+              f"library {h_l:.3f}; device {d_txt}, "
+              f"{dev_ops['kernel']:g} op/launch")
+        if (kernel, tag) == ("pack", "fwd-x-f32"):
+            parts_args = args
         acc = per_kernel[kernel]
         acc["max_abs_err"] = max(acc["max_abs_err"], err)
         if tag.endswith("f32"):
@@ -267,6 +437,23 @@ def kernel_phase(eng, cell_f, cell_i):
             acc["bound_ms"] += bound
             acc["bytes"] += nbytes
             acc["ops"] += ops
+            acc["host_us"] += h_k
+            acc["library_host_us"] += h_l
+            if d_us is not None:
+                acc["device_us"] += d_us
+                acc["device_n"] += 1
+            acc["launches"] += 1
+    for kernel, acc in per_kernel.items():
+        n, nd = acc["launches"], acc["device_n"]
+        d_txt = "not measured" if not nd else \
+            f"{acc['device_us'] / nd:.3f} us/launch ({nd} of {n} measured)"
+        print(f"  {kernel} one f32 step ({n} launches): events "
+              f"{acc['ms']:.6f} ms, library {acc['library_ms']:.6f} ms; "
+              f"host us/call kernel {acc['host_us'] / n:.3f} library "
+              f"{acc['library_host_us'] / n:.3f}; device {d_txt}, "
+              "1 op/launch")
+    stream_readers()
+    pack_host_parts(*parts_args)
     return per_kernel
 
 
@@ -319,12 +506,16 @@ def engine_run(system, backend):
     torch.cuda.synchronize()
     halo_pack.pack.launches = 0
     halo_pack.unpack_add.launches = 0
+    halo_pack.unpack_add.inverse_builds = 0
     t0 = time.perf_counter()
     (cf, ci), m, diags = eng.simulate(40, state=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pack": halo_pack.pack.launches,
                 "unpack_add": halo_pack.unpack_add.launches}
+    check(halo_pack.unpack_add.inverse_builds == 0,
+          f"{backend}: unpack_add built {halo_pack.unpack_add.inverse_builds}"
+          " inverse maps on the main path (the plan passes its own)")
     # steady state: one more 20-step block on the final state, no rebin
     rs = eng.begin_run((cf, ci))
     torch.cuda.synchronize()
@@ -380,27 +571,32 @@ def main_path_phase():
     return launches
 
 
-def _profile(fn, n: int, steps_per_call: int = 1, host_calls=None):
+def _profile(fn, n: int, steps_per_call: int = 1, host_calls=None,
+             tries: int = 3):
     """torch.profiler (CUPTI) over ``n`` calls of ``fn``, each advancing
     ``steps_per_call`` steps: host wall us per step, device kernel us per
     step, kernels per step, the device busy share of the host wall, and
     device us per kernel name per step.  Returns None if the profiler
-    records no device kernels.  ``host_calls`` (a dict), when given, is
-    filled with the count of each CUDA runtime call the host made."""
+    records no device kernels in ``tries`` sessions (CUPTI now and then
+    drops a whole one).  ``host_calls`` (a dict), when given, is filled
+    with the count of each CUDA runtime call the host made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                      # warm the allocator
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
+    for _ in range(tries):
+        fn()                                  # warm the allocator
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
     if host_calls is not None:
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CPU and \
@@ -470,7 +666,11 @@ def profile_phase(n_steps: int = 5):
                                                      eng.layout, ff),
               "halo rev (f32 forces)": lambda: eng.plan.rev(F_ext)}
     for name, fn in layers.items():
-        w, dev, k, b, _ = _profile(fn, n_steps)
+        layer = _profile(fn, n_steps)
+        if layer is None:
+            print(f"  layer {name:24s} device time not measured")
+            continue
+        w, dev, k, b, _ = layer
         print(f"  layer {name:24s} device {dev / 1e3:.4f} ms "
               f"({dev / device:.4f} of the step's device time), "
               f"{k:.0f} kernels, host wall {w / 1e3:.4f} ms")
@@ -827,7 +1027,11 @@ def pruned_profile_phase(system, n_calls: int = 5):
         "prune (per block)": lambda: eng.do_prune(rs.cell_f, rs.cell_i),
     }
     for name, fn in layers.items():
-        w, dev, k, b, _ = _profile(fn, n_calls)
+        layer = _profile(fn, n_calls)
+        if layer is None:
+            print(f"  layer {name:26s} device time not measured")
+            continue
+        w, dev, k, b, _ = layer
         print(f"  layer {name:26s} device {dev / 1e3:.4f} ms "
               f"({dev / device:.4f} of the step's device time), "
               f"{k:.0f} kernels, host wall {w / 1e3:.4f} ms")

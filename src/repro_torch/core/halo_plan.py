@@ -32,7 +32,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -178,6 +179,17 @@ class FusedBackend(HaloBackend):
                                         self._local_shape(plan, ext))
 
 
+class RevMaps(NamedTuple):
+    """One reverse pulse's maps (int32, on the plan's device): the halo
+    rows it packs, the body rows it adds them into, and that map's
+    inverse (:func:`repro_torch.kernels.halo_pack.inverse_map`), which
+    ``unpack_add``'s kernel reads."""
+
+    pack_idx: torch.Tensor
+    add_idx: torch.Tensor
+    add_inv: torch.Tensor
+
+
 class PallasBackend(HaloBackend):
     """Pack / unpack-add through the CUDA kernels of ``kernels.halo_pack``.
 
@@ -210,6 +222,8 @@ class PallasBackend(HaloBackend):
         return np.nonzero((coord >= lo) & (coord < hi))[0].astype(np.int32)
 
     def _maps(self, plan, local_shape: Tuple[int, ...]):
+        """The forward pulses' pack maps and the reverse pulses'
+        :class:`RevMaps`, built once per local shape."""
         cached = plan._index_maps.get(local_shape)
         if cached is not None:
             return cached
@@ -222,14 +236,14 @@ class PallasBackend(HaloBackend):
             if a.size and not (a.min() >= 0 and a.max() < n_rows):
                 raise ValueError(f"halo index map for dim {d} of local shape "
                                  f"{tuple(shape)} leaves [0, {n_rows})")
-            return torch.as_tensor(a, dtype=torch.int32, device=plan.device)
+            return torch.as_tensor(a, dtype=torch.int32)
 
         fwd_maps, rev_maps = [], []
         shape = list(local_shape)
         for pulse in plan.sched.serialized_order():
             d, w, off = pulse.dim, pulse.width, pulse.offset
             if w:
-                fwd_maps.append(rows(shape, d, off, off + w))
+                fwd_maps.append(rows(shape, d, off, off + w).to(plan.device))
                 shape[d] += w
             else:
                 fwd_maps.append(None)
@@ -240,7 +254,12 @@ class PallasBackend(HaloBackend):
                 pack_idx = rows(shape, d, n, shape[d])
                 shape[d] = n
                 add_idx = rows(shape, d, off, off + w)
-                rev_maps.append((pack_idx, add_idx))
+                # unpack_add's kernel reads the inverse (a repeated row
+                # raises here)
+                add_inv = halo_pack.inverse_map(add_idx,
+                                                math.prod(shape[:d + 1]))
+                rev_maps.append(RevMaps(*(t.to(plan.device) for t in (
+                    pack_idx, add_idx, add_inv))))
             else:
                 rev_maps.append(None)
         plan._index_maps[local_shape] = (tuple(fwd_maps), tuple(rev_maps))
@@ -327,18 +346,18 @@ class PallasBackend(HaloBackend):
         for pulse, maps in zip(reversed(sched.serialized_order()), rev_maps):
             if maps is None:
                 continue
-            pack_idx, add_idx = maps
             d, w = pulse.dim, pulse.width
             shape = out.shape
-            halo_rows = halo_pack.pack(self._rows2d(out, nd, d), pack_idx)
+            halo_rows = halo_pack.pack(self._rows2d(out, nd, d),
+                                       maps.pack_idx)
             slab = halo_rows.reshape(shape[:nd + d] + (w,)
                                      + shape[nd + d + 1:])
             recv = _halo.recv_from_prev(slab, d)
             body = out.narrow(nd + d, 0, shape[nd + d] - w)
             body2d = self._rows2d(body, nd, d)
-            rows = recv.reshape(body2d.shape[0], add_idx.shape[0], -1)
-            out = halo_pack.unpack_add(body2d, add_idx,
-                                       rows).reshape(body.shape)
+            rows = recv.reshape(body2d.shape[0], maps.add_idx.shape[0], -1)
+            out = halo_pack.unpack_add(body2d, maps.add_idx, rows,
+                                       maps.add_inv).reshape(body.shape)
         return out
 
 

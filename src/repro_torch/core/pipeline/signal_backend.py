@@ -145,11 +145,11 @@ class SignalBackend(PallasBackend):
         for pulse, maps in zip(reversed(sched.serialized_order()), rev_maps):
             if maps is None:
                 continue
-            pack_idx, _add_idx = maps
             d, w, off = pulse.dim, pulse.width, pulse.offset
             shape = out.shape
             # fused pack + put to the +1 neighbour: the force-return pulse
-            recv = halo_pack.put_signal(self._rows2d(out, nd, d), pack_idx,
+            recv = halo_pack.put_signal(self._rows2d(out, nd, d),
+                                        maps.pack_idx,
                                         plan.axis_sizes, d, +1, signal=words)
             body = out.narrow(nd + d, 0, shape[nd + d] - w)
             # unpack as a slab accumulate, as the reference does

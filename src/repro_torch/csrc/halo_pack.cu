@@ -8,22 +8,39 @@
 //   halo_unpack_add_*  <- src/repro/kernels/halo_pack.py:unpack_add
 //                         (_unpack_add_kernel)
 //
-// Both are pure data movement: every element is read once and written once
-// (unpack-add also reads the destination row it adds into).  On an H100 the
-// bound is device-memory bytes at 3.35 TB/s; at the halo sizes of the MD
-// main path (a few hundred rows of a few hundred bytes per pulse) one
-// launch moves well under a megabyte, so what bounds it in practice is the
-// launch latency, not the bytes.  The design keeps each launch to one pass:
-//   * one block per (output row, domain), so one launch serves all domains
-//     of the virtual mesh with a shared index map (the grid's y dimension);
-//   * threads stride over the row; rows whose byte width is a multiple of
-//     16 and whose bases are 16-byte aligned move as 16-byte words;
-//   * unpack-add indices are unique by construction (the halo plan's maps
-//     are collision-free), so each element gets exactly one add with no
-//     atomics: the result is deterministic and bitwise equal to the plain
-//     indexed add.
-// Kernels run on the caller's stream, allocate nothing and do not
-// synchronise.  Each C entry point returns cudaGetLastError().
+// What bounds them on an H100.  Both are gathers: pack reads each gathered
+// byte once and writes it once, unpack-add reads the destination and the
+// received rows once and writes the destination once.  No byte is used
+// twice, so staging through shared memory or a TMA bulk copy
+// (cp.async.bulk) would add a hop without cutting a byte.  The bound is
+// device memory at 3.35 TB/s, and at the MD path's halo sizes (0.03 to
+// 2.3 MB a launch) it is a microsecond or less: what is left is the
+// launch latency and how fast the card fills with loads.
+//
+// The design (the bit copies and unpack-add; the converting pack keeps
+// its one-block-per-row kernel):
+//   * a flat grid: one thread per word of the output, 256-thread blocks,
+//     over all n_dom x rows x words of a launch, so one launch serves every
+//     domain of the virtual mesh and a pulse of one wide row (the forward
+//     z pulse: M = 1 row of 31 KB per domain) still spreads over ~60
+//     blocks;
+//   * a word is 16 bytes where the row's byte width and every base pointer
+//     allow it, else 8, else the element (4 or 8 bytes), on the same grid;
+//   * each thread finds (domain, row, word) from its index in 32-bit
+//     arithmetic, and reads its map entry through the read-only path; a
+//     launch whose arrays hold 2^31 words or more is refused
+//     (cudaErrorInvalidValue; the MD path's halos are a few MB);
+//   * unpack-add is one pass over the destination, through the map's
+//     inverse (inv[r] = the received row added into row r, or -1): a
+//     mapped word is dst + rows, an unmapped one is copied as it is (never
+//     + 0: -0.0 + 0.0 is +0.0).  Each element gets at most one add, with
+//     no atomics and no copy of dst before the kernel: the result is
+//     bitwise the plain indexed add.
+// A pack index >= R, and an inverse entry outside [-1, M), is a fault of
+// the caller's map (the halo plan checks its maps when it builds them):
+// the kernel traps rather than read outside the block, as the plain form
+// raises.  Kernels run on the caller's stream, allocate nothing and do
+// not synchronise.  Each C entry point returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -31,58 +48,60 @@
 #include "wire_conv.cuh"
 
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
-struct alignas(16) Word16 {
-  uint32_t w[4];
+constexpr int kThreads = 256;
+
+// N elements of T moved as one word of N * sizeof(T) bytes
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Lanes {
+  T v[N];
 };
 
-template <typename T>
-struct alignas(16) Lanes {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
-};
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+// the widest word (16, 8 or the element's bytes) that divides the row and
+// every base pointer
+int word_bytes(int64_t row_bytes, int elem,
+               std::initializer_list<const void*> bases) {
+  for (int w = 16; w > elem; w /= 2) {
+    bool ok = row_bytes % w == 0;
+    for (const void* p : bases)
+      ok = ok && (reinterpret_cast<uintptr_t>(p) % w) == 0;
+    if (ok) return w;
+  }
+  return elem;
 }
 
-int threads_for(int64_t width) {
-  // one warp per 32 elements of the row, between one warp and 256 threads
-  int64_t t = ((width + 31) / 32) * 32;
-  if (t < 32) t = 32;
-  if (t > 256) t = 256;
-  return static_cast<int>(t);
+// 32-bit index arithmetic covers a launch whose largest array holds
+// `words` words, with room for the last block's overhang
+bool fits_32(int64_t words) { return words + kThreads < 2147483647; }
+
+unsigned flat_blocks(int64_t words) {
+  return static_cast<unsigned>((words + kThreads - 1) / kThreads);
 }
 
 // ---- pack: out[b, m, :] = idx[m] >= 0 ? src[b, idx[m], :] : 0 ------------
 //
-// Pack is a copy of bits, so it is templated on the element width only
-// (uint32_t serves f32 and int32, uint64_t serves f64, Word16 any type whose
-// row allows 16-byte words); all-zero bits are +0 for every element type.
-// A negative index is padding and writes a zero row.  An index >= R is a
-// fault of the caller's map (the halo plan checks its maps when it builds
-// them): the kernel traps rather than read outside the block, as the plain
-// form raises.
+// Pack is a copy of bits, so it moves words of W (uint4, uint2, uint32_t)
+// whatever the element type; all-zero bits are +0 for every element type.
+// A negative index is padding and writes a zero word.
 
 template <typename W>
-__global__ void pack_kernel(const W* __restrict__ src,
-                            const int32_t* __restrict__ idx,
-                            W* __restrict__ out, int64_t R, int64_t M,
-                            int64_t F) {
-  const int64_t m = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const int32_t i = idx[m];
-  W* dst = out + (b * M + m) * F;
+__global__ void __launch_bounds__(kThreads)
+    pack_kernel(const W* __restrict__ src, const int32_t* __restrict__ idx,
+                W* __restrict__ out, int R, int M, int V, int total) {
+  const int g = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= total) return;
+  const int row = g / V;             // b * M + m
+  const int v = g - row * V;
+  const int b = row / M;
+  const int m = row - b * M;
+  const int32_t i = __ldg(idx + m);
   if (i >= R) __trap();
-  if (i < 0) {
-    const W zero{};
-    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) dst[f] = zero;
-    return;
-  }
-  const W* row = src + (b * R + i) * F;
-  for (int64_t f = threadIdx.x; f < F; f += blockDim.x) dst[f] = row[f];
+  W w{};
+  if (i >= 0) w = src[(b * R + i) * V + v];
+  out[g] = w;
 }
 
 // ---- converting pack: out[b, m, :] = wire(src[b, idx[m], :]) --------------
@@ -113,65 +132,72 @@ __global__ void pack_convert_kernel(const S* __restrict__ src,
     dst[f] = WireConv<S, D>::apply(row[f]);
 }
 
-// ---- unpack-add: out[b, idx[m], :] += rows[b, m, :] (out holds dst) -------
+// ---- unpack-add: out[b, r, :] = dst[b, r, :] (+ rows[b, inv[r], :]) ------
 
-template <typename T>
-__global__ void unpack_add_kernel(T* __restrict__ out,
-                                  const int32_t* __restrict__ idx,
-                                  const T* __restrict__ rows, int64_t R,
-                                  int64_t M, int64_t F) {
-  const int64_t m = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const int32_t i = idx[m];
-  if (i < 0 || i >= R) __trap();  // the maps hold unique rows in [0, R)
-  T* dst = out + (b * R + i) * F;
-  const T* add = rows + (b * M + m) * F;
-  for (int64_t f = threadIdx.x; f < F; f += blockDim.x)
-    dst[f] = dst[f] + add[f];
-}
-
-template <typename T>
-__global__ void unpack_add_kernel_w16(Lanes<T>* __restrict__ out,
-                                      const int32_t* __restrict__ idx,
-                                      const Lanes<T>* __restrict__ rows,
-                                      int64_t R, int64_t M, int64_t W) {
-  const int64_t m = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const int32_t i = idx[m];
-  if (i < 0 || i >= R) __trap();
-  Lanes<T>* dst = out + (b * R + i) * W;
-  const Lanes<T>* add = rows + (b * M + m) * W;
-  for (int64_t w = threadIdx.x; w < W; w += blockDim.x) {
-    Lanes<T> a = dst[w];
-    const Lanes<T> r = add[w];
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    unpack_add_kernel(const Lanes<T, N>* __restrict__ dst,
+                      const int32_t* __restrict__ inv,
+                      const Lanes<T, N>* __restrict__ rows,
+                      Lanes<T, N>* __restrict__ out, int R, int M, int V,
+                      int total) {
+  const int g = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= total) return;
+  const int row = g / V;             // b * R + r
+  const int v = g - row * V;
+  const int b = row / R;
+  const int r = row - b * R;
+  const int32_t j = __ldg(inv + r);
+  if (j < -1 || j >= M) __trap();
+  Lanes<T, N> a = dst[g];
+  if (j >= 0) {
+    const Lanes<T, N> add = rows[(b * M + j) * V + v];
 #pragma unroll
-    for (int k = 0; k < Lanes<T>::kN; ++k) a.v[k] = a.v[k] + r.v[k];
-    dst[w] = a;
+    for (int k = 0; k < N; ++k) a.v[k] = a.v[k] + add.v[k];
   }
+  out[g] = a;
 }
 
 bool grid_ok(int64_t n_dom, int64_t M) {
   return n_dom >= 1 && n_dom <= 65535 && M >= 1 && M <= 2147483647;
 }
 
+int threads_for(int64_t width) {
+  // one warp per 32 elements of the row, between one warp and 256 threads
+  int64_t t = ((width + 31) / 32) * 32;
+  if (t < 32) t = 32;
+  if (t > 256) t = 256;
+  return static_cast<int>(t);
+}
+
 template <typename W>
-int launch_pack(const void* src, const void* idx, void* out, int64_t n_dom,
-                int64_t R, int64_t M, int64_t F, void* stream) {
-  if (!grid_ok(n_dom, M) || F < 1 || R < 1)
+void pack_words(const void* src, const int32_t* idx, void* out, int64_t R,
+                int64_t M, int64_t V, int64_t total, cudaStream_t s) {
+  pack_kernel<W><<<flat_blocks(total), kThreads, 0, s>>>(
+      static_cast<const W*>(src), idx, static_cast<W*>(out),
+      static_cast<int>(R), static_cast<int>(M), static_cast<int>(V),
+      static_cast<int>(total));
+}
+
+int launch_pack(int elem, const void* src, const void* idx, void* out,
+                int64_t n_dom, int64_t R, int64_t M, int64_t F,
+                void* stream) {
+  if (n_dom < 1 || R < 1 || M < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = F * elem;
+  const int w = word_bytes(row_bytes, elem, {src, out});
+  const int64_t V = row_bytes / w;
+  if (!fits_32(n_dom * (R > M ? R : M) * V))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = n_dom * M * V;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(n_dom));
-  const int64_t row_bytes = F * static_cast<int64_t>(sizeof(W));
   const int32_t* ix = static_cast<const int32_t*>(idx);
-  if (row_bytes % 16 == 0 && aligned16(src) && aligned16(out)) {
-    const int64_t V = row_bytes / 16;
-    pack_kernel<Word16><<<grid, threads_for(V), 0, s>>>(
-        static_cast<const Word16*>(src), ix, static_cast<Word16*>(out), R, M,
-        V);
-  } else {
-    pack_kernel<W><<<grid, threads_for(F), 0, s>>>(
-        static_cast<const W*>(src), ix, static_cast<W*>(out), R, M, F);
-  }
+  if (w == 16)
+    pack_words<uint4>(src, ix, out, R, M, V, total, s);
+  else if (w == 8)
+    pack_words<uint2>(src, ix, out, R, M, V, total, s);
+  else
+    pack_words<uint32_t>(src, ix, out, R, M, V, total, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,48 +215,56 @@ int launch_pack_convert(const void* src, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int N>
+void unpack_add_words(const void* dst, const int32_t* inv, const void* rows,
+                      void* out, int64_t R, int64_t M, int64_t V,
+                      int64_t total, cudaStream_t s) {
+  using L = Lanes<T, N>;
+  unpack_add_kernel<T, N><<<flat_blocks(total), kThreads, 0, s>>>(
+      static_cast<const L*>(dst), inv, static_cast<const L*>(rows),
+      static_cast<L*>(out), static_cast<int>(R), static_cast<int>(M),
+      static_cast<int>(V), static_cast<int>(total));
+}
+
 template <typename T>
-int launch_unpack_add(const void* dst, const void* idx, const void* rows,
+int launch_unpack_add(const void* dst, const void* inv, const void* rows,
                       void* out, int64_t n_dom, int64_t R, int64_t M,
                       int64_t F, void* stream) {
-  if (!grid_ok(n_dom, M) || F < 1 || R < 1)
+  if (n_dom < 1 || R < 1 || M < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int E = sizeof(T);
+  const int64_t row_bytes = F * E;
+  const int w = word_bytes(row_bytes, E, {dst, rows, out});
+  const int64_t V = row_bytes / w;
+  if (!fits_32(n_dom * (R > M ? R : M) * V))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = n_dom * R * V;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t row_bytes = F * static_cast<int64_t>(sizeof(T));
-  if (out != dst) {
-    cudaError_t e = cudaMemcpyAsync(out, dst, n_dom * R * row_bytes,
-                                    cudaMemcpyDeviceToDevice, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(n_dom));
-  if (row_bytes % 16 == 0 && aligned16(out) && aligned16(rows)) {
-    const int64_t W = row_bytes / 16;
-    unpack_add_kernel_w16<T><<<grid, threads_for(W), 0, s>>>(
-        static_cast<Lanes<T>*>(out), static_cast<const int32_t*>(idx),
-        static_cast<const Lanes<T>*>(rows), R, M, W);
-  } else {
-    unpack_add_kernel<T><<<grid, threads_for(F), 0, s>>>(
-        static_cast<T*>(out), static_cast<const int32_t*>(idx),
-        static_cast<const T*>(rows), R, M, F);
-  }
+  const int32_t* iv = static_cast<const int32_t*>(inv);
+  if (w == 16)
+    unpack_add_words<T, 16 / E>(dst, iv, rows, out, R, M, V, total, s);
+  else if (w == 8 && E == 4)
+    unpack_add_words<T, 2>(dst, iv, rows, out, R, M, V, total, s);
+  else
+    unpack_add_words<T, 1>(dst, iv, rows, out, R, M, V, total, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // pack by element width in bytes; unpack-add by element type
-#define REPRO_PACK_ENTRY(BYTES, W)                                          \
+#define REPRO_PACK_ENTRY(BYTES)                                             \
   extern "C" int halo_pack_b##BYTES(const void* src, const void* idx,       \
                                     void* out, int64_t n_dom, int64_t R,    \
                                     int64_t M, int64_t F, void* stream) {   \
-    return launch_pack<W>(src, idx, out, n_dom, R, M, F, stream);           \
+    return launch_pack(BYTES, src, idx, out, n_dom, R, M, F, stream);       \
   }
 
 #define REPRO_UNPACK_ADD_ENTRY(SUFFIX, T)                                   \
   extern "C" int halo_unpack_add_##SUFFIX(                                  \
-      const void* dst, const void* idx, const void* rows, void* out,        \
+      const void* dst, const void* inv, const void* rows, void* out,        \
       int64_t n_dom, int64_t R, int64_t M, int64_t F, void* stream) {       \
-    return launch_unpack_add<T>(dst, idx, rows, out, n_dom, R, M, F,        \
+    return launch_unpack_add<T>(dst, inv, rows, out, n_dom, R, M, F,        \
                                 stream);                                    \
   }
 
@@ -243,8 +277,8 @@ int launch_unpack_add(const void* dst, const void* idx, const void* rows,
                                      stream);                               \
   }
 
-REPRO_PACK_ENTRY(4, uint32_t)
-REPRO_PACK_ENTRY(8, uint64_t)
+REPRO_PACK_ENTRY(4)
+REPRO_PACK_ENTRY(8)
 REPRO_PACK_CONVERT_ENTRY(f64_to_f32, double, float)
 REPRO_PACK_CONVERT_ENTRY(f64_to_bf16, double, __nv_bfloat16)
 REPRO_PACK_CONVERT_ENTRY(f64_to_f16, double, __half)

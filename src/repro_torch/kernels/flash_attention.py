@@ -16,16 +16,16 @@ non-contiguous input.
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`flash_attention_plain`, the Pallas algorithm in PyTorch.  The
 wrapper counts its launches in ``flash_attention.launches``, raised only
-where the kernel is launched.
+where the kernel is launched, through the shared launch path
+(:mod:`repro_torch.kernels._launch`).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _launch
+from repro_torch.kernels._launch import (F32, I32, I64, PTR, refused, stream,
+                                         unsupported)
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -37,16 +37,9 @@ KERNEL_ROWS = 128
 KERNEL_BK = 128
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"flash_attention_{sfx}")
-        fn.argtypes = [ptr] * 4 + [i64] * 5 + [ctypes.c_int, ctypes.c_float,
-                                               ptr]
-        fn.restype = ctypes.c_int
-    return lib
+_FLASH = _launch.Entries("flash_attention", {
+    dt: (f"flash_attention_{sfx}", [PTR] * 4 + [I64] * 5 + [I32, F32, PTR])
+    for dt, sfx in _SUFFIX.items()})
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -66,7 +59,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported; use one of "
                          f"{HEAD_DIMS}")
-    if not (k.device == q.device and v.device == q.device):
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
@@ -145,10 +139,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     form's blocking (the reference's defaults); the CUDA kernel picks its
     own tiles."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not q.is_cuda:
+        if q.is_cpu:
+            return flash_attention_plain(q, k, v, causal=causal, bq=bq,
+                                         bk=bk)
+        raise unsupported("flash_attention", q)
     BH, L, G, hd = q.shape
     S = k.shape[1]
     if BH > 65535 or (L * G + 127) // 128 > 65535 or S > 2 ** 31 - 1:
@@ -159,12 +154,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: bf16 q, k, v must start on a "
                          "16-byte boundary (the kernel reads them by TMA)")
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = getattr(_lib(), f"flash_attention_{_SUFFIX[q.dtype]}")
+    fn = _FLASH[q.dtype]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, L,
-            G, S, hd, int(bool(causal)), hd ** -0.5, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+            G, S, hd, int(bool(causal)), hd ** -0.5, stream(q.get_device()))
+    if rc:
+        raise refused(fn, rc)
     flash_attention.launches += 1
     return out
 

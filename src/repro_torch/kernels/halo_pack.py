@@ -32,19 +32,28 @@ the domain dim (``shift=-1`` is the reference's ``_perm_fwd``, ``+1`` its
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version beside it.  Each wrapper counts its launches in a
 plain integer attribute (``pack.launches`` and so on), raised only where
-the kernel is launched.
+the kernel is launched.  Every wrapper launches through
+:mod:`repro_torch.kernels._launch` (entry points resolved once, one
+checking pass, the raw current stream).
+
+``unpack_add`` adds through the map's inverse (:func:`inverse_map`: for
+each destination row the map position that feeds it, or -1), so its
+kernel makes one pass over the destination, with no copy before it.  The
+pallas backend builds each inverse once per local shape, beside the map;
+a caller that passes none gets one built on the card, counted in
+``unpack_add.inverse_builds``.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core.wire import FP_WIRE, wire_cast
-from repro_torch.kernels import _build
+from repro_torch.kernels import _launch
+from repro_torch.kernels._launch import (PTR, I64, check, refused, stream,
+                                         unsupported)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int32: "i32"}
 _WIRE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -59,58 +68,23 @@ def _convert_name(src: torch.dtype, wire: torch.dtype) -> str:
     return f"{_SUFFIX[src]}_to_{_WIRE_SUFFIX[wire]}"
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("halo_pack")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for width in (4, 8):            # pack is a bit copy: one entry per width
-        fn = getattr(lib, f"halo_pack_b{width}")
-        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-        fn.restype = ctypes.c_int
-    for src, wire in _CONVERTS:
-        fn = getattr(lib, f"halo_pack_{_convert_name(src, wire)}")
-        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-        fn.restype = ctypes.c_int
-    for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"halo_unpack_add_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _signal_lib() -> ctypes.CDLL:
-    lib = _build.load("halo_signal")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for width in (4, 8):            # bit copies: one entry per width
-        fn = getattr(lib, f"halo_put_signal_b{width}")
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 7 + [ptr]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"halo_fused_pulses_b{width}")
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 8 + [ptr]
-        fn.restype = ctypes.c_int
-    for src, wire in _CONVERTS:
-        fn = getattr(lib, f"halo_put_signal_{_convert_name(src, wire)}")
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i64] * 7 + [ptr]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device,
-           dtype=None) -> None:
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if dtype is not None:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    elif t.dtype not in _SUFFIX:
-        raise TypeError(f"{name} dtype {t.dtype} not supported; "
-                        f"use one of {tuple(_SUFFIX)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous (pass .contiguous())")
+# The entry points.  The bit copies are keyed by element width, their
+# converting forms by (source, wire) dtype, unpack-add by element type.
+_PACK_ARGS = [PTR, PTR, PTR, I64, I64, I64, I64, PTR]
+_PACK = _launch.Entries("halo_pack", {
+    **{w: (f"halo_pack_b{w}", _PACK_ARGS) for w in (4, 8)},
+    **{c: (f"halo_pack_{_convert_name(*c)}", _PACK_ARGS) for c in _CONVERTS}})
+_UNPACK_ADD = _launch.Entries("halo_pack", {
+    dt: (f"halo_unpack_add_{sfx}", [PTR] * 4 + [I64] * 4 + [PTR])
+    for dt, sfx in _SUFFIX.items()})
+_PUT_ARGS = [PTR] * 4 + [I64] * 7 + [PTR]
+_PUT_SIGNAL = _launch.Entries("halo_signal", {
+    **{w: (f"halo_put_signal_b{w}", _PUT_ARGS) for w in (4, 8)},
+    **{c: (f"halo_put_signal_{_convert_name(*c)}", _PUT_ARGS)
+       for c in _CONVERTS}})
+_FUSED_PULSES = _launch.Entries("halo_signal", {
+    w: (f"halo_fused_pulses_b{w}", [PTR] * 4 + [I64] * 8 + [PTR])
+    for w in (4, 8)})
 
 
 def _wire_dtype(src: torch.Tensor, wire_dtype) -> Optional[torch.dtype]:
@@ -127,13 +101,6 @@ def _wire_dtype(src: torch.Tensor, wire_dtype) -> Optional[torch.dtype]:
                         "sources float32 / float64, wires float32 (from "
                         "float64), bfloat16 and float16")
     return wire
-
-
-def _launch(fn, *args, device: torch.device) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
 
 
 # ---- pack -------------------------------------------------------------------
@@ -157,23 +124,26 @@ def pack(src: torch.Tensor, index_map: torch.Tensor,
     here and traps the kernel on the card.  Returns (n_dom, M, F), in
     ``wire_dtype`` when one is given (a name or a torch dtype).
     """
-    _check("src", src, 3, src.device)
-    _check("index_map", index_map, 1, src.device, torch.int32)
-    wire = _wire_dtype(src, wire_dtype)
-    if src.device.type == "cpu":
-        return pack_plain(src, index_map, wire)
-    if src.device.type != "cuda":
-        raise ValueError(f"pack: unsupported device {src.device}")
+    dev = src.get_device()
+    check("src", src, 3, dev, _SUFFIX)
+    check("index_map", index_map, 1, dev, torch.int32)
+    wire = None if wire_dtype is None else _wire_dtype(src, wire_dtype)
+    if not src.is_cuda:
+        if src.is_cpu:
+            return pack_plain(src, index_map, wire)
+        raise unsupported("pack", src)
     n_dom, R, F = src.shape
-    M = index_map.shape[0]
-    out = torch.empty((n_dom, M, F), dtype=wire or src.dtype,
-                      device=src.device)
-    if out.numel() == 0:
+    M = index_map.numel()
+    # sizes as arguments, no dtype keyword: the cheapest allocation call
+    out = src.new_empty(n_dom, M, F) if wire is None else \
+        src.new_empty((n_dom, M, F), dtype=wire)
+    if not (n_dom and M and F):
         return out
-    name = (f"halo_pack_b{src.element_size()}" if wire is None
-            else f"halo_pack_{_convert_name(src.dtype, wire)}")
-    _launch(getattr(_lib(), name), src.data_ptr(), index_map.data_ptr(),
-            out.data_ptr(), n_dom, R, M, F, device=src.device)
+    fn = _PACK[src.element_size() if wire is None else (src.dtype, wire)]
+    rc = fn(src.data_ptr(), index_map.data_ptr(), out.data_ptr(), n_dom, R,
+            M, F, stream(dev))
+    if rc:
+        raise refused(fn, rc)
     if wire is None:
         pack.launches += 1
     else:
@@ -186,6 +156,40 @@ pack.wire_launches = 0
 
 
 # ---- unpack_add -------------------------------------------------------------
+
+def inverse_map(index_map, R: int) -> torch.Tensor:
+    """The inverse of a row map: ``inv`` (R,) int32 with ``inv[index_map[m]]
+    = m`` and -1 at every row the map does not name, on ``index_map``'s
+    device.  Checked on the host: an entry outside ``[0, R)`` raises
+    IndexError, a repeated one ValueError (:func:`unpack_add` gives each
+    destination row at most one received row)."""
+    idx = torch.as_tensor(index_map)
+    host = idx.to("cpu", torch.int64)
+    if host.dim() != 1:
+        raise ValueError(f"index_map must be 1-D, got shape "
+                         f"{tuple(host.shape)}")
+    M = host.shape[0]
+    if M and not (int(host.min()) >= 0 and int(host.max()) < R):
+        raise IndexError(f"inverse_map: index outside [0, {R})")
+    inv = torch.full((R,), -1, dtype=torch.int32)
+    inv[host] = torch.arange(M, dtype=torch.int32)
+    if int((inv >= 0).sum()) != M:
+        raise ValueError("inverse_map: the map names a row more than once; "
+                         "unpack_add needs unique rows")
+    return inv.to(idx.device)
+
+
+def _inverse_on_device(index_map: torch.Tensor, R: int) -> torch.Tensor:
+    """:func:`inverse_map` built where ``index_map`` lies, without a host
+    sync: an entry outside ``[0, R)`` fails ``scatter_``'s device assert,
+    a repeated one the ``_assert_async`` of the round trip."""
+    M = index_map.shape[0]
+    pos = torch.arange(M, dtype=torch.int32, device=index_map.device)
+    inv = torch.full((R,), -1, dtype=torch.int32, device=index_map.device)
+    inv.scatter_(0, index_map.long(), pos)
+    torch._assert_async(torch.all(inv.index_select(0, index_map) == pos))
+    return inv
+
 
 def unpack_add_plain(dst: torch.Tensor, index_map: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
@@ -200,36 +204,60 @@ def unpack_add_plain(dst: torch.Tensor, index_map: torch.Tensor,
 
 
 def unpack_add(dst: torch.Tensor, index_map: torch.Tensor,
-               rows: torch.Tensor) -> torch.Tensor:
+               rows: torch.Tensor,
+               inverse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = dst; out[b, index_map[m]] += rows[b, m]``.
 
     ``dst`` (n_dom, R, F), ``rows`` (n_dom, M, F) of the same dtype;
     ``index_map`` (M,) int32, unique entries in ``[0, R)``; an entry
-    outside raises here and traps the kernel on the card.
+    outside raises here (and on the card fails the inverse's build).
+    ``inverse`` is ``inverse_map(index_map, R)`` (R,) int32.  On the card
+    it takes the place of ``index_map``: the kernel reads only the
+    inverse (an entry outside ``[-1, M)`` traps it), so an inverse of
+    another map adds rows where that map says; it is built here when not
+    given (counted in ``unpack_add.inverse_builds``).  On the CPU a given
+    inverse must equal ``inverse_map(index_map, R)`` (ValueError).
+    ``dst`` is not written.
     """
-    _check("dst", dst, 3, dst.device)
-    _check("rows", rows, 3, dst.device, dst.dtype)
-    _check("index_map", index_map, 1, dst.device, torch.int32)
+    dev = dst.get_device()
+    check("dst", dst, 3, dev, _SUFFIX)
+    check("rows", rows, 3, dev, dst.dtype)
+    check("index_map", index_map, 1, dev, torch.int32)
     n_dom, R, F = dst.shape
-    M = index_map.shape[0]
-    if tuple(rows.shape) != (n_dom, M, F):
+    M = index_map.numel()
+    if rows.shape != (n_dom, M, F):
         raise ValueError(f"rows shape {tuple(rows.shape)} != "
                          f"{(n_dom, M, F)}")
-    if dst.device.type == "cpu":
-        return unpack_add_plain(dst, index_map, rows)
-    if dst.device.type != "cuda":
-        raise ValueError(f"unpack_add: unsupported device {dst.device}")
-    if rows.numel() == 0:
+    if inverse is not None:
+        check("inverse", inverse, 1, dev, torch.int32)
+        if inverse.numel() != R:
+            raise ValueError(f"inverse holds {inverse.numel()} rows, "
+                             f"expected {R} (inverse_map(index_map, {R}))")
+    if not dst.is_cuda:
+        if dst.is_cpu:
+            if inverse is not None and not torch.equal(
+                    inverse, inverse_map(index_map, R)):
+                raise ValueError("inverse is not inverse_map(index_map, "
+                                 f"{R})")
+            return unpack_add_plain(dst, index_map, rows)
+        raise unsupported("unpack_add", dst)
+    if not (n_dom and M and F):
         return dst.clone()
+    if inverse is None:
+        inverse = _inverse_on_device(index_map, R)
+        unpack_add.inverse_builds += 1
     out = torch.empty_like(dst)
-    _launch(getattr(_lib(), f"halo_unpack_add_{_SUFFIX[dst.dtype]}"),
-            dst.data_ptr(), index_map.data_ptr(), rows.data_ptr(),
-            out.data_ptr(), n_dom, R, M, F, device=dst.device)
+    fn = _UNPACK_ADD[dst.dtype]
+    rc = fn(dst.data_ptr(), inverse.data_ptr(), rows.data_ptr(),
+            out.data_ptr(), n_dom, R, M, F, stream(dev))
+    if rc:
+        raise refused(fn, rc)
     unpack_add.launches += 1
     return out
 
 
 unpack_add.launches = 0
+unpack_add.inverse_builds = 0
 
 
 # ---- put_signal -------------------------------------------------------------
@@ -245,11 +273,12 @@ def _ring(mesh_shape: Sequence[int], axis: int, n_dom: int):
 
 
 def _words(signal: Optional[torch.Tensor], n: int,
-           device: torch.device) -> torch.Tensor:
-    """The caller's signal words (int32, at least ``n``), or fresh ones."""
+           like: torch.Tensor) -> torch.Tensor:
+    """The caller's signal words (int32, at least ``n``, on ``like``'s
+    device), or fresh ones."""
     if signal is None:
-        return torch.empty((n,), dtype=torch.int32, device=device)
-    _check("signal", signal, 1, device, torch.int32)
+        return like.new_empty((n,), dtype=torch.int32)
+    check("signal", signal, 1, like.get_device(), torch.int32)
     if signal.numel() < n:
         raise ValueError(f"signal holds {signal.numel()} words, needs {n}")
     return signal
@@ -283,27 +312,30 @@ def put_signal(src: torch.Tensor, index_map: torch.Tensor,
     ``wire_dtype`` the put and the receive buffer are wire-dtyped (the
     receiver casts back).
     """
-    _check("src", src, 3, src.device)
-    _check("index_map", index_map, 1, src.device, torch.int32)
+    dev = src.get_device()
+    check("src", src, 3, dev, _SUFFIX)
+    check("index_map", index_map, 1, dev, torch.int32)
     wire = _wire_dtype(src, wire_dtype)
     n_dom, R, F = src.shape
     ring, inner = _ring(mesh_shape, axis, n_dom)
-    if src.device.type == "cpu":
-        return put_signal_plain(src, index_map, mesh_shape, axis, shift,
-                                wire)
-    if src.device.type != "cuda":
-        raise ValueError(f"put_signal: unsupported device {src.device}")
+    if not src.is_cuda:
+        if src.is_cpu:
+            return put_signal_plain(src, index_map, mesh_shape, axis, shift,
+                                    wire)
+        raise unsupported("put_signal", src)
     M = index_map.shape[0]
-    out = torch.empty((n_dom, M, F), dtype=wire or src.dtype,
-                      device=src.device)
-    if out.numel() == 0:
+    out = src.new_empty(n_dom, M, F) if wire is None else \
+        src.new_empty((n_dom, M, F), dtype=wire)
+    if not (n_dom and M and F):
         return out
-    words = _words(signal, n_dom, src.device)
-    name = (f"halo_put_signal_b{src.element_size()}" if wire is None
-            else f"halo_put_signal_{_convert_name(src.dtype, wire)}")
-    _launch(getattr(_signal_lib(), name), src.data_ptr(),
-            index_map.data_ptr(), out.data_ptr(), words.data_ptr(), n_dom, R,
-            M, F, ring, inner, int(shift), device=src.device)
+    words = _words(signal, n_dom, src)
+    fn = _PUT_SIGNAL[src.element_size() if wire is None else (src.dtype,
+                                                              wire)]
+    rc = fn(src.data_ptr(), index_map.data_ptr(), out.data_ptr(),
+            words.data_ptr(), n_dom, R, M, F, ring, inner, int(shift),
+            stream(dev))
+    if rc:
+        raise refused(fn, rc)
     if wire is None:
         put_signal.launches += 1
     else:
@@ -370,27 +402,29 @@ def fused_pulses(src: torch.Tensor, index_maps: torch.Tensor, n_local: int,
     each (domain, pulse), then the work-item ticket; the launch resets
     them, and afterwards every arrival word equals M.
     """
-    _check("src", src, 3, src.device)
-    _check("index_maps", index_maps, 2, src.device, torch.int32)
+    dev = src.get_device()
+    check("src", src, 3, dev, _SUFFIX)
+    check("index_maps", index_maps, 2, dev, torch.int32)
     n_dom, R, F = src.shape
     n_pulses, M = index_maps.shape
     ring, inner = _ring(mesh_shape, axis, n_dom)
     if not 1 <= n_local <= R:
         raise ValueError(f"n_local={n_local} outside [1, {R}]")
-    if src.device.type == "cpu":
-        return fused_pulses_plain(src, index_maps, n_local, mesh_shape, axis)
-    if src.device.type != "cuda":
-        raise ValueError(f"fused_pulses: unsupported device {src.device}")
-    out = torch.empty((n_dom, n_pulses, M, F), dtype=src.dtype,
-                      device=src.device)
-    if out.numel() == 0:
+    if not src.is_cuda:
+        if src.is_cpu:
+            return fused_pulses_plain(src, index_maps, n_local, mesh_shape,
+                                      axis)
+        raise unsupported("fused_pulses", src)
+    out = src.new_empty(n_dom, n_pulses, M, F)
+    if not out.numel():
         return out
-    words = _words(words, n_dom * n_pulses + 1, src.device)
-    _launch(getattr(_signal_lib(),
-                    f"halo_fused_pulses_b{src.element_size()}"),
-            src.data_ptr(), index_maps.data_ptr(), out.data_ptr(),
+    words = _words(words, n_dom * n_pulses + 1, src)
+    fn = _FUSED_PULSES[src.element_size()]
+    rc = fn(src.data_ptr(), index_maps.data_ptr(), out.data_ptr(),
             words.data_ptr(), n_dom, R, int(n_local), n_pulses, M, F, ring,
-            inner, device=src.device)
+            inner, stream(dev))
+    if rc:
+        raise refused(fn, rc)
     fused_pulses.launches += 1
     return out
 

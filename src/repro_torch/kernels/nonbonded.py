@@ -18,66 +18,51 @@ bounds each kernel on an H100 and what the design does about it.
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version beside it.  Each wrapper counts its launches in a
 plain integer attribute (``pair_forces.launches``,
-``scatter_accum.launches``), raised only where the kernel is launched.
+``scatter_accum.launches``), raised only where the kernel is launched,
+through the shared launch path (:mod:`repro_torch.kernels._launch`).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.md.forces import ff_tables, pair_terms
 from repro_torch.core.md.system import ForceField
-from repro_torch.kernels import _build
-from repro_torch.kernels.halo_pack import _check, _launch
+from repro_torch.kernels import _launch
+from repro_torch.kernels._launch import (F64, I32, I64, PTR, check, refused,
+                                         stream, unsupported)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("nonbonded")
-    ptr, i64, f64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
-                          ctypes.c_int)
-    for sfx in _SUFFIX.values():
-        fn = getattr(lib, f"nb_pair_forces_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                       f64, f64, f64, i64, i64, ptr, ptr, ptr, ptr]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"nb_scatter_accum_{sfx}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, ptr, ptr]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _float_check(name: str, t: torch.Tensor, ndim: int,
-                 device: torch.device, dtype=None) -> None:
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{name} must be float32 or float64, got {t.dtype}")
-    _check(name, t, ndim, device, dtype)
+_FLOATS = "{name} must be float32 or float64, got {dtype}"
+_PAIR_FORCES = _launch.Entries("nonbonded", {
+    dt: (f"nb_pair_forces_{sfx}", [PTR] * 9 + [I32, F64, F64, F64, I64, I64]
+         + [PTR] * 4) for dt, sfx in _SUFFIX.items()})
+_SCATTER_ACCUM = _launch.Entries("nonbonded", {
+    dt: (f"nb_scatter_accum_{sfx}", [PTR] * 4 + [I64] * 3 + [PTR] * 2)
+    for dt, sfx in _SUFFIX.items()})
 
 
 # ---- pair_forces --------------------------------------------------------------
 
 def _pair_args(a, b, ta, tb, same, cnt_a, cnt_b):
-    _float_check("a", a, 3, a.device)
-    _float_check("b", b, 3, a.device, a.dtype)
+    dev = a.get_device()
+    check("a", a, 3, dev, _SUFFIX, _FLOATS)
+    check("b", b, 3, dev, a.dtype)
     N, K, F = a.shape
     if F != 4 or tuple(b.shape) != (N, K, 4):
         raise ValueError(f"a, b must be (N, K, 4), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
     for name, t in (("ta", ta), ("tb", tb)):
-        _check(name, t, 2, a.device, torch.int32)
-        if tuple(t.shape) != (N, K):
+        check(name, t, 2, dev, torch.int32)
+        if t.shape != (N, K):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(N, K)}")
     if (cnt_a is None) != (cnt_b is None):
         raise ValueError("pass both cnt_a and cnt_b or neither")
     for name, t in (("same", same), ("cnt_a", cnt_a), ("cnt_b", cnt_b)):
         if t is None:
             continue
-        _check(name, t, 1, a.device, torch.int32)
+        check(name, t, 1, dev, torch.int32)
         if t.shape[0] != N:
             raise ValueError(f"{name} has {t.shape[0]} rows, expected {N}")
     return N, K
@@ -137,24 +122,25 @@ def pair_forces(a, b, ta, tb, same, ff: ForceField, cnt_a=None,
     refuse the launch, which raises here.
     """
     N, K = _pair_args(a, b, ta, tb, same, cnt_a, cnt_b)
-    if a.device.type == "cpu":
-        return pair_forces_plain(a, b, ta, tb, same, ff, cnt_a, cnt_b)
-    if a.device.type != "cuda":
-        raise ValueError(f"pair_forces: unsupported device {a.device}")
-    fa = torch.empty((N, K, 3), dtype=a.dtype, device=a.device)
+    if not a.is_cuda:
+        if a.is_cpu:
+            return pair_forces_plain(a, b, ta, tb, same, ff, cnt_a, cnt_b)
+        raise unsupported("pair_forces", a)
+    fa = a.new_empty((N, K, 3))
     fb = torch.empty_like(fa)
-    pe = torch.empty((N,), dtype=a.dtype, device=a.device)
+    pe = a.new_empty((N,))
     if N == 0:
         return fa, fb, pe
     eps_t, sig_t = ff_tables(ff.eps, ff.sigma, a.dtype, a.device)
-    _launch(getattr(_lib(), f"nb_pair_forces_{_SUFFIX[a.dtype]}"),
-            a.data_ptr(), b.data_ptr(), ta.data_ptr(), tb.data_ptr(),
-            same.data_ptr(),
-            None if cnt_a is None else cnt_a.data_ptr(),
-            None if cnt_b is None else cnt_b.data_ptr(),
-            eps_t.data_ptr(), sig_t.data_ptr(), eps_t.shape[0],
-            ff.r_cut * ff.r_cut, ff.k_rf, ff.c_rf, N, K,
-            fa.data_ptr(), fb.data_ptr(), pe.data_ptr(), device=a.device)
+    fn = _PAIR_FORCES[a.dtype]
+    rc = fn(a.data_ptr(), b.data_ptr(), ta.data_ptr(), tb.data_ptr(),
+            same.data_ptr(), None if cnt_a is None else cnt_a.data_ptr(),
+            None if cnt_b is None else cnt_b.data_ptr(), eps_t.data_ptr(),
+            sig_t.data_ptr(), eps_t.shape[0], ff.r_cut * ff.r_cut, ff.k_rf,
+            ff.c_rf, N, K, fa.data_ptr(), fb.data_ptr(), pe.data_ptr(),
+            stream(a.get_device()))
+    if rc:
+        raise refused(fn, rc)
     pair_forces.launches += 1
     return fa, fb, pe
 
@@ -185,19 +171,20 @@ def scatter_index(cell_a, cell_b, n_cells: int) -> ScatterIndex:
 
 
 def _scatter_args(cell_a, cell_b, fa, fb, n_cells, index):
-    _float_check("fa", fa, 3, fa.device)
-    _float_check("fb", fb, 3, fa.device, fa.dtype)
+    dev = fa.get_device()
+    check("fa", fa, 3, dev, _SUFFIX, _FLOATS)
+    check("fb", fb, 3, dev, fa.dtype)
     N, K, C = fa.shape
     if C != 3 or tuple(fb.shape) != (N, K, 3):
         raise ValueError(f"fa, fb must be (N, K, 3), got {tuple(fa.shape)},"
                          f" {tuple(fb.shape)}")
     for name, t in (("cell_a", cell_a), ("cell_b", cell_b)):
-        _check(name, t, 1, fa.device, torch.int32)
+        check(name, t, 1, dev, torch.int32)
         if t.shape[0] != N:
             raise ValueError(f"{name} has {t.shape[0]} rows, expected {N}")
     if index is not None:
-        _check("index.order", index.order, 1, fa.device, torch.int32)
-        _check("index.start", index.start, 1, fa.device, torch.int32)
+        check("index.order", index.order, 1, dev, torch.int32)
+        check("index.start", index.start, 1, dev, torch.int32)
         if index.order.shape[0] != 2 * N or \
                 index.start.shape[0] != n_cells + 1:
             raise ValueError("index does not fit this batch")
@@ -241,19 +228,21 @@ def scatter_accum(cell_a, cell_b, fa, fb, n_cells: int,
     in the plain form and traps the kernel on the card.
     """
     N, K = _scatter_args(cell_a, cell_b, fa, fb, n_cells, index)
-    if fa.device.type == "cpu":
-        return scatter_accum_plain(cell_a, cell_b, fa, fb, n_cells, index)
-    if fa.device.type != "cuda":
-        raise ValueError(f"scatter_accum: unsupported device {fa.device}")
+    if not fa.is_cuda:
+        if fa.is_cpu:
+            return scatter_accum_plain(cell_a, cell_b, fa, fb, n_cells, index)
+        raise unsupported("scatter_accum", fa)
     if N == 0:
-        return torch.zeros((n_cells, K, 3), dtype=fa.dtype, device=fa.device)
+        return fa.new_zeros((n_cells, K, 3))
     if index is None:
         index = scatter_index(cell_a, cell_b, n_cells)
-    out = torch.empty((n_cells, K, 3), dtype=fa.dtype, device=fa.device)
-    _launch(getattr(_lib(), f"nb_scatter_accum_{_SUFFIX[fa.dtype]}"),
-            index.order.data_ptr(), index.start.data_ptr(), fa.data_ptr(),
+    out = fa.new_empty((n_cells, K, 3))
+    fn = _SCATTER_ACCUM[fa.dtype]
+    rc = fn(index.order.data_ptr(), index.start.data_ptr(), fa.data_ptr(),
             fb.data_ptr(), n_cells, K, 2 * N, out.data_ptr(),
-            device=fa.device)
+            stream(fa.get_device()))
+    if rc:
+        raise refused(fn, rc)
     scatter_accum.launches += 1
     return out
 

@@ -118,17 +118,93 @@ def test_unpack_add_ref_matches_jax_bitwise(jk, p, m, f, dtype):
     assert _bits_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_unpack_add_batched_cpu_matches_jax_bitwise(jk, dtype):
+@pytest.mark.parametrize("dtype,inverse", [
+    *(pytest.param(dt, False, id=dt.__name__) for dt in DTYPES),
+    *(pytest.param(dt, True, id=f"{dt.__name__}-inverse") for dt in DTYPES)])
+def test_unpack_add_batched_cpu_matches_jax_bitwise(jk, dtype, inverse):
+    """With ``inverse`` (what the kernel reads on the card) the CPU path
+    checks it against the map and runs the same plain form."""
     rng = np.random.RandomState(11)
     dst = _src(rng, (8, 40, 5), dtype)
     rows = _src(rng, (8, 12, 5), dtype)
     idx = rng.permutation(40)[:12].astype(np.int32)
+    inv = halo_pack.inverse_map(torch.from_numpy(idx), 40) if inverse \
+        else None
     got = halo_pack.unpack_add(torch.from_numpy(dst), torch.from_numpy(idx),
-                               torch.from_numpy(rows))
+                               torch.from_numpy(rows), inv)
     for b in range(8):
         assert _bits_equal(got[b].numpy(),
                            jk.unpack_add(dst[b], idx, rows[b]))
+
+
+def _brute_inverse(index_map, R):
+    inv = [-1] * R
+    for m, r in enumerate(index_map.tolist()):
+        inv[r] = m
+    return inv
+
+
+@pytest.mark.parametrize("widths,pulses", [((1, 1, 1), None),
+                                           ((2, 2, 2), (2, 2, 2))])
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (3, 2, 1), (1, 1, 1)])
+def test_inverse_map_matches_brute_force(mesh_shape, widths, pulses):
+    """Every reverse pulse's inverse that the pallas backend builds is the
+    brute-force inverse of its add map over the pulse's body rows."""
+    from repro_torch import HaloPlan, HaloSpec, make_mesh
+    axes = ("z", "y", "x")
+    local = (4, 3, 5)
+    plan = HaloPlan.build(HaloSpec(axes, widths, backend="pallas",
+                                   pulses=pulses),
+                          make_mesh(mesh_shape, axes), device="cpu")
+    _, rev_maps = plan.backend._maps(plan, local)
+    shape = [n + w for n, w in zip(local, widths)]
+    order = list(reversed(plan.sched.serialized_order()))
+    assert len(rev_maps) == len(order) and all(m is not None for m in rev_maps)
+    for pulse, maps in zip(order, rev_maps):
+        d = pulse.dim
+        shape[d] -= pulse.width
+        R = int(np.prod(shape[:d + 1]))
+        assert maps.add_inv.dtype == torch.int32
+        assert maps.add_inv.tolist() == _brute_inverse(maps.add_idx, R)
+        assert torch.equal(halo_pack.inverse_map(maps.add_idx, R),
+                           maps.add_inv)
+    assert shape == list(local)
+
+
+def test_inverse_map_refuses_repeated_and_outside_rows(monkeypatch):
+    with pytest.raises(ValueError, match="more than once"):
+        halo_pack.inverse_map(torch.tensor([0, 2, 2], dtype=torch.int32), 4)
+    for bad in ([0, 4], [-1, 1]):
+        with pytest.raises(IndexError, match="outside"):
+            halo_pack.inverse_map(torch.tensor(bad, dtype=torch.int32), 4)
+    assert halo_pack.inverse_map(torch.tensor([], dtype=torch.int32),
+                                 3).tolist() == [-1, -1, -1]
+    # a repeated row in a plan's map raises where the plan builds it
+    from repro_torch import HaloPlan, HaloSpec, make_mesh
+    from repro_torch.core import halo_plan
+    good = halo_plan.PallasBackend._rows_along
+    monkeypatch.setattr(halo_plan.PallasBackend, "_rows_along", staticmethod(
+        lambda shape, d, lo, hi: np.concatenate(
+            [good(shape, d, lo, hi)] * 2)))
+    plan = HaloPlan.build(HaloSpec(("z", "y", "x"), (1, 1, 1),
+                                   backend="pallas"),
+                          make_mesh((1, 1, 1), ("z", "y", "x")), device="cpu")
+    with pytest.raises(ValueError, match="more than once"):
+        plan.fwd(torch.zeros((1, 1, 1, 4, 3, 5, 2)))
+
+
+def test_unpack_add_refuses_an_inverse_of_another_map():
+    """On the card the kernel reads only the inverse, so the CPU path holds
+    a given inverse to the map: one built for another map of the same R
+    (a stale cache entry, say) raises rather than add into other rows."""
+    dst = torch.zeros((2, 6, 3))
+    rows = torch.ones((2, 2, 3))
+    idx = torch.tensor([1, 4], dtype=torch.int32)
+    stale = halo_pack.inverse_map(torch.tensor([4, 1], dtype=torch.int32), 6)
+    with pytest.raises(ValueError, match="is not inverse_map"):
+        halo_pack.unpack_add(dst, idx, rows, stale)
+    out = halo_pack.unpack_add(dst, idx, rows, halo_pack.inverse_map(idx, 6))
+    assert out[:, [1, 4]].eq(1).all() and out[:, [0, 2, 3, 5]].eq(0).all()
 
 
 def test_wrappers_validate_inputs():
@@ -144,6 +220,15 @@ def test_wrappers_validate_inputs():
         halo_pack.pack(src.half(), idx)
     with pytest.raises(ValueError, match="rows shape"):
         halo_pack.unpack_add(src, idx, torch.zeros((2, 3, 3)))
+    rows = torch.zeros((2, 4, 3))
+    inv = halo_pack.inverse_map(torch.tensor([0, 1, 2, 3],
+                                             dtype=torch.int32), 5)
+    with pytest.raises(ValueError, match="inverse holds 4 rows"):
+        halo_pack.unpack_add(src, idx, rows, inv[:4])
+    with pytest.raises(TypeError, match="int32"):
+        halo_pack.unpack_add(src, idx, rows, inv.long())
+    with pytest.raises(ValueError, match="1-D"):
+        halo_pack.unpack_add(src, idx, rows, inv[None])
 
 
 @pytest.mark.parametrize("kernel", ["pack", "unpack_add"])
@@ -371,9 +456,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_dom,p,m,f", [(8, 7, 1, 7840), (8, 56, 8, 1120),
                                          (8, 448, 64, 160), (1, 100, 60, 7),
-                                         (3, 16, 128, 3)])
+                                         (3, 16, 128, 3), (1, 7, 1, 7840),
+                                         (2, 9, 5, 1)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernels_match_plain_bitwise(cuda_device, n_dom, p, m, f, dtype):
+    """The flat word grid at the main path's shapes (the z pulse: M = 1 row
+    of 7,840 elements), on one domain, with padding rows and rows of an
+    odd width; unpack_add with the inverse given and built here."""
     rng = np.random.RandomState(n_dom + p + m + f)
     src = torch.from_numpy(_src(rng, (n_dom, p, f), dtype)).to(cuda_device)
     idx = torch.from_numpy(rng.randint(-1, p, size=(m,)).astype(np.int32))
@@ -388,26 +477,107 @@ def test_cuda_kernels_match_plain_bitwise(cuda_device, n_dom, p, m, f, dtype):
     uidx = uidx.to(cuda_device)
     rows = torch.from_numpy(_src(rng, (n_dom, uidx.shape[0], f), dtype))
     rows = rows.to(cuda_device)
+    want = halo_pack.unpack_add_plain(src, uidx, rows)
     n1 = halo_pack.unpack_add.launches
+    b1 = halo_pack.unpack_add.inverse_builds
     out = halo_pack.unpack_add(src, uidx, rows)
     torch.cuda.synchronize()
     assert halo_pack.unpack_add.launches == n1 + 1
-    assert torch.equal(out, halo_pack.unpack_add_plain(src, uidx, rows))
+    assert halo_pack.unpack_add.inverse_builds == b1 + 1
+    assert torch.equal(out, want)
+    inv = halo_pack.inverse_map(uidx, p)
+    assert inv.is_cuda
+    out = halo_pack.unpack_add(src, uidx, rows, inv)
+    torch.cuda.synchronize()
+    assert halo_pack.unpack_add.launches == n1 + 2
+    assert halo_pack.unpack_add.inverse_builds == b1 + 1
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
 def test_cuda_unaligned_rows_take_scalar_path(cuda_device):
-    """Odd row widths and a view offset by one element still agree."""
-    base = torch.randn(3 * 33 * 5 + 1, device=cuda_device)
-    src = base[1:].reshape(3, 33, 5)          # 4-byte aligned only
-    idx = torch.tensor([3, -1, 0, 32], dtype=torch.int32,
-                       device=cuda_device)
-    assert torch.equal(halo_pack.pack(src, idx),
-                       halo_pack.pack_plain(src, idx))
-    rows = torch.randn(3, 4, 5, device=cuda_device)
-    uidx = torch.tensor([3, 7, 0, 32], dtype=torch.int32, device=cuda_device)
-    assert torch.equal(halo_pack.unpack_add(src, uidx, rows),
-                       halo_pack.unpack_add_plain(src, uidx, rows))
+    """Odd row widths and a view offset by one element still agree: rows
+    of 5 f32 (4-byte words), and rows of 4 f32 / 2 f64 on bases aligned
+    to 4 or 8 bytes only (4- and 8-byte words)."""
+    for dtype, F, offset in ((torch.float32, 5, 1), (torch.float32, 4, 1),
+                             (torch.float32, 4, 2), (torch.float64, 2, 1)):
+        base = torch.randn(3 * 33 * F + offset, device=cuda_device,
+                           dtype=dtype)
+        src = base[offset:].reshape(3, 33, F)
+        idx = torch.tensor([3, -1, 0, 32], dtype=torch.int32,
+                           device=cuda_device)
+        assert torch.equal(halo_pack.pack(src, idx),
+                           halo_pack.pack_plain(src, idx))
+        rows = torch.randn(3, 4, F, device=cuda_device, dtype=dtype)
+        uidx = torch.tensor([3, 7, 0, 32], dtype=torch.int32,
+                            device=cuda_device)
+        want = halo_pack.unpack_add_plain(src, uidx, rows)
+        assert torch.equal(halo_pack.unpack_add(src, uidx, rows), want)
+        assert torch.equal(halo_pack.unpack_add(
+            src, uidx, rows, halo_pack.inverse_map(uidx, 33)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_unpack_add_copies_untouched_rows(cuda_device, dtype):
+    """A row the map does not name is copied, not given + 0: -0.0 stays
+    -0.0 (and a named row of -0.0 plus +0.0 is +0.0, as in the plain
+    form)."""
+    dst = torch.full((2, 6, 8), -0.0, dtype=dtype, device=cuda_device)
+    rows = torch.zeros((2, 3, 8), dtype=dtype, device=cuda_device)
+    idx = torch.tensor([4, 0, 2], dtype=torch.int32, device=cuda_device)
+    out = halo_pack.unpack_add(dst, idx, rows, halo_pack.inverse_map(idx, 6))
+    want = halo_pack.unpack_add_plain(dst, idx, rows)
+    assert torch.equal(torch.signbit(out), torch.signbit(want))
+    sign = torch.signbit(out[:, :, 0]).cpu()
+    assert sign[:, [1, 3, 5]].all() and not sign[:, [0, 2, 4]].any()
+
+
+@pytest.mark.cuda
+def test_cuda_launches_follow_the_current_stream(cuda_device):
+    """A wrapper launches on the stream of ``with torch.cuda.stream(s):``:
+    with the default stream held by a sleep, the kernel's result is read
+    back on ``s`` before the sleep ends."""
+    from repro_torch.kernels import _launch
+    rng = np.random.RandomState(5)
+    src = torch.from_numpy(rng.randn(8, 448, 160).astype(np.float32))
+    src = src.to(cuda_device)
+    idx = torch.arange(0, 448, 7, dtype=torch.int32, device=cuda_device)
+    want = halo_pack.pack_plain(src, idx).cpu()
+    s = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)           # ~1 s on the default stream
+    with torch.cuda.stream(s):
+        assert _launch.stream(src.get_device()) == s.cuda_stream
+        got = halo_pack.pack(src, idx).cpu()
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_unpack_add_is_one_device_operation(cuda_device):
+    """Each unpack_add launch with its inverse is one kernel on the card:
+    no Memcpy DtoD before it, no other operation."""
+    from torch.profiler import ProfilerActivity, profile
+    dst = torch.randn(8, 448, 160, device=cuda_device)
+    idx = torch.arange(0, 448, 7, dtype=torch.int32, device=cuda_device)
+    rows = torch.randn(8, idx.shape[0], 160, device=cuda_device)
+    inv = halo_pack.inverse_map(idx, 448)
+    halo_pack.unpack_add(dst, idx, rows, inv)
+    torch.cuda.synchronize()
+    for _ in range(3):      # CUPTI now and then drops a whole session
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                halo_pack.unpack_add(dst, idx, rows, inv)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 10, ops
+    assert all("unpack_add_kernel" in name for name in ops), ops
 
 
 @pytest.mark.cuda
@@ -419,6 +589,7 @@ def test_cuda_engine_runs_through_the_kernels(cuda_device):
     s = make_grappa_like(900, seed=3, dtype=np.float64)
     mesh = make_mesh((2, 2, 2), ("z", "y", "x"))
     runs = {}
+    builds = halo_pack.unpack_add.inverse_builds
     for dev, backend in (("cuda", "pallas"), ("cuda", "serialized"),
                          ("cpu", "pallas")):
         n0 = (halo_pack.pack.launches, halo_pack.unpack_add.launches)
@@ -429,6 +600,8 @@ def test_cuda_engine_runs_through_the_kernels(cuda_device):
         runs[dev, backend] = (m, d, n1[0] - n0[0], n1[1] - n0[1])
     m, d, packs, unpacks = runs["cuda", "pallas"]
     assert packs > 0 and unpacks > 0
+    # the plan passes its inverses: none is built per launch
+    assert halo_pack.unpack_add.inverse_builds == builds
     assert runs["cuda", "serialized"][2:] == (0, 0)
     ser = runs["cuda", "serialized"]
     for k in ("pe", "ke", "mom"):
