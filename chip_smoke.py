@@ -2,6 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pruned-kernels CHECKOUT   # phase 7 alone, on
+        # the pruned kernels of another checkout (a parent commit unpacked
+        # with git archive), measured as below; prints no result lines
 
 Phases, each asserting (any failure exits non-zero with no result line):
 
@@ -41,8 +44,13 @@ Phases, each asserting (any failure exits non-zero with no result line):
    ``nonbonded.scatter_accum`` against their plain forms at the six tier
    shapes of the grappa-45k pruned schedule (taken from the engine's own
    first prune): pair forces to 5e-6 of the force scale and PE to 5e-6
-   relative in f32, the scatter bitwise; timed beside the plain form, the
-   library call where one exists and the bound;
+   relative in f32 (1e-12 in the f64 case), the same bits on a second
+   run, the scatter bitwise; timed beside the plain form, the library
+   call where one exists and the bound; per tier and kernel the device us
+   per launch (torch.profiler) and its share of the bound, and the device
+   operations per launch from a CUDA graph capture (must be its one
+   kernel); per kernel one f32 step's events and device ms beside the
+   bound;
 8. the pruned main path: grappa-45k, 2x2x2, ``HaloSpec(backend="pallas")``,
    ``force_backend="pallas"``, ``simulate(40)`` with all four kernels'
    counters zeroed just before and read just after; the first force pass
@@ -245,7 +253,10 @@ def device_us(fn, kernel: str, n: int = 50, tries: int = 5):
     the kernel named ``kernel`` once: the device us of one launch, or
     None when no session is whole.  A session that shows fewer than
     ``n`` of those launches lost events (CUPTI drops a whole session now
-    and then, and in one run three in a row) and is taken again."""
+    and then, and in one run three in a row) and is taken again.  Each
+    session makes one call more than it needs: after a long session
+    (phase 6's dense block) CUPTI drops the last launch of every later
+    one; the mean is over the launches it recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -253,7 +264,7 @@ def device_us(fn, kernel: str, n: int = 50, tries: int = 5):
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(n + 1):
                 fn()
             torch.cuda.synchronize()
         mine = [e for e in prof.events()
@@ -787,12 +798,15 @@ def nb_kernel_phase(system):
     rs = eng.begin_run()
     ff = system.params.ff
     acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "library_ms": None, "bound_ms": 0.0, "bytes": 0, "ops": 0}
+               "library_ms": None, "bound_ms": 0.0, "bytes": 0, "ops": 0,
+               "device_us": 0.0, "device_n": 0, "launches": 0}
            for k in ("pair_forces", "scatter_accum")}
     acc["scatter_accum"]["library_ms"] = 0.0
     print(f"pruned kernel phase: tiers {list(rs.sched[1])} (rows per "
           "domain, slots) x 8 domains; per launch (ms; bound = max(bytes / "
-          "3.35 TB/s, ops / peak))")
+          "3.35 TB/s, ops / peak); device us per launch from torch.profiler "
+          "over 50, its share of the bound = bound / device time; device "
+          "operations per launch from a CUDA graph of 10 calls)")
     cases = tier_cases(eng, rs)
     cases += [(t, a.double(), b.double(), n_cells)
               for t, a, b, n_cells in cases[:1]]
@@ -853,18 +867,46 @@ def nb_kernel_phase(system):
             t.cell_a, t.cell_b, fa, fb, n_cells, index=t.index), n=10,
             warmup=2)
         t_lib = cuda_ms(library)
+        # the same inputs give the same bits on every run
+        again = nb.pair_forces(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"pair_forces {tag}: a second run gives other bits")
+        dev = {}
+        for name, fn in (
+                ("pair_forces", lambda: nb.pair_forces(*args, **kw)),
+                ("scatter_accum", lambda: nb.scatter_accum(
+                    t.cell_a, t.cell_b, fa, fb, n_cells, index=t.index))):
+            ops = graph_ops(fn)
+            check(ops == {"kernel": 1.0}, f"{name} {tag}: device operations "
+                  f"a launch {ops}, expected its one kernel")
+            dev[name] = device_us(fn, f"{name}_kernel")
+        bound_us = {"pair_forces": pf_bound * 1e3,
+                    "scatter_accum": sa_bound * 1e3}
+
+        def device_txt(name):
+            d = dev[name]
+            if d is None:
+                return "device not measured (no whole profiler session)"
+            return (f"device {d:.3f} us/launch ({bound_us[name] / d:.4f} "
+                    "of the bound), 1 op/launch")
         print(f"  pair_forces   {tag:22s} kernel {t_pf:.6f} plain "
               f"{t_pf_plain:.6f} bound {pf_bound:.6f} ({pf_bytes} B, "
               f"{pf_ops} ops: {valid} valid, {inter} interacting slot "
               f"pairs) force err {ferr / scale:.3e} of {scale:.4g}, PE err "
-              f"{perr:.3e}")
+              f"{perr:.3e}, run to run bitwise; {device_txt('pair_forces')}")
         print(f"  scatter_accum {tag:22s} kernel {t_sa:.6f} plain "
               f"{t_sa_plain:.6f} library {t_lib:.6f} bound {sa_bound:.6f} "
-              f"({sa_bytes} B) bitwise")
+              f"({sa_bytes} B) bitwise; {device_txt('scatter_accum')}")
         acc["pair_forces"]["max_abs_err"] = max(
             acc["pair_forces"]["max_abs_err"], ferr)
         if f64:
             continue
+        for name, d in dev.items():
+            acc[name]["launches"] += 1
+            if d is not None:
+                acc[name]["device_us"] += d
+                acc[name]["device_n"] += 1
         # one step's worth: the f32 launches of all six tiers, summed
         for name, vals in (("pair_forces", (t_pf, t_pf_plain, None,
                                             pf_bound, pf_bytes, pf_ops)),
@@ -875,6 +917,16 @@ def nb_kernel_phase(system):
                                "bytes", "ops"), vals):
                 if v is not None:
                     a_[key] += v
+    for name, a_ in acc.items():
+        n, nd = a_["launches"], a_["device_n"]
+        lib = "" if a_["library_ms"] is None else \
+            f", library {a_['library_ms']:.6f} ms"
+        d_txt = "device not measured" if nd < n else (
+            f"device {a_['device_us'] / 1e3:.6f} ms "
+            f"({a_['bound_ms'] * 1e3 / a_['device_us']:.4f} of the bound)")
+        print(f"  {name} one f32 step ({n} tier launches): events "
+              f"{a_['ms']:.6f} ms ({a_['bound_ms'] / a_['ms']:.4f} of the "
+              f"bound){lib}, bound {a_['bound_ms']:.6f} ms; {d_txt}")
     return acc
 
 
@@ -2099,10 +2151,14 @@ def wire_speed(system, rounds: int = 5):
 
 
 def main():
-    if not (SRC / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--pruned-kernels"):
+        fail("usage: chip_smoke.py [--pruned-kernels CHECKOUT]")
+    src = Path(args[1]).resolve() / "src" if args else SRC
+    if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
              "repository")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -2115,6 +2171,16 @@ def main():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{kind}")
+
+    if args:
+        # phase 7 alone on another checkout's pruned kernels, measured as
+        # this script measures its own (a same-call comparison of commits)
+        from repro_torch import make_grappa_like
+        from repro_torch.kernels import _build
+        _build.build(["nonbonded"])
+        nb_kernel_phase(make_grappa_like(45_000, seed=0))
+        print(card)
+        return
 
     # 2. build
     from repro_torch.kernels import _build
@@ -2216,6 +2282,10 @@ def main():
                          "pack_wire"],
                      "put_signal_wire": wire_runs["float32"]["signal/db2"][
                          "put_signal_wire"]}
+    designs = {"pair_forces": "a lane group per cell pair, fb in "
+                              "registers, fa reduce-scattered, no shared tile",
+               "scatter_accum": "a warp per cell, 16-byte words, 4 entries' "
+                                "loads in flight"}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
                       **flash_kernel,
@@ -2229,7 +2299,8 @@ def main():
             "launches": main_launches[name],
             "max_abs_err": acc["max_abs_err"], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
-            "bound_by": bound_by, "library_ms": acc["library_ms"]})
+            "bound_by": bound_by, "library_ms": acc["library_ms"],
+            **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
           "scatter_accum: the six tiers; put_signal: 3 fwd + 3 rev pulses "

@@ -7,43 +7,68 @@
 //   nb_scatter_accum_*  <- src/repro/kernels/nonbonded.py:scatter_accum
 //                          (_scatter_accum_kernel)
 //
-// pair_forces.  One thread block per cell pair; thread i owns slot i of
-// cell A (threads stride over the slots when K exceeds the block) and walks
-// the K slots of cell B, which the block first stages in shared memory with
-// their types.  A valid slot pair costs ~9 float operations (r2 and the
-// cutoff test), an interacting one ~43 more; the inputs are gathered per
-// pair (~16 bytes a slot a side in f32, plus 12 out).  At the grappa-45k
-// tiers (K = 8..28) that is ~53 MB against ~0.14 G operations a step, so
-// the bound is device-memory bytes, ~16 us a step on an H100; a block of
-// one or two warps with a serial j loop is latency-bound well above it.
-// What the design does:
+// pair_forces.  What bounds it: counted once, a grappa-45k step's six tier
+// launches move ~53 MB (a byte bound of ~16 us on an H100) and do ~0.14 G
+// float operations (~2 us at 67 TFLOP/s), so the bound is bytes.  The
+// instruction stream is what a kernel meets first: an interacting slot
+// pair costs an IEEE division, a square root and ~30 more operations, and
+// every valid one forms r2 and tests the cutoff.  So the design keeps every
+// lane on a slot pair, keeps no lane waiting on a barrier or a shared tile,
+// and does the work that depends only on the type pair once a block:
+//   * full warps.  A block of 4 warps serves 4 to 16 cell pairs: a group
+//     of W lanes per pair, W = 32 at K > 16, 16 at 8 < K <= 16 and 8 at
+//     K <= 8.  Lane j of a group owns slot j of cell B (lanes loop over
+//     column chunks of W slots when K > W); the group walks cell A's slots
+//     in order, to the largest count in the warp (all K without counts);
+//   * no shared tile and no barrier for the sums.  fb[j] is the lane's own
+//     register sum over i, in order.  fa[i] is a sum over the group's lanes
+//     in a fixed tree: four A slots at a time, reduce-scattered (the two
+//     halving steps at offsets W/2 and W/4 send half the values each, then
+//     a butterfly), so a batch of four slots costs 15 shuffles at W = 32,
+//     not 4 x 15; a batch in which no lane of the warp interacts skips
+//     it (its sums are +0 either way).  Chunks add into fa in order.  The
+//     energy is a butterfly over the group.  Every order is fixed: the same
+//     inputs give the same bits on every run;
+//   * the type-pair terms (sig^2, 24 eps, 4 eps and the cutoff shift
+//     src6^2 - src6) are made by each block into shared memory, with the
+//     round-to-nearest intrinsics in the order of forces.pair_terms, so the
+//     per-pair values are those the kernel formed per pair before;
+//   * loads.  Cell B's slots are one coalesced 16-byte load a lane (two in
+//     f64); a batch issues its four A slots' loads (16 bytes each, the
+//     group's lanes read one address) before any arithmetic, so they are in
+//     flight together.  fa, fb and pe are written once, zeros for masked
+//     slots (fa adds across column chunks only when K > W);
 //   * the four masks of the reference are kept exactly: a slot is valid
 //     when slot < count (counts given) or type >= 0 (no counts); a self
 //     pair keeps only j > i; types are clipped into the T x T tables; a
 //     masked lane never divides (it branches around the pair terms);
-//   * fb is a column sum of the K x K tile.  Thread i writes its row of
-//     fac * dx into shared memory (zeros where masked), and after a barrier
-//     thread j sums column j over i in a fixed order: no atomics, the same
-//     bits on every run.  The tile holds a chunk of J columns at a time,
-//     J as wide as 48 KB allows: all K columns at the main path's depths
-//     (K <= 40 in f32), fewer for the deep cells of small f64 systems;
-//     fa sums over j in order across the chunks in shared memory;
-//   * the pair's energy is summed per thread over j, then over threads in
-//     order by thread 0;
 //   * r2 is formed with the round-to-nearest intrinsics (no fused
 //     multiply-add) as three products and two adds in order, so the cutoff
 //     test sees the same bits as the plain PyTorch form.  The rest of the
 //     arithmetic may contract into fused multiply-adds (the build has no
 //     --use_fast_math: divisions and square roots stay IEEE).
+// Why not the tile: a block per pair with lanes over A and a shared K x K
+// tile for fb runs one warp a block (half an SM's warps at most), pays a
+// barrier and a second serial pass per pair, and its row stride of 3K words
+// hits 4- to 16-way bank conflicts at the grappa-45k depths.
 //
 // scatter_accum.  The reference adds fa[row] into cell_a[row], then
 // fb[row] into cell_b[row], row by row; cell ids repeat.  The caller
 // builds an ordered index (a stable sort of the 2N cell ids of entries
-// 2*row + side, and each cell's segment start).  One thread per (cell,
-// slot, component) walks its cell's segment in order and writes the sum
-// once: no atomics, deterministic, and bitwise equal to adding each cell's
-// j-th entries in a loop over j.  It moves each input once and writes each
-// output once, so it is bound by device-memory bytes (3.35 TB/s).
+// 2*row + side, and each cell's segment start).  It moves each input once
+// and writes each output once, so it is bound by device-memory bytes
+// (3.35 TB/s); the latency of its dependent loads is what a kernel meets
+// first.  One warp per cell and 32 words of its row (every grappa-45k row
+// in f32, two warps a row in f64 at K > 21): the lanes run over the row in
+// 16-byte words (float4 / double2 when the row is whole words and the
+// arrays are 16-byte aligned; else one element a lane, the same code on a
+// scalar word).  The warp reads up to 32 of its segment's entry ids in one
+// coalesced load and hands them out by shuffle, issues the loads of four
+// entries' rows before it adds them in order (eight or two measured
+// slower: eight costs the registers of a one-wave grid), and stores its
+// row once
+// (an untouched cell its zeros).  Each sum starts from +0.0 and adds the
+// entries in segment order, so the result is bitwise the plain form's.
 //
 // Kernels run on the caller's stream, allocate nothing and do not
 // synchronise.  Each C entry point returns cudaGetLastError().
@@ -54,6 +79,7 @@
 namespace {
 
 constexpr int kSmemLimit = 232448;   // shared memory one block can use
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -67,139 +93,250 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
-
-int pair_threads(int64_t K) {
-  int64_t t = ((K + 31) / 32) * 32;
-  if (t < 32) t = 32;
-  if (t > 256) t = 256;
-  return static_cast<int>(t);
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
 }
 
-// Shared memory of one block: the (K, J, 3) tile of a chunk of J columns,
-// cell B's (K, 4) slots, the (K, 3) fa sums, one energy part per thread and
-// B's K types.  J is the widest chunk that keeps the block within 48 KB
-// (all K columns at the main path's depths; fewer for deep f64 cells).
-template <typename T>
-int64_t pair_fixed_smem(int64_t K, int threads) {
-  return (7 * K + threads) * static_cast<int64_t>(sizeof(T)) + 4 * K;
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
+// ---- pair_forces ------------------------------------------------------------
+
+constexpr int kPairWarps = 4;   // warps a block
+constexpr int kBatch = 4;       // A slots whose fa sums are reduced together
+
+// The LJ terms of one type pair (pair_terms' operations, in its order).
 template <typename T>
-int64_t pair_chunk(int64_t K, int threads) {
-  const int64_t room = 48 * 1024 - pair_fixed_smem<T>(K, threads);
-  int64_t J = room / (3 * K * static_cast<int64_t>(sizeof(T)));
-  if (J > K) J = K;
-  if (J < 1) J = 1;
-  return J;
+struct alignas(4 * sizeof(T)) TypePair {
+  T sig2;    // sig * sig
+  T eps24;   // 24 * eps
+  T eps4;    // 4 * eps
+  T shift;   // src6 * src6 - src6, src6 = ((sig * sig) / r_cut2)^3
+};
+
+// One slot [x, y, z, q]: a 16-byte load in f32, two in f64.
+__device__ __forceinline__ void load_slot(const float* p, float (&s)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  s[0] = v.x;
+  s[1] = v.y;
+  s[2] = v.z;
+  s[3] = v.w;
+}
+__device__ __forceinline__ void load_slot(const double* p, double (&s)[4]) {
+  const double2 u = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  s[0] = u.x;
+  s[1] = u.y;
+  s[2] = v.x;
+  s[3] = v.y;
 }
 
-template <typename T>
-__global__ void pair_forces_kernel(
+// fa of a batch's kBatch = 4 slots, summed over the W lanes of a group:
+// g holds (x, y, z) of slots 0..3.  Two halving steps leave each quarter
+// of the group one slot's three partial sums, a butterfly finishes them;
+// quarter q (lanes q*W/4 .. q*W/4 + W/4 - 1) ends holding slot q's sums,
+// the same bits in each of its lanes.
+template <typename T, int W>
+__device__ __forceinline__ void reduce_batch(const T (&g)[3 * kBatch], int lg,
+                                             T (&s)[3]) {
+  const bool hi1 = lg & (W / 2);
+  T h[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const T keep = hi1 ? g[k + 6] : g[k];
+    const T send = hi1 ? g[k] : g[k + 6];
+    h[k] = keep + __shfl_xor_sync(kFull, send, W / 2);
+  }
+  const bool hi2 = lg & (W / 4);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T keep = hi2 ? h[k + 3] : h[k];
+    const T send = hi2 ? h[k] : h[k + 3];
+    s[k] = keep + __shfl_xor_sync(kFull, send, W / 4);
+  }
+#pragma unroll
+  for (int off = W / 8; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s[k] += __shfl_xor_sync(kFull, s[k], off);
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * kPairWarps) pair_forces_kernel(
     const T* __restrict__ a, const T* __restrict__ b,
     const int32_t* __restrict__ ta, const int32_t* __restrict__ tb,
     const int32_t* __restrict__ same, const int32_t* __restrict__ cnt_a,
     const int32_t* __restrict__ cnt_b, const T* __restrict__ eps_t,
     const T* __restrict__ sig_t, int n_types, T r_cut2, T k_rf, T c_rf,
-    int K, int J, T* __restrict__ fa, T* __restrict__ fb,
+    int64_t N, int K, T* __restrict__ fa, T* __restrict__ fb,
     T* __restrict__ pe) {
-  extern __shared__ unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);   // (K, J, 3): fac * dx
-  T* sb = tile + 3 * K * J;                   // (K, 4): cell B's slots
-  T* sfa = sb + 4 * K;                        // (K, 3): fa, summed over j
-  T* spe = sfa + 3 * K;                       // (blockDim,): energy parts
-  int32_t* stb = reinterpret_cast<int32_t*>(spe + blockDim.x);  // (K,)
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  TypePair<T>* tp = reinterpret_cast<TypePair<T>*>(smem_raw);
+  for (int s = threadIdx.x; s < n_types * n_types; s += blockDim.x) {
+    const T sig2 = mul_rn(sig_t[s], sig_t[s]);
+    const T src2 = div_rn(sig2, r_cut2);
+    const T src6 = mul_rn(mul_rn(src2, src2), src2);
+    tp[s] = TypePair<T>{sig2, mul_rn(T(24), eps_t[s]),
+                        mul_rn(T(4), eps_t[s]),
+                        sub_rn(mul_rn(src6, src6), src6)};
+  }
+  __syncthreads();
 
-  const int64_t n = blockIdx.x;
-  const T* an = a + n * K * 4;
+  constexpr int Q = W / 4;   // lanes of a quarter group
+  const int lane = threadIdx.x & 31;
+  const int lg = lane % W;
+  const int64_t n =
+      (static_cast<int64_t>(blockIdx.x) * kPairWarps + threadIdx.x / 32) *
+          (32 / W) + lane / W;
+  const bool live = n < N;
+  const int64_t nr = live ? n : N - 1;   // a dead group reads, never writes
+  const int na = !live ? 0 : cnt_a ? min(max(cnt_a[n], 0), K) : K;
+  const int nb = cnt_b ? min(max(cnt_b[nr], 0), K) : K;
+  const bool self_pair = same[nr] > 0;
+  const int i_end = __reduce_max_sync(kFull, na);   // the warp's A loop
+  const T* an = a + nr * K * 4;
+  const T* bn = b + nr * K * 4;
+  const int32_t* tan = ta + nr * K;
+  const int32_t* tbn = tb + nr * K;
+  T* fan = fa + nr * K * 3;
+  T* fbn = fb + nr * K * 3;
   const T zero = T(0);
-  for (int s = threadIdx.x; s < 4 * K; s += blockDim.x) sb[s] = b[n * K * 4 + s];
-  for (int s = threadIdx.x; s < 3 * K; s += blockDim.x) sfa[s] = zero;
-  for (int s = threadIdx.x; s < K; s += blockDim.x) stb[s] = tb[n * K + s];
-  __syncthreads();
-
-  const bool self_pair = same[n] > 0;
-  const int na = cnt_a ? cnt_a[n] : K;
-  const int nb = cnt_b ? cnt_b[n] : K;
+  const T k_rf2 = T(2) * k_rf;
   T pe_acc = zero;
-  for (int c0 = 0; c0 < K; c0 += J) {
-    const int c1 = min(c0 + J, K);
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      const int32_t type_i = ta[n * K + i];
-      const bool valid_i = cnt_a ? (i < na) : (type_i >= 0);
-      const T xi = an[i * 4 + 0], yi = an[i * 4 + 1], zi = an[i * 4 + 2];
-      const T qi = an[i * 4 + 3];
-      const int ti = min(max(type_i, 0), n_types - 1);
-      T fx = sfa[3 * i + 0], fy = sfa[3 * i + 1], fz = sfa[3 * i + 2];
-      T* row = tile + 3 * J * i;
-      for (int j = c0; j < c1; ++j) {
-        const int32_t type_j = stb[j];
-        const bool valid_j = cnt_b ? (j < nb) : (type_j >= 0);
-        const T dx = xi - sb[j * 4 + 0];
-        const T dy = yi - sb[j * 4 + 1];
-        const T dz = zi - sb[j * 4 + 2];
-        const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)),
-                            mul_rn(dz, dz));
-        T gx = zero, gy = zero, gz = zero;
-        if (valid_i && valid_j && r2 < r_cut2 && (!self_pair || j > i)) {
-          const int tj = min(max(type_j, 0), n_types - 1);
-          const T eps = eps_t[ti * n_types + tj];
-          const T sig = sig_t[ti * n_types + tj];
-          const T inv_r2 = T(1) / r2;
-          const T sr2 = (sig * sig) * inv_r2;
-          const T sr6 = sr2 * sr2 * sr2;
-          const T sr12 = sr6 * sr6;
-          const T fac_lj = T(24) * eps * (T(2) * sr12 - sr6) * inv_r2;
-          const T src2 = (sig * sig) / r_cut2;
-          const T src6 = src2 * src2 * src2;
-          const T e_lj = T(4) * eps * ((sr12 - sr6) - (src6 * src6 - src6));
-          const T inv_r = sqrt(inv_r2);
-          const T qq = qi * sb[j * 4 + 3];
-          const T fac_c = qq * (inv_r * inv_r2 - T(2) * k_rf);
-          const T e_c = qq * (inv_r + k_rf * r2 - c_rf);
-          const T fac = fac_lj + fac_c;
-          gx = fac * dx;
-          gy = fac * dy;
-          gz = fac * dz;
-          fx += gx;
-          fy += gy;
-          fz += gz;
-          pe_acc += e_lj + e_c;
+  bool first = true;   // no column chunk has written fa yet (warp-uniform)
+  for (int c0 = 0; c0 < K; c0 += W) {
+    const int j = c0 + lg;
+    const bool in_j = live && j < K;
+    T sj[4] = {zero, zero, zero, zero};
+    int tj = 0;
+    bool valid_j = false;
+    if (in_j) {
+      const int32_t type_j = tbn[j];
+      valid_j = cnt_b ? (j < nb) : (type_j >= 0);
+      tj = min(max(type_j, 0), n_types - 1);
+      load_slot(bn + 4 * j, sj);
+    }
+    T bx = zero, by = zero, bz = zero;   // fb[j], summed over i in order
+    if (__any_sync(kFull, valid_j)) {
+      for (int i0 = 0; i0 < i_end; i0 += kBatch) {
+        T si[kBatch][4];
+        int32_t type_i[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = min(i0 + u, K - 1);
+          type_i[u] = tan[i];
+          load_slot(an + 4 * i, si[u]);
         }
-        T* t = row + 3 * (j - c0);
-        t[0] = gx;
-        t[1] = gy;
-        t[2] = gz;
+        T g[3 * kBatch];
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = i0 + u;
+          const T dx = si[u][0] - sj[0];
+          const T dy = si[u][1] - sj[1];
+          const T dz = si[u][2] - sj[2];
+          const T r2 = add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)),
+                              mul_rn(dz, dz));
+          g[3 * u + 0] = zero;
+          g[3 * u + 1] = zero;
+          g[3 * u + 2] = zero;
+          const bool valid_i = i < na && (cnt_a != nullptr || type_i[u] >= 0);
+          if (valid_i && valid_j && r2 < r_cut2 && (!self_pair || j > i)) {
+            const int ti = min(max(type_i[u], 0), n_types - 1);
+            const TypePair<T> c = tp[ti * n_types + tj];
+            const T inv_r2 = T(1) / r2;
+            const T sr2 = c.sig2 * inv_r2;
+            const T sr6 = sr2 * sr2 * sr2;
+            const T sr12 = sr6 * sr6;
+            const T fac_lj = c.eps24 * (T(2) * sr12 - sr6) * inv_r2;
+            const T e_lj = c.eps4 * ((sr12 - sr6) - c.shift);
+            const T inv_r = sqrt(inv_r2);
+            const T qq = si[u][3] * sj[3];
+            const T fac_c = qq * (inv_r * inv_r2 - k_rf2);
+            const T e_c = qq * (inv_r + k_rf * r2 - c_rf);
+            const T fac = fac_lj + fac_c;
+            g[3 * u + 0] = fac * dx;
+            g[3 * u + 1] = fac * dy;
+            g[3 * u + 2] = fac * dz;
+            bx = add_rn(bx, g[3 * u + 0]);   // fb sums exactly fa's terms
+            by = add_rn(by, g[3 * u + 1]);
+            bz = add_rn(bz, g[3 * u + 2]);
+            pe_acc += e_lj + e_c;
+            hit = true;
+          }
+        }
+        T s[3] = {zero, zero, zero};
+        if (__any_sync(kFull, hit)) reduce_batch<T, W>(g, lg, s);
+        const int i = i0 + lg / Q;
+        if (live && lg % Q == 0 && i < K) {
+          T* f = fan + 3 * i;
+          if (first) {
+            f[0] = s[0];
+            f[1] = s[1];
+            f[2] = s[2];
+          } else {   // a later column chunk (K > W): the same lane wrote f
+            f[0] += s[0];
+            f[1] += s[1];
+            f[2] += s[2];
+          }
+        }
       }
-      sfa[3 * i + 0] = fx;
-      sfa[3 * i + 1] = fy;
-      sfa[3 * i + 2] = fz;
+      first = false;
     }
-    __syncthreads();
-    // Newton's third law: fb[j] = -sum_i tile[i][j], summed over i in order
-    for (int j = c0 + threadIdx.x; j < c1; j += blockDim.x) {
-      T sx = zero, sy = zero, sz = zero;
-      for (int i = 0; i < K; ++i) {
-        const T* t = tile + 3 * (J * i + (j - c0));
-        sx += t[0];
-        sy += t[1];
-        sz += t[2];
-      }
-      T* out = fb + (n * K + j) * 3;
-      out[0] = -sx;
-      out[1] = -sy;
-      out[2] = -sz;
+    if (in_j) {
+      fbn[3 * j + 0] = -bx;
+      fbn[3 * j + 1] = -by;
+      fbn[3 * j + 2] = -bz;
     }
-    __syncthreads();   // the next chunk overwrites the tile
   }
-  for (int s = threadIdx.x; s < 3 * K; s += blockDim.x)
-    fa[n * K * 3 + s] = sfa[s];
-  spe[threadIdx.x] = pe_acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T p = zero;
-    for (int t = 0; t < static_cast<int>(blockDim.x); ++t) p += spe[t];
-    pe[n] = p;
+  // fa rows no batch wrote: zeros
+  const int i_cov =
+      first ? 0 : min((i_end + kBatch - 1) / kBatch * kBatch, K);
+  if (live) {
+    for (int s = 3 * i_cov + lg; s < 3 * K; s += W) fan[s] = zero;
   }
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1)
+    pe_acc += __shfl_xor_sync(kFull, pe_acc, off);
+  if (live && lg == 0) pe[n] = pe_acc;
+}
+
+template <typename T, int W>
+cudaError_t launch_pairs(const void* a, const void* b, const void* ta,
+                         const void* tb, const void* same, const void* cnt_a,
+                         const void* cnt_b, const void* eps_t,
+                         const void* sig_t, int n_types, double r_cut2,
+                         double k_rf, double c_rf, int64_t N, int64_t K,
+                         void* fa, void* fb, void* pe, int64_t smem,
+                         cudaStream_t stream) {
+  constexpr int64_t per_block = kPairWarps * (32 / W);
+  const int64_t blocks = (N + per_block - 1) / per_block;
+  if (smem > 48 * 1024) {      // only a force field of many types
+    cudaError_t e = cudaFuncSetAttribute(
+        pair_forces_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  pair_forces_kernel<T, W><<<static_cast<unsigned>(blocks), 32 * kPairWarps,
+                             static_cast<size_t>(smem), stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const int32_t*>(ta), static_cast<const int32_t*>(tb),
+      static_cast<const int32_t*>(same), static_cast<const int32_t*>(cnt_a),
+      static_cast<const int32_t*>(cnt_b), static_cast<const T*>(eps_t),
+      static_cast<const T*>(sig_t), n_types, static_cast<T>(r_cut2),
+      static_cast<T>(k_rf), static_cast<T>(c_rf), N, static_cast<int>(K),
+      static_cast<T*>(fa), static_cast<T*>(fb), static_cast<T*>(pe));
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -209,83 +346,114 @@ int launch_pair_forces(const void* a, const void* b, const void* ta,
                        const void* sig_t, int n_types, double r_cut2,
                        double k_rf, double c_rf, int64_t N, int64_t K,
                        void* fa, void* fb, void* pe, void* stream) {
-  if (N < 1 || N > 2147483647 || K < 1 || n_types < 1 ||
-      (cnt_a == nullptr) != (cnt_b == nullptr))
+  if (N < 1 || N > 2147483647 || K < 1 || K > 2147483647 || n_types < 1 ||
+      (cnt_a == nullptr) != (cnt_b == nullptr) || !aligned16(a) ||
+      !aligned16(b))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = pair_threads(K);
-  const int64_t J = pair_chunk<T>(K, threads);
-  const int64_t smem = 3 * K * J * static_cast<int64_t>(sizeof(T)) +
-                       pair_fixed_smem<T>(K, threads);
+  const int64_t smem = static_cast<int64_t>(n_types) * n_types *
+                       static_cast<int64_t>(sizeof(TypePair<T>));
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {      // only a cell too deep for one column
-    cudaError_t e = cudaFuncSetAttribute(
-        pair_forces_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  pair_forces_kernel<T><<<static_cast<unsigned>(N), threads,
-                          static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const int32_t*>(ta), static_cast<const int32_t*>(tb),
-      static_cast<const int32_t*>(same), static_cast<const int32_t*>(cnt_a),
-      static_cast<const int32_t*>(cnt_b), static_cast<const T*>(eps_t),
-      static_cast<const T*>(sig_t), n_types, static_cast<T>(r_cut2),
-      static_cast<T>(k_rf), static_cast<T>(c_rf), static_cast<int>(K),
-      static_cast<int>(J), static_cast<T*>(fa), static_cast<T*>(fb),
-      static_cast<T*>(pe));
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = K > 16  ? &launch_pairs<T, 32>
+                : K > 8 ? &launch_pairs<T, 16>
+                        : &launch_pairs<T, 8>;
+  return static_cast<int>(launch(a, b, ta, tb, same, cnt_a, cnt_b, eps_t,
+                                 sig_t, n_types, r_cut2, k_rf, c_rf, N, K,
+                                 fa, fb, pe, smem, s));
 }
 
 // ---- scatter_accum: out[c] = sum of c's entries, in worklist order ----------
 
-template <typename T>
-__global__ void scatter_accum_kernel(const int32_t* __restrict__ order,
-                                     const int32_t* __restrict__ start,
-                                     const T* __restrict__ fa,
-                                     const T* __restrict__ fb,
-                                     int64_t n_cells, int64_t row_len,
-                                     int64_t n_entries, T* __restrict__ out) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  // an index whose segments do not cover all 2N entries came from a cell
-  // id outside [0, n_cells): a fault of the caller (the plain form raises)
-  if (t == 0 && (start[0] != 0 || start[n_cells] != n_entries)) __trap();
-  if (t >= n_cells * row_len) return;
-  const int64_t cell = t / row_len;
-  const int64_t r = t - cell * row_len;     // slot * 3 + component
-  T acc = T(0);
-  const int32_t end = start[cell + 1];
-  for (int32_t p = start[cell]; p < end; ++p) {
-    const int32_t e = order[p];
-    const T* src = (e & 1) ? fb : fa;
-    acc = acc + src[static_cast<int64_t>(e >> 1) * row_len + r];
-  }
-  out[t] = acc;
+constexpr int kScatterWarps = 8;   // cells a block
+constexpr int kAhead = 4;          // entries whose loads are in flight at once
+
+__device__ __forceinline__ float vadd(float x, float y) { return x + y; }
+__device__ __forceinline__ double vadd(double x, double y) { return x + y; }
+__device__ __forceinline__ float4 vadd(float4 x, float4 y) {
+  return make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+}
+__device__ __forceinline__ double2 vadd(double2 x, double2 y) {
+  return make_double2(x.x + y.x, x.y + y.y);
 }
 
-template <typename T>
+// V is the word a lane moves: float4 / double2, or the element itself.
+template <typename V>
+__global__ void __launch_bounds__(32 * kScatterWarps) scatter_accum_kernel(
+    const int32_t* __restrict__ order, const int32_t* __restrict__ start,
+    const V* __restrict__ fa, const V* __restrict__ fb, int64_t n_cells,
+    int row_words, int64_t n_entries, V* __restrict__ out) {
+  // an index whose segments do not cover all 2N entries came from a cell
+  // id outside [0, n_cells): a fault of the caller (the plain form raises)
+  if (blockIdx.x == 0 && threadIdx.x == 0 &&
+      (start[0] != 0 || start[n_cells] != n_entries))
+    __trap();
+  const int64_t cell =
+      static_cast<int64_t>(blockIdx.x) * kScatterWarps + threadIdx.x / 32;
+  if (cell >= n_cells) return;   // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.y * 32 + lane;   // a row of many words: more warps
+  const bool in_w = w < row_words;
+  const int32_t p0 = start[cell], p1 = start[cell + 1];
+  V acc = V();   // +0.0
+  for (int32_t q0 = p0; q0 < p1; q0 += 32) {
+    const int m = min(32, p1 - q0);
+    const int32_t mine = lane < m ? order[q0 + lane] : 0;
+    for (int k0 = 0; k0 < m; k0 += kAhead) {
+      V v[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int32_t e = __shfl_sync(kFull, mine, k0 + u);
+        v[u] = V();
+        if (k0 + u < m && in_w)
+          v[u] = __ldg((e & 1 ? fb : fa) +
+                       static_cast<int64_t>(e >> 1) * row_words + w);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        if (k0 + u < m) acc = vadd(acc, v[u]);
+    }
+  }
+  if (in_w) out[cell * row_words + w] = acc;
+}
+
+template <typename V>
+cudaError_t launch_scatter(const void* order, const void* start,
+                           const void* fa, const void* fb, int64_t n_cells,
+                           int64_t row_words, int64_t n_entries, void* out,
+                           cudaStream_t stream) {
+  const int64_t blocks = (n_cells + kScatterWarps - 1) / kScatterWarps;
+  const int64_t chunks = (row_words + 31) / 32;   // 32 words a warp
+  if (blocks > 2147483647 || chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(chunks));
+  scatter_accum_kernel<V><<<grid, 32 * kScatterWarps, 0, stream>>>(
+      static_cast<const int32_t*>(order), static_cast<const int32_t*>(start),
+      static_cast<const V*>(fa), static_cast<const V*>(fb), n_cells,
+      static_cast<int>(row_words), n_entries, static_cast<V*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T, typename V>
 int launch_scatter_accum(const void* order, const void* start,
                          const void* fa, const void* fb, int64_t n_cells,
                          int64_t K, int64_t n_entries, void* out,
                          void* stream) {
   if (n_cells < 1 || K < 1 || n_entries < 2 || n_entries > 2147483647)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = n_cells * K * 3;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
-  scatter_accum_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(order), static_cast<const int32_t*>(start),
-      static_cast<const T*>(fa), static_cast<const T*>(fb), n_cells, K * 3,
-      n_entries, static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t row_bytes = 3 * K * static_cast<int64_t>(sizeof(T));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte words when every row is whole words on a 16-byte boundary
+  if (row_bytes % 16 == 0 && aligned16(fa) && aligned16(fb) &&
+      aligned16(out))
+    return static_cast<int>(launch_scatter<V>(
+        order, start, fa, fb, n_cells, row_bytes / 16, n_entries, out, s));
+  return static_cast<int>(launch_scatter<T>(order, start, fa, fb, n_cells,
+                                            3 * K, n_entries, out, s));
 }
 
 }  // namespace
 
-#define REPRO_NB_ENTRY(SUFFIX, T)                                           \
+#define REPRO_NB_ENTRY(SUFFIX, T, V)                                        \
   extern "C" int nb_pair_forces_##SUFFIX(                                   \
       const void* a, const void* b, const void* ta, const void* tb,         \
       const void* same, const void* cnt_a, const void* cnt_b,               \
@@ -300,9 +468,9 @@ int launch_scatter_accum(const void* order, const void* start,
       const void* order, const void* start, const void* fa, const void* fb, \
       int64_t n_cells, int64_t K, int64_t n_entries, void* out,             \
       void* stream) {                                                       \
-    return launch_scatter_accum<T>(order, start, fa, fb, n_cells, K,        \
-                                   n_entries, out, stream);                 \
+    return launch_scatter_accum<T, V>(order, start, fa, fb, n_cells, K,     \
+                                      n_entries, out, stream);              \
   }
 
-REPRO_NB_ENTRY(f32, float)
-REPRO_NB_ENTRY(f64, double)
+REPRO_NB_ENTRY(f32, float, float4)
+REPRO_NB_ENTRY(f64, double, double2)

@@ -8,12 +8,16 @@ loop.  The CUDA source is ``csrc/nonbonded.cu``; its header says what
 bounds each kernel on an H100 and what the design does about it.
 
 * :func:`pair_forces` — one batch of N cell pairs ``(N, K, 4)`` [x, y, z,
-  q]: forces on both sides and each pair's potential energy.
+  q]: forces on both sides and each pair's potential energy.  On the
+  card a group of lanes serves a pair, one lane per slot of cell B, and
+  walks cell A's slots in order; fb sums in each lane's registers, fa and
+  the energy over the group's lanes in a fixed tree, so the same inputs
+  give the same bits on every run.
 * :func:`scatter_accum` — sums the per-pair forces into their cells in
   worklist order (entry ``2*row + side``: A side first, then B), through
   an ordered cell -> entries index (:func:`scatter_index`), with no
-  atomics: the result is deterministic and bitwise equal to the plain
-  form.
+  atomics: one warp per cell adds its segment's rows in order, so the
+  result is deterministic and bitwise equal to the plain form.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain PyTorch version beside it.  Each wrapper counts its launches in a
@@ -116,16 +120,21 @@ def pair_forces(a, b, ta, tb, same, ff: ForceField, cnt_a=None,
     valid when ``slot < count``; without them when its type is >= 0.
     Returns ``(fa (N, K, 3), fb (N, K, 3), pe (N,))``.
 
-    On the card a block holds one column of the K x K tile at the least,
-    so K is bounded by the block's shared memory (227 KB on an H100):
-    K <= 5,259 in f32 and 2,742 in f64; a deeper cell makes the C entry
-    refuse the launch, which raises here.
+    On the card K has no bound of its own: lanes loop over column chunks
+    of cell B.  A block keeps the force field's T x T type-pair terms in
+    shared memory (227 KB on an H100: T <= 120 in f32, 85 in f64); more
+    types make the C entry refuse the launch, which raises here.  The
+    kernel reads each slot as 16-byte words, so ``a`` and ``b`` must
+    start on a 16-byte boundary (a fresh tensor does).
     """
     N, K = _pair_args(a, b, ta, tb, same, cnt_a, cnt_b)
     if not a.is_cuda:
         if a.is_cpu:
             return pair_forces_plain(a, b, ta, tb, same, ff, cnt_a, cnt_b)
         raise unsupported("pair_forces", a)
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("pair_forces: a, b must start on a 16-byte "
+                         "boundary (the kernel reads 16-byte words)")
     fa = a.new_empty((N, K, 3))
     fb = torch.empty_like(fa)
     pe = a.new_empty((N,))

@@ -614,9 +614,10 @@ def test_cuda_engine_runs_through_the_kernels(cuda_device):
 
 # ---- nonbonded: pair_forces and scatter_accum on the card ------------------
 
-def _nb_batch(rng, N, K, dtype, device):
+def _nb_arrays(rng, N, K, dtype):
     """N cell pairs of up to K atoms on jittered lattices (atoms >= ~0.7
-    apart, pairs across the cutoff), with empty, full and self pairs."""
+    apart, pairs across the cutoff), with empty, full and self pairs, as
+    numpy arrays."""
     site = np.stack(np.meshgrid(np.arange(4), np.arange(6), np.arange(5),
                                 indexing="ij"), -1).reshape(-1, 3)[:K]
 
@@ -625,30 +626,55 @@ def _nb_batch(rng, N, K, dtype, device):
         q = rng.uniform(-0.5, 0.5, (N, K, 1))
         return np.concatenate([pos, q], -1).astype(dtype)
 
-    a, b = cells(np.zeros(3)), cells(np.array([3.4, 0.5, 0.5]))
+    # B one lattice step past A's deepest plane: cross pairs interact
+    a = cells(np.zeros(3))
+    b = cells(np.array([site[:, 0].max() + 1.0, 0.5, 0.5]))
     cnt_a = rng.randint(0, K + 1, N).astype(np.int32)
     cnt_b = rng.randint(0, K + 1, N).astype(np.int32)
     cnt_a[0] = cnt_b[0] = K
-    cnt_a[1] = cnt_b[1] = 0
+    cnt_a[1:2] = cnt_b[1:2] = 0
     same = (rng.uniform(size=N) < 0.2).astype(np.int32)
     b[same > 0], cnt_b[same > 0] = a[same > 0], cnt_a[same > 0]
     slots = np.arange(K)[None, :]
     ta = np.where(slots < cnt_a[:, None], rng.randint(0, 2, (N, K)), -1)
     tb = np.where(slots < cnt_b[:, None], rng.randint(0, 2, (N, K)), -1)
     tb[same > 0] = ta[same > 0]
-    return [torch.from_numpy(x).to(device) for x in
-            (a, b, ta.astype(np.int32), tb.astype(np.int32), same, cnt_a,
-             cnt_b)]
+    return [a, b, ta.astype(np.int32), tb.astype(np.int32), same, cnt_a,
+            cnt_b]
+
+
+def _nb_batch(rng, N, K, dtype, device):
+    return [torch.from_numpy(x).to(device)
+            for x in _nb_arrays(rng, N, K, dtype)]
+
+
+def _assert_pair_forces_close(got, want, dtype):
+    """5e-6 of the force scale in f32, 1e-12 in f64 (summation order and
+    fused multiply-adds differ), PE likewise relative; over the batch
+    fa + fb sums to zero within round-off (Newton's third law), as the
+    plain form's does."""
+    tol = 5e-6 if dtype == np.float32 else 1e-12
+    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
+    assert scale > 0
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) / scale < tol
+    assert float((got[2] - want[2]).abs().max()) / \
+        max(float(want[2].abs().max()), 1e-300) < tol
+    eps = float(np.finfo(dtype).eps)
+    for fa, fb in (got[:2], want[:2]):
+        total = fa.double().sum((0, 1)) + fb.double().sum((0, 1))
+        mass = fa.double().abs().sum() + fb.double().abs().sum()
+        assert float(total.abs().max()) <= 8 * eps * float(mass)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["counts", "types"])
-@pytest.mark.parametrize("K", [8, 12, 28, 40, 120])
+@pytest.mark.parametrize("K", [8, 12, 16, 20, 24, 28, 40, 120])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_cuda_pair_forces_match_plain(cuda_device, dtype, K, mode):
-    """5e-6 of the force scale in f32, 1e-12 in f64 (summation order and
-    fused multiply-adds differ); masked work exactly zero.  K = 120 takes
-    the shared tile in several column chunks."""
+    """To the tolerances of :func:`_assert_pair_forces_close`; masked work
+    exactly zero.  K = 16..28 are the grappa-45k tier depths; K = 40 and
+    120 loop the lanes over several column chunks of cell B."""
     from repro_torch.core.md.system import DEFAULT_FF
     from repro_torch.kernels import nonbonded
 
@@ -660,16 +686,120 @@ def test_cuda_pair_forces_match_plain(cuda_device, dtype, K, mode):
     torch.cuda.synchronize()
     assert nonbonded.pair_forces.launches == n0 + 1
     want = nonbonded.pair_forces_plain(a, b, ta, tb, same, DEFAULT_FF, **kw)
-    tol = 5e-6 if dtype == np.float32 else 1e-12
-    scale = float(torch.maximum(want[0].abs().max(), want[1].abs().max()))
-    for g, w in zip(got[:2], want[:2]):
-        assert float((g - w).abs().max()) / scale < tol
-    assert float((got[2] - want[2]).abs().max()) / \
-        float(want[2].abs().max()) < tol
+    _assert_pair_forces_close(got, want, dtype)
     assert not got[0][1].any() and not got[1][1].any() and got[2][1] == 0
     # the same inputs give the same bits on every run
     again = nonbonded.pair_forces(a, b, ta, tb, same, DEFAULT_FF, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(1, 8), (1, 28), (13, 8), (13, 12),
+                                 (13, 28), (13, 40)])
+@pytest.mark.parametrize("mode", ["counts", "types"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_pair_forces_ragged_batches(cuda_device, dtype, mode, N, K):
+    """N that no block's pairs divide (a block holds 4, 8 or 16 pairs) and
+    N = 1; self pairs of counts 0 and 1; valid slots that are not a prefix
+    (types mode reads only the type, so its holes count)."""
+    from repro_torch.core.md.system import DEFAULT_FF
+    from repro_torch.kernels import nonbonded
+
+    rng = np.random.RandomState(N * K)
+    a, b, ta, tb, same, cnt_a, cnt_b = _nb_arrays(rng, N, K, np.float64)
+    if N > 3:
+        for n, c in ((2, 0), (3, 1)):
+            same[n], cnt_a[n], cnt_b[n], b[n] = 1, c, c, a[n]
+            ta[n] = tb[n] = np.where(np.arange(K) < c, 0, -1)
+    holes = rng.uniform(size=(N, K)) < 0.3
+    ta[holes] = -1
+    tb[holes & (same[:, None] == 0)] = -1
+    tb[same > 0] = ta[same > 0]
+    a, b, ta, tb, same, cnt_a, cnt_b = [
+        torch.from_numpy(x.astype(dtype) if x.dtype == np.float64 else x)
+        .to(cuda_device) for x in (a, b, ta, tb, same, cnt_a, cnt_b)]
+    kw = dict(cnt_a=cnt_a, cnt_b=cnt_b) if mode == "counts" else {}
+    got = nonbonded.pair_forces(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    want = nonbonded.pair_forces_plain(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    torch.cuda.synchronize()
+    _assert_pair_forces_close(got, want, dtype)
+    if N > 3:
+        for n in (2, 3):
+            assert not got[0][n].any() and not got[1][n].any()
+            assert got[2][n] == 0
+    again = nonbonded.pair_forces(a, b, ta, tb, same, DEFAULT_FF, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_pair_forces_refuses_misaligned_slots(cuda_device):
+    """The kernel reads each slot as 16-byte words: a view that starts
+    off a 16-byte boundary raises before any launch."""
+    from repro_torch.core.md.system import DEFAULT_FF
+    from repro_torch.kernels import nonbonded
+
+    a, b, ta, tb, same, cnt_a, cnt_b = _nb_batch(
+        np.random.RandomState(0), 4, 8, np.float32, cuda_device)
+    off = torch.empty(a.numel() + 1, dtype=a.dtype,
+                      device=cuda_device)[1:].view(a.shape)
+    off.copy_(a)
+    n0 = nonbonded.pair_forces.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        nonbonded.pair_forces(off, b, ta, tb, same, DEFAULT_FF)
+    assert nonbonded.pair_forces.launches == n0
+
+
+# segment lengths that bracket the kernel's look-ahead (4 entries' rows in
+# flight) and its 32 entry ids a load, and one long segment
+SEGMENTS = (0, 1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 200)
+
+
+def _segment_case(dtype, K, seed=0):
+    """Cell c of the first len(SEGMENTS) holds SEGMENTS[c] entries, in a
+    shuffled worklist (a last cell evens the entry count); the one-entry
+    cell's row is -0.0, which the sum from +0.0 turns into +0.0."""
+    rng = np.random.RandomState(seed + K)
+    ids = np.concatenate([np.full(n, c) for c, n in enumerate(SEGMENTS)])
+    n_cells = len(SEGMENTS) + 1
+    if len(ids) % 2:
+        ids = np.append(ids, n_cells - 1)
+    rng.shuffle(ids)
+    ca, cb = ids[0::2].astype(np.int32), ids[1::2].astype(np.int32)
+    fa = rng.randn(len(ca), K, 3).astype(dtype)
+    fb = rng.randn(len(ca), K, 3).astype(dtype)
+    one = SEGMENTS.index(1)
+    fa[ca == one], fb[cb == one] = -0.0, -0.0
+    return ca, cb, fa, fb, n_cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [7, 8, 13, 28])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_scatter_accum_segment_lengths_bitwise(cuda_device, dtype, K):
+    """Segments of 0, 1, 3, 4, 5, 7, 8, 9, 31, 32, 33 and 200 entries;
+    K = 7 and 13 take one element a lane (rows that are not whole 16-byte
+    words in f32 and f64), K = 8 and 28 16-byte words; bitwise against the
+    plain form on the card and on the CPU."""
+    from repro_torch.kernels import nonbonded
+
+    ca, cb, fa, fb, n_cells = _segment_case(dtype, K)
+    cpu = nonbonded.scatter_accum_plain(
+        *(torch.from_numpy(x) for x in (ca, cb, fa, fb)), n_cells)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (ca, cb, fa, fb)]
+    n0 = nonbonded.scatter_accum.launches
+    got = nonbonded.scatter_accum(*args, n_cells)
+    torch.cuda.synchronize()
+    assert nonbonded.scatter_accum.launches == n0 + 1
+    assert torch.equal(got, nonbonded.scatter_accum_plain(*args, n_cells))
+    assert got.cpu().numpy().tobytes() == cpu.numpy().tobytes()
+    # the whole sums' bits: -0.0 summed from +0.0 is +0.0, as on the CPU
+    assert not torch.signbit(got[SEGMENTS.index(1)]).any()
+    # a misaligned view takes the one-element path, with the same bits
+    fa2 = torch.empty(fa.size + 1, dtype=args[2].dtype,
+                      device=cuda_device)[1:].view(fa.shape)
+    fa2.copy_(args[2])
+    assert torch.equal(nonbonded.scatter_accum(args[0], args[1], fa2,
+                                               args[3], n_cells), got)
 
 
 @pytest.mark.cuda

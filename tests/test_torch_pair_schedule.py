@@ -312,6 +312,97 @@ def test_scatter_accum_plain_matches_jax_bitwise(dtype):
         assert got.numpy().tobytes() == want.tobytes()
 
 
+def _tier_pair_batch(dtype, K, seed=0, N=7):
+    """N cell pairs of up to K atoms, the grappa-45k tier depths, on a
+    jittered 4 x 6 x 5 lattice (atoms >= ~0.8 apart, pairs across the
+    cutoff): random counts, a full pair and self pairs of counts 0, 1 and
+    a random count."""
+    rng = np.random.RandomState(seed + K)
+    site = np.stack(np.meshgrid(np.arange(4), np.arange(6), np.arange(5),
+                                indexing="ij"), -1).reshape(-1, 3)[:K]
+
+    def cells(shift):
+        pos = site[None] + shift + rng.uniform(-0.1, 0.1, (N, K, 3))
+        q = rng.uniform(-0.5, 0.5, (N, K, 1))
+        return np.concatenate([pos, q], -1).astype(dtype)
+
+    a, b = cells(np.zeros(3)), cells(np.array([1.0, 0.5, 0.5]))
+    cnt_a = rng.randint(0, K + 1, N).astype(np.int32)
+    cnt_b = rng.randint(0, K + 1, N).astype(np.int32)
+    cnt_a[0] = cnt_b[0] = K
+    same = np.zeros(N, np.int32)
+    same[1:4] = 1
+    cnt_a[1], cnt_a[2] = 0, 1
+    b[1:4], cnt_b[1:4] = a[1:4], cnt_a[1:4]
+    slots = np.arange(K)[None, :]
+    ta = np.where(slots < cnt_a[:, None], rng.randint(0, 2, (N, K)), -1)
+    tb = np.where(slots < cnt_b[:, None], rng.randint(0, 2, (N, K)), -1)
+    tb[1:4] = ta[1:4]
+    return dict(a=a, b=b, ta=ta.astype(np.int32), tb=tb.astype(np.int32),
+                same=same, cnt_a=cnt_a, cnt_b=cnt_b)
+
+
+@pytest.mark.parametrize("K", [12, 16, 20, 24, 28])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pair_forces_plain_matches_jax_at_tier_depths(dtype, K):
+    """The plain form against the JAX kernel in interpret mode at the
+    grappa-45k tier depths, with counts and self pairs (counts 0 and 1
+    included), at the reference's tolerance."""
+    batch = _tier_pair_batch(dtype, K)
+    args, kw = _args(batch, "counts", torch.from_numpy)
+    fa, fb, pe = nonbonded.pair_forces_plain(*args, DEFAULT_FF, **kw)
+    with x64(dtype == np.float64):
+        jargs, jkw = _args(batch, "counts", jnp.asarray)
+        jfa, jfb, jpe = (np.asarray(x) for x in jnb.pair_forces(
+            *jargs, DEFAULT_FF, interpret=True, **jkw))
+    tol = FORCE_RTOL[dtype]
+    scale = max(np.abs(jfa).max(), np.abs(jfb).max())
+    assert scale > 0 and np.abs(jpe).max() > 0
+    assert np.abs(fa.numpy() - jfa).max() / scale < tol
+    assert np.abs(fb.numpy() - jfb).max() / scale < tol
+    assert np.abs(pe.numpy() - jpe).max() / np.abs(jpe).max() < tol
+    # self pairs of counts 0 and 1 have no slot pair j > i
+    for n in (1, 2):
+        assert not fa[n].any() and not fb[n].any() and pe[n] == 0
+
+
+# segment lengths that bracket the card kernel's look-ahead (4 entries'
+# rows in flight) and its 32 entry ids a load, and one long segment
+SEGMENTS = (0, 1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 200)
+
+
+def _segment_case(dtype, K, seed=0):
+    """Cell c of the first len(SEGMENTS) holds SEGMENTS[c] entries, in a
+    shuffled worklist (a last cell evens the entry count); the one-entry
+    cell's row is -0.0, which the sum from +0.0 turns into +0.0."""
+    rng = np.random.RandomState(seed + K)
+    ids = np.concatenate([np.full(n, c) for c, n in enumerate(SEGMENTS)])
+    n_cells = len(SEGMENTS) + 1
+    if len(ids) % 2:
+        ids = np.append(ids, n_cells - 1)
+    rng.shuffle(ids)
+    ca, cb = ids[0::2].astype(np.int32), ids[1::2].astype(np.int32)
+    fa = rng.randn(len(ca), K, 3).astype(dtype)
+    fb = rng.randn(len(ca), K, 3).astype(dtype)
+    one = SEGMENTS.index(1)
+    fa[ca == one], fb[cb == one] = -0.0, -0.0
+    return ca, cb, fa, fb, n_cells
+
+
+@pytest.mark.parametrize("K", [7, 8, 13])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_scatter_accum_plain_matches_jax_on_segment_lengths(dtype, K):
+    ca, cb, fa, fb, n_cells = _segment_case(dtype, K)
+    with x64(dtype == np.float64):
+        want = np.asarray(jnb.scatter_accum(
+            jnp.asarray(ca), jnp.asarray(cb), jnp.asarray(fa),
+            jnp.asarray(fb), n_cells, interpret=True))
+    got = nonbonded.scatter_accum_plain(
+        *(torch.from_numpy(x) for x in (ca, cb, fa, fb)), n_cells)
+    assert got.numpy().tobytes() == want.tobytes()
+    assert not np.signbit(want[SEGMENTS.index(1)]).any()
+
+
 def test_pair_forces_accum_is_pair_forces_then_scatter():
     args, kw = _args(_pair_batch(np.float32), "counts", torch.from_numpy)
     N = args[0].shape[0]
