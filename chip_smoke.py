@@ -2,9 +2,10 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pruned-kernels CHECKOUT   # phase 7 alone, on
-        # the pruned kernels of another checkout (a parent commit unpacked
-        # with git archive), measured as below; prints no result lines
+    python3 chip_smoke.py --kernels CHECKOUT   # phase 7, phase 10 and
+        # phase 15's kernel part alone, on the kernels of another checkout
+        # (a parent commit unpacked with git archive), measured as below;
+        # prints no result lines
 
 Phases, each asserting (any failure exits non-zero with no result line):
 
@@ -66,8 +67,14 @@ Phases, each asserting (any failure exits non-zero with no result line):
     forward shapes of widths (2,2,2) / pulses (2,2,2), f32 and int32, and
     a crafted map whose second pulse forwards rows of the first and has
     padding, 1,000 launches back to back; all bitwise against the plain
-    forms, with every arrival word equal to its chunk count; timed beside
-    the plain form, the library yardstick and the byte bound;
+    forms, with every arrival word equal to its chunk count; each
+    put_signal shape also 200 launches back to back, the payload and
+    every arrival word checked on the device after each, and exactly one
+    kernel node and one memset node a launch in a CUDA graph capture, in
+    both forms (the wire form as float32 -> bfloat16 at the f32 shapes);
+    timed beside the plain form, the library yardstick and the byte
+    bound, with each shape's device us per launch (torch.profiler) and
+    its share of the bound, and one step's launches summed;
 11. the signal main path: grappa-45k, 2x2x2, f32, ``simulate(40)`` with
     ``HaloSpec(backend="signal")`` and ``pipeline="double_buffer"`` at
     depths 2, 3, 4 and depth 2 with ``overlap_rebin``; widths (2,2,2) /
@@ -102,9 +109,13 @@ Phases, each asserting (any failure exits non-zero with no result line):
     the converting ``pack`` (B1w) and ``put_signal`` (B3w) at every
     forward launch shape of the f64 pallas / signal paths (f64 rows to
     f32), bitwise against their plain forms, timed beside the plain form,
-    ``index_select`` + ``.to`` (+ ``roll``) and the byte bound; every other
+    ``index_select`` + ``.to`` (+ ``roll``) and the byte bound, with the
+    device us per launch and its share of the bound (B3w: one kernel node
+    and one memset node a launch in a graph capture); every other
     conversion (f64 -> bf16 / f16, f32 -> bf16 / f16) on a crafted
-    near-tie tensor, with ``1 + 2**-11 + 2**-40`` -> float16 rounded once;
+    near-tie tensor at row widths 160, 10 and 6 (16-byte, 8-byte and
+    element wire words), with ``1 + 2**-11 + 2**-40`` -> float16 rounded
+    once;
     ``simulate(40)`` for each of None, float32, bfloat16, float16 and
     int8_ef through pallas / off, signal / double_buffer depth 2 and
     serialized / off (pruned forces), every counter zeroed just before
@@ -121,6 +132,7 @@ Phases, each asserting (any failure exits non-zero with no result line):
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import itertools
 import json
 import math
 import subprocess
@@ -248,29 +260,33 @@ def host_us(fn, n: int = 1000, warmup: int = 20) -> float:
     return us
 
 
-def device_us(fn, kernel: str, n: int = 50, tries: int = 5):
+def device_us(fn, kernel: str, n: int = 50, tries: int = 8):
     """torch.profiler over ``n`` calls of ``fn``, each of which launches
-    the kernel named ``kernel`` once: the device us of one launch, or
-    None when no session is whole.  A session that shows fewer than
-    ``n`` of those launches lost events (CUPTI drops a whole session now
-    and then, and in one run three in a row) and is taken again.  Each
-    session makes one call more than it needs: after a long session
-    (phase 6's dense block) CUPTI drops the last launch of every later
-    one; the mean is over the launches it recorded."""
+    the kernel named ``kernel`` once: the mean device us of the launches a
+    session recorded, or None when no session recorded half of them.
+    CUPTI loses launches now and then: a whole session, or, once a long
+    session has run (phase 6's dense block, phase 14's serving waves),
+    launches of later sessions, the last ones first.  So each session
+    ends with ``n`` small launches of another kernel, which take the lost
+    tail, and a session that recorded fewer than ``n / 2`` of the
+    kernel's launches is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
+    tail = torch.zeros((1,), device="cuda")
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n + 1):
+            for _ in range(n):
                 fn()
+            for _ in range(n):
+                tail.add_(1.0)
             torch.cuda.synchronize()
         mine = [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and kernel in e.name]
-        if len(mine) >= n:
+        if 2 * len(mine) >= n:
             return sum(e.time_range.elapsed_us() for e in mine) / len(mine)
     return None
 
@@ -314,6 +330,39 @@ def graph_ops(fn, n: int = 10) -> dict:
     del g
     torch.cuda.synchronize()
     return {k: v / n for k, v in kinds.items()}
+
+
+def device_txt(d, bound_us, ops=None):
+    """A launch's device us, its share of the bound and, where given,
+    its device operations (phases 7, 10, 15)."""
+    if d is None:
+        return "device not measured (no profiler session held half the launches)"
+    txt = f"device {d:.3f} us/launch ({bound_us / d:.4f} of the bound)"
+    if ops is not None:
+        txt += ", " + " + ".join(f"{v:g} {k}" for k, v in
+                                 sorted(ops.items())) + " op/launch"
+    return txt
+
+
+def step_device_lines(acc, label="one step"):
+    """One step's launches of each kernel (phases 7, 10, 15): events,
+    the library call where there is one and device time beside the bound;
+    the summed ``device_us`` becomes ``device_us_per_launch``, the mean
+    (None where a shape's sessions were lost)."""
+    for name, a in acc.items():
+        n, nd = a.pop("launches"), a.pop("device_n")
+        whole = nd == n and n > 0
+        d_txt = (f"device {a['device_us'] / n:.3f} us/launch, "
+                 f"{a['device_us'] / 1e3:.6f} ms "
+                 f"({a['bound_ms'] * 1e3 / a['device_us']:.4f} of the "
+                 "bound)") if whole else "device not measured"
+        a["device_us_per_launch"] = a.pop("device_us") / n if whole \
+            else None
+        lib = "" if a["library_ms"] is None else \
+            f", library {a['library_ms']:.6f} ms"
+        print(f"  {name} {label} ({n} launches): events {a['ms']:.6f} ms "
+              f"({a['bound_ms'] / a['ms']:.4f} of the bound){lib}, bound "
+              f"{a['bound_ms']:.6f} ms; {d_txt}")
 
 
 def stream_readers():
@@ -872,32 +921,25 @@ def nb_kernel_phase(system):
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"pair_forces {tag}: a second run gives other bits")
-        dev = {}
+        dev, ops = {}, []
         for name, fn in (
                 ("pair_forces", lambda: nb.pair_forces(*args, **kw)),
                 ("scatter_accum", lambda: nb.scatter_accum(
                     t.cell_a, t.cell_b, fa, fb, n_cells, index=t.index))):
-            ops = graph_ops(fn)
-            check(ops == {"kernel": 1.0}, f"{name} {tag}: device operations "
-                  f"a launch {ops}, expected its one kernel")
+            ops.append(graph_ops(fn))
+            check(ops[-1] == {"kernel": 1.0}, f"{name} {tag}: device "
+                  f"operations a launch {ops[-1]}, expected its one kernel")
             dev[name] = device_us(fn, f"{name}_kernel")
-        bound_us = {"pair_forces": pf_bound * 1e3,
-                    "scatter_accum": sa_bound * 1e3}
-
-        def device_txt(name):
-            d = dev[name]
-            if d is None:
-                return "device not measured (no whole profiler session)"
-            return (f"device {d:.3f} us/launch ({bound_us[name] / d:.4f} "
-                    "of the bound), 1 op/launch")
         print(f"  pair_forces   {tag:22s} kernel {t_pf:.6f} plain "
               f"{t_pf_plain:.6f} bound {pf_bound:.6f} ({pf_bytes} B, "
               f"{pf_ops} ops: {valid} valid, {inter} interacting slot "
               f"pairs) force err {ferr / scale:.3e} of {scale:.4g}, PE err "
-              f"{perr:.3e}, run to run bitwise; {device_txt('pair_forces')}")
+              f"{perr:.3e}, run to run bitwise; "
+              f"{device_txt(dev['pair_forces'], pf_bound * 1e3, ops[0])}")
         print(f"  scatter_accum {tag:22s} kernel {t_sa:.6f} plain "
               f"{t_sa_plain:.6f} library {t_lib:.6f} bound {sa_bound:.6f} "
-              f"({sa_bytes} B) bitwise; {device_txt('scatter_accum')}")
+              f"({sa_bytes} B) bitwise; "
+              f"{device_txt(dev['scatter_accum'], sa_bound * 1e3, ops[1])}")
         acc["pair_forces"]["max_abs_err"] = max(
             acc["pair_forces"]["max_abs_err"], ferr)
         if f64:
@@ -917,16 +959,7 @@ def nb_kernel_phase(system):
                                "bytes", "ops"), vals):
                 if v is not None:
                     a_[key] += v
-    for name, a_ in acc.items():
-        n, nd = a_["launches"], a_["device_n"]
-        lib = "" if a_["library_ms"] is None else \
-            f", library {a_['library_ms']:.6f} ms"
-        d_txt = "device not measured" if nd < n else (
-            f"device {a_['device_us'] / 1e3:.6f} ms "
-            f"({a_['bound_ms'] * 1e3 / a_['device_us']:.4f} of the bound)")
-        print(f"  {name} one f32 step ({n} tier launches): events "
-              f"{a_['ms']:.6f} ms ({a_['bound_ms'] / a_['ms']:.4f} of the "
-              f"bound){lib}, bound {a_['bound_ms']:.6f} ms; {d_txt}")
+    step_device_lines(acc, "one f32 step")
     return acc
 
 
@@ -1214,7 +1247,12 @@ def signal_bytes(kernel, args):
         maps.numel() * 4
 
 
-def signal_kernel_phase(system, n_repeat: int = 1000):
+# a put_signal launch, either form: its memset of the words, then its kernel
+PUT_SIGNAL_OPS = {"kernel": 1.0, "memset": 1.0}
+
+
+def signal_kernel_phase(system, n_repeat: int = 1000,
+                        n_put_repeat: int = 200):
     import torch
     from repro_torch.kernels import halo_pack
 
@@ -1224,7 +1262,8 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
             "fused_pulses": halo_pack.fused_pulses}
     acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "library_ms": 0.0 if k == "put_signal" else None,
-               "bound_ms": 0.0, "bytes": 0, "ops": 0} for k in kern}
+               "bound_ms": 0.0, "bytes": 0, "ops": 0, "device_us": 0.0,
+               "device_n": 0, "launches": 0} for k in kern}
 
     def words_ok(kernel, args):
         n_dom = args[0].shape[0]
@@ -1252,7 +1291,11 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
     dev = cases[0][2][0].device
     words = torch.empty((8 * 2 + 1,), dtype=torch.int32, device=dev)
     print(f"signal kernel phase: {len(cases)} launch shapes (ms per launch; "
-          "bound = bytes / 3.35 TB/s)")
+          "bound = bytes / 3.35 TB/s; device us per launch from "
+          "torch.profiler over 50, its share of the bound = bound / device "
+          "time; put_signal: device operations per launch from a CUDA graph "
+          f"of 10 calls, both forms, and {n_put_repeat} launches back to "
+          "back, each checked)")
     for kernel, tag, args in cases:
         got = run(kernel, args)
         want = plain[kernel](*args)
@@ -1262,6 +1305,31 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
         err = float((got.double() - want.double()).abs().max())
         check(words_ok(kernel, args), f"{kernel} {tag}: arrival words "
               f"{words.tolist()} do not equal the chunk counts")
+        ops = None
+        if kernel == "put_signal":
+            # the release, launch after launch: the payload and every
+            # arrival word checked on the device after each launch
+            n_dom, M = args[0].shape[0], args[1].shape[0]
+            bad = torch.zeros((), dtype=torch.int64, device=dev)
+            bad_words = torch.zeros_like(bad)
+            for _ in range(n_put_repeat):
+                bad += (run(kernel, args) != want).sum()
+                bad_words += (words[:n_dom] != M).sum()
+            torch.cuda.synchronize()
+            check(int(bad) == 0 and int(bad_words) == 0,
+                  f"put_signal {tag}: {int(bad)} elements and "
+                  f"{int(bad_words)} arrival words wrong over "
+                  f"{n_put_repeat} launches")
+            ops = graph_ops(lambda: run(kernel, args))
+            check(ops == PUT_SIGNAL_OPS, f"put_signal {tag}: device "
+                  f"operations a launch {ops}, expected {PUT_SIGNAL_OPS}")
+            if args[0].dtype == torch.float32:
+                w_ops = graph_ops(lambda: halo_pack.put_signal(
+                    *args, signal=words, wire_dtype="bfloat16"))
+                check(w_ops == PUT_SIGNAL_OPS, f"put_signal {tag} (wire "
+                      f"bfloat16): device operations a launch {w_ops}, "
+                      f"expected {PUT_SIGNAL_OPS}")
+        d_us = device_us(lambda: run(kernel, args), f"{kernel}_kernel")
         t_k = cuda_ms(lambda: run(kernel, args))
         t_p = cuda_ms(lambda: plain[kernel](*args))
         t_l = None
@@ -1277,7 +1345,8 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
         print(f"  {kernel:12s} {tag:22s} [{shapes}] kernel {t_k:.6f} "
               f"plain {t_p:.6f} library "
               f"{'none' if t_l is None else f'{t_l:.6f}'} bound "
-              f"{bound:.6f} bytes {nbytes} err {err}")
+              f"{bound:.6f} bytes {nbytes} err {err}; "
+              f"{device_txt(d_us, bound * 1e3, ops)}")
         a = acc[kernel]
         a["max_abs_err"] = max(a["max_abs_err"], err)
         # one step's f32 launches: put_signal 3 fwd + 3 rev on the width-1
@@ -1290,6 +1359,10 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
                 a[key] += v
             if a["library_ms"] is not None:
                 a["library_ms"] += t_l
+            a["launches"] += 1
+            if d_us is not None:
+                a["device_us"] += d_us
+                a["device_n"] += 1
     # the crafted dependent case, back to back
     args = crafted_dependent(cases)
     want = halo_pack.fused_pulses_plain(*args)
@@ -1318,6 +1391,7 @@ def signal_kernel_phase(system, n_repeat: int = 1000):
           f" map, {int((args[1][1] >= args[2]).sum())} forwarded, "
           f"{int((args[1][1] < 0).sum())} padded entries]: {n_repeat} "
           f"launches bitwise, words right; {t_dep:.6f} ms per launch")
+    step_device_lines(acc)
     return acc
 
 
@@ -1884,7 +1958,8 @@ def wire_kernel_phase(system):
     from repro_torch.kernels import halo_pack
 
     acc = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0, "ops": 0}
+               "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0, "ops": 0,
+               "device_us": 0.0, "device_n": 0, "launches": 0}
            for k in WIRE_KERNELS}
     cases = wire_cases(system)
     dev = cases[0][2][0].device
@@ -1915,7 +1990,10 @@ def wire_kernel_phase(system):
 
     print("wire kernel phase: B1w / B3w at the grappa-45k f64 forward "
           "launch shapes, f64 rows to f32 (ms per launch; bound = f64 rows "
-          "read + f32 rows written + the map, / 3.35 TB/s)")
+          "read + f32 rows written + the map, / 3.35 TB/s; device us per "
+          "launch from torch.profiler over 50, its share of the bound = "
+          "bound / device time; B3w: device operations per launch from a "
+          "CUDA graph of 10 calls)")
     for kernel, tag, args, _kw in cases:
         got = kern(kernel, args, "float32")
         want = plain(kernel, args, "float32")
@@ -1931,24 +2009,41 @@ def wire_kernel_phase(system):
         M = args[1].shape[0]
         nbytes = n_dom * M * F * (8 + 4) + M * 4
         bound = nbytes / HBM_BPS * 1e3
+        ops = None
+        if kernel == "put_signal":
+            ops = graph_ops(lambda: kern(kernel, args, "float32"))
+            check(ops == PUT_SIGNAL_OPS, f"put_signal {tag} (wire): device "
+                  f"operations a launch {ops}, expected {PUT_SIGNAL_OPS}")
+        name = "pack_convert_kernel" if kernel == "pack" else \
+            "put_signal_convert_kernel"
+        d_us = device_us(lambda: kern(kernel, args, "float32"), name)
         t_k = cuda_ms(lambda: kern(kernel, args, "float32"))
         t_p = cuda_ms(lambda: plain(kernel, args, "float32"))
         t_l = cuda_ms(lib)
         print(f"  {kernel:10s} {tag:10s} [{'x'.join(map(str, args[0].shape))}"
               f" M {M}] kernel {t_k:.6f} plain {t_p:.6f} library {t_l:.6f} "
-              f"bound {bound:.6f} bytes {nbytes} err {err}")
+              f"bound {bound:.6f} bytes {nbytes} err {err}; "
+              f"{device_txt(d_us, bound * 1e3, ops)}")
         a = acc[kernel]
         a["max_abs_err"] = max(a["max_abs_err"], err)
         for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                        ("bound_ms", bound), ("bytes", nbytes)):
             a[key] += v
+        a["launches"] += 1
+        if d_us is not None:
+            a["device_us"] += d_us
+            a["device_n"] += 1
+    step_device_lines(acc)
 
-    # every conversion, on values at and beside the ties
+    # every conversion, on values at and beside the ties, at row widths
+    # divisible by 8, by 2 only and by 2 but not 4 (16-, 8-byte and
+    # element words of the 16-bit wires)
     n_ok = 0
-    for sdt, wd in ((np.float64, "float32"), (np.float64, "bfloat16"),
-                    (np.float64, "float16"), (np.float32, "bfloat16"),
-                    (np.float32, "float16")):
-        src = tie_tensor((8, 64, 160), sdt, dev)
+    for (sdt, wd), f in itertools.product(
+            ((np.float64, "float32"), (np.float64, "bfloat16"),
+             (np.float64, "float16"), (np.float32, "bfloat16"),
+             (np.float32, "float16")), (160, 10, 6)):
+        src = tie_tensor((8, 64, f), sdt, dev)
         idx = torch.arange(48, dtype=torch.int32, device=dev) * 5 % 64
         idx[7::9] = -1
         for kernel, args in (("pack", (src, idx)),
@@ -1957,14 +2052,15 @@ def wire_kernel_phase(system):
             got = kern(kernel, args, wd)
             torch.cuda.synchronize()
             check(same_bits(got, plain(kernel, args, wd)),
-                  f"{kernel} {np.dtype(sdt).name} -> {wd}: kernel differs "
-                  "from its plain form on the near-tie tensor")
+                  f"{kernel} {np.dtype(sdt).name} -> {wd}, F {f}: kernel "
+                  "differs from its plain form on the near-tie tensor")
             n_ok += 1
         if (np.dtype(sdt).name, wd) == ("float64", "float16"):
             v = float(halo_pack.pack(src, idx, wire_dtype=wd)[0, 0, 0])
             check(v == 1.0009765625, f"f64 -> f16 of 1 + 2**-11 + 2**-40 "
                   f"gave {v}, not the single rounding 1.0009765625")
-    print(f"  near-tie tensor (8x64x160, padded map, NaN / Inf / signed "
+    print(f"  near-tie tensor (8x64xF, F 160 / 10 / 6, padded map, NaN / "
+          f"Inf / signed "
           f"zeros): {n_ok} launches over f64 -> f32 / bf16 / f16 and f32 -> "
           "bf16 / f16, bitwise equal to the plain forms; f64 -> f16 of "
           "1 + 2**-11 + 2**-40 = 1.0009765625 (one rounding)")
@@ -2152,8 +2248,8 @@ def wire_speed(system, rounds: int = 5):
 
 def main():
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] != "--pruned-kernels"):
-        fail("usage: chip_smoke.py [--pruned-kernels CHECKOUT]")
+    if args and (len(args) != 2 or args[0] != "--kernels"):
+        fail("usage: chip_smoke.py [--kernels CHECKOUT]")
     src = Path(args[1]).resolve() / "src" if args else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -2173,12 +2269,18 @@ def main():
           f"{kind}")
 
     if args:
-        # phase 7 alone on another checkout's pruned kernels, measured as
-        # this script measures its own (a same-call comparison of commits)
+        # phase 7, phase 10 and phase 15's kernel part alone on another
+        # checkout's kernels, measured as this script measures its own (a
+        # same-call comparison of commits)
+        import numpy as np
         from repro_torch import make_grappa_like
         from repro_torch.kernels import _build
-        _build.build(["nonbonded"])
-        nb_kernel_phase(make_grappa_like(45_000, seed=0))
+        _build.build(["halo_pack", "halo_signal", "nonbonded"])
+        system = make_grappa_like(45_000, seed=0)
+        nb_kernel_phase(system)
+        signal_kernel_phase(system)
+        wire_kernel_phase(make_grappa_like(45_000, seed=0,
+                                           dtype=np.float64))
         print(card)
         return
 
@@ -2285,7 +2387,11 @@ def main():
     designs = {"pair_forces": "a lane group per cell pair, fb in "
                               "registers, fa reduce-scattered, no shared tile",
                "scatter_accum": "a warp per cell, 16-byte words, 4 entries' "
-                                "loads in flight"}
+                                "loads in flight",
+               "put_signal": "a flat 16-byte word grid over the launch, the "
+                             "last arriver releases each destination",
+               "put_signal_wire": "the same grid, N elements a thread into "
+                                  "one 16-byte wire word"}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
                       **flash_kernel,
@@ -2300,6 +2406,8 @@ def main():
             "max_abs_err": acc["max_abs_err"], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": bound_by, "library_ms": acc["library_ms"],
+            **({"device_us_per_launch": acc["device_us_per_launch"]}
+               if "device_us_per_launch" in acc else {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "

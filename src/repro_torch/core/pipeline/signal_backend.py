@@ -20,8 +20,9 @@ On a CUDA block the kernels run or raise; on a CPU block their plain
 forms run (the reference's jnp oracle with the kernels' semantics).  The
 port has no fallback latch.  Index maps are static per local shape and
 cached on the plan, as are the signal words (one int32 per (domain,
-pulse) plus the ticket of ``fused_pulses``; every launch resets the words
-it uses on the stream, so one set serves every launch of the plan).
+pulse) plus the ticket of ``fused_pulses``, and at least ``put_signal``'s
+two per domain; every launch resets the words it uses on the stream, so
+one set serves every launch of the plan).
 
 Like the other backends this one ships one hop per pulse, so halo widths
 must not exceed the local block (``w <= n``); multi-pulse splits of such
@@ -50,14 +51,16 @@ class SignalBackend(PallasBackend):
 
     def _words(self, plan) -> torch.Tensor:
         """The plan's signal words: one per (domain, pulse of the longest
-        dim) plus the ticket of ``fused_pulses``; allocated once."""
+        dim) plus the ticket of ``fused_pulses``, and at least two per
+        domain, ``put_signal``'s arrival words and counters; allocated
+        once."""
         words = plan._index_maps.get(("signal_words",))
         if words is None:
             n_pulses = max(len(plan.sched.dim_pulses(d))
                            for d in range(plan.spec.ndim))
-            words = torch.zeros(
-                (math.prod(plan.axis_sizes) * n_pulses + 1,),
-                dtype=torch.int32, device=plan.device)
+            n_dom = math.prod(plan.axis_sizes)
+            words = torch.zeros((max(n_dom * n_pulses + 1, 2 * n_dom),),
+                                dtype=torch.int32, device=plan.device)
             plan._index_maps[("signal_words",)] = words
         return words
 

@@ -45,41 +45,18 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "flat_grid.cuh"
 #include "wire_conv.cuh"
 
 #include <cstdint>
-#include <initializer_list>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // N elements of T moved as one word of N * sizeof(T) bytes
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Lanes {
   T v[N];
 };
-
-// the widest word (16, 8 or the element's bytes) that divides the row and
-// every base pointer
-int word_bytes(int64_t row_bytes, int elem,
-               std::initializer_list<const void*> bases) {
-  for (int w = 16; w > elem; w /= 2) {
-    bool ok = row_bytes % w == 0;
-    for (const void* p : bases)
-      ok = ok && (reinterpret_cast<uintptr_t>(p) % w) == 0;
-    if (ok) return w;
-  }
-  return elem;
-}
-
-// 32-bit index arithmetic covers a launch whose largest array holds
-// `words` words, with room for the last block's overhang
-bool fits_32(int64_t words) { return words + kThreads < 2147483647; }
-
-unsigned flat_blocks(int64_t words) {
-  return static_cast<unsigned>((words + kThreads - 1) / kThreads);
-}
 
 // ---- pack: out[b, m, :] = idx[m] >= 0 ? src[b, idx[m], :] : 0 ------------
 //

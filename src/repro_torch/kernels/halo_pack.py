@@ -305,12 +305,16 @@ def put_signal(src: torch.Tensor, index_map: torch.Tensor,
 
     ``src`` (n_dom, R, F) f32 / f64 / int32, domains row-major over
     ``mesh_shape``; ``index_map`` (M,) int32, entries in ``[-1, R)``; an
-    entry ``>= R`` raises here and traps the kernel on the card.  On the
-    card each row is one chunk and raises its receiver's arrival word in
-    ``signal`` (int32, >= n_dom words, reset by the launch; fresh ones
-    when None), so afterwards ``signal[:n_dom]`` all equal M.  With
-    ``wire_dtype`` the put and the receive buffer are wire-dtyped (the
-    receiver casts back).
+    entry ``>= R`` raises here and traps the kernel on the card.
+    ``signal`` (int32, at least ``2 * n_dom`` words, ValueError
+    otherwise; fresh ones when None) holds each receiver's arrival word,
+    then a counter per receiver; the launch resets both.  On the card a
+    receiver's arrival word is raised by M once all of its M rows are
+    stored, so afterwards ``signal[:n_dom]`` all equal M, and
+    ``signal[n_dom:2 * n_dom]`` hold the words the kernel stored for each
+    receiver (M times the row's words at the width the launch chose);
+    words past ``2 * n_dom`` are not touched.  With ``wire_dtype`` the
+    put and the receive buffer are wire-dtyped (the receiver casts back).
     """
     dev = src.get_device()
     check("src", src, 3, dev, _SUFFIX)
@@ -318,6 +322,7 @@ def put_signal(src: torch.Tensor, index_map: torch.Tensor,
     wire = _wire_dtype(src, wire_dtype)
     n_dom, R, F = src.shape
     ring, inner = _ring(mesh_shape, axis, n_dom)
+    words = _words(signal, 2 * n_dom, src)
     if not src.is_cuda:
         if src.is_cpu:
             return put_signal_plain(src, index_map, mesh_shape, axis, shift,
@@ -328,7 +333,6 @@ def put_signal(src: torch.Tensor, index_map: torch.Tensor,
         src.new_empty((n_dom, M, F), dtype=wire)
     if not (n_dom and M and F):
         return out
-    words = _words(signal, n_dom, src)
     fn = _PUT_SIGNAL[src.element_size() if wire is None else (src.dtype,
                                                               wire)]
     rc = fn(src.data_ptr(), index_map.data_ptr(), out.data_ptr(),

@@ -263,6 +263,9 @@ def test_cpu_path_launches_no_kernel():
 
 RING, N_LOCAL, RING_F = 4, 6, 3
 PUT_MAPS = {"plain": [0, 1, 4], "padded": [-1, 5, 2, -1, 0]}
+# one wide row (M = 1), the forward z pulse's kind: on the card the flat
+# grid splits it over several blocks
+WIDE_ROWS, WIDE_F, WIDE_MAP = 2, 7840, [1]
 # (n_pulses, M) maps: entries >= N_LOCAL forward rows of the previous
 # pulse's receive buffer; "dep2" is the map of check_kernel_halo.py
 FUSED_MAPS = {
@@ -283,6 +286,7 @@ from repro.compat import shard_map_norep
 from repro.kernels import halo_pack
 from repro.launch.mesh import make_mesh
 put_maps, fused_maps = eval(sys.argv[2]), eval(sys.argv[3])
+wide_rows, wide_f, wide_map = eval(sys.argv[4])
 RING, N_LOCAL, F = 4, 6, 3
 # an int32 ring size: under x64 a Python int would make the kernels'
 # lax.rem(int32 axis index, int64) refuse to trace
@@ -324,6 +328,24 @@ for dt in ("float32", "float64"):
                     lo, idx, axis="z", ring=ring, shift=np.int32(shift),
                     wire_dtype=wire)).view(np.uint16 if wire != "float32"
                                            else np.uint32)
+# one wide row, both shifts: the f32 bit copy, and f64 -> f32 on values at
+# and beside f32's ties
+idx = jnp.asarray(wide_map, dtype=jnp.int32)
+k = np.arange(RING * wide_rows * wide_f, dtype=np.float64)
+x = np.random.RandomState(1).randn(RING * wide_rows, wide_f)
+out["wide_x"] = x = x.astype(np.float32)
+for shift in (-1, 1):
+    out[f"wide_{shift}"] = run(
+        lambda lo: halo_pack.put_signal(lo, idx, axis="z", ring=ring,
+                                        shift=np.int32(shift)))
+x = ((1 + (k % 2 ** 20) * 2.0 ** -23 + 2.0 ** -24
+      + (k % 3 - 1) * 2.0 ** -45) * 2.0 ** (k % 13 - 6) * (-1) ** (k // 2))
+out["wide_xw"] = x = x.reshape(RING * wide_rows, wide_f)
+for shift in (-1, 1):
+    out[f"widew_{shift}"] = run(
+        lambda lo: halo_pack.put_signal(
+            lo, idx, axis="z", ring=ring, shift=np.int32(shift),
+            wire_dtype="float32")).view(np.uint32)
 np.savez(sys.argv[1], **out)
 """
 
@@ -340,7 +362,8 @@ def jax_ring(tmp_path_factory):
     env["PYTHONPATH"] = f"{REPO / 'src'}:{env.get('PYTHONPATH', '')}"
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_RING_SCRIPT, str(out), repr(PUT_MAPS),
-         repr(FUSED_MAPS)], capture_output=True, text=True, timeout=600,
+         repr(FUSED_MAPS), repr((WIDE_ROWS, WIDE_F, WIDE_MAP))],
+        capture_output=True, text=True, timeout=600,
         env=env)
     if proc.returncode != 0:
         raise AssertionError(f"JAX ring reference failed:\n{proc.stderr}")
@@ -383,6 +406,26 @@ def test_put_signal_wire_plain_matches_jax_ring_bitwise(jax_ring, dt, wire,
     want = jax_ring[f"putw_{shift}_{dt}_{wire}"].reshape(RING, len(idx),
                                                          RING_F)
     assert np.array_equal(bits.view(want.dtype), want)
+
+
+@pytest.mark.parametrize("shift", [-1, 1])
+@pytest.mark.parametrize("wire", [None, "float32"])
+def test_put_signal_wide_row_plain_matches_jax_ring_bitwise(jax_ring, wire,
+                                                            shift):
+    """One row of 7,840 elements per domain (M = 1, the forward z pulse's
+    kind), which the card's flat grid splits over several blocks: the f32
+    bit copy, and the wire form f64 -> f32 on values at and beside f32's
+    ties; JAX's wire result comes back as raw bits."""
+    key = "wide_x" if wire is None else "wide_xw"
+    x = torch.from_numpy(jax_ring[key]).reshape(RING, WIDE_ROWS, WIDE_F)
+    idx = torch.tensor(WIDE_MAP, dtype=torch.int32)
+    want = jax_ring[f"wide_{shift}" if wire is None else f"widew_{shift}"]
+    want = want.reshape(RING, len(WIDE_MAP), WIDE_F)
+    for got in (halo_pack.put_signal(x, idx, (RING,), 0, shift,
+                                     wire_dtype=wire),
+                halo_pack.put_signal_plain(x, idx, (RING,), 0, shift, wire)):
+        assert got.dtype == torch.float32
+        assert _bits_equal(got.numpy().view(want.dtype), want)
 
 
 @pytest.mark.parametrize("name", list(FUSED_MAPS))
@@ -441,6 +484,48 @@ def test_signal_wrappers_validate_inputs():
         halo_pack.fused_pulses(src, idx[None], 6, (4,), 0)
     with pytest.raises(TypeError, match="int32"):
         halo_pack.fused_pulses(src, idx[None].long(), 5, (4,), 0)
+
+
+@pytest.mark.parametrize("wire", [None, "bfloat16"])
+def test_put_signal_refuses_a_short_signal_buffer(wire):
+    """``signal`` holds the arrival words and a counter per domain: fewer
+    than 2 x n_dom words raise, here as on the card, before any launch."""
+    src = torch.zeros((4, 5, 3))
+    idx = torch.tensor([0, -1], dtype=torch.int32)
+    short = torch.zeros((7,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="signal holds 7 words, needs 8"):
+        halo_pack.put_signal(src, idx, (4,), 0, -1, signal=short,
+                             wire_dtype=wire)
+    with pytest.raises(TypeError, match="int32"):
+        halo_pack.put_signal(src, idx, (4,), 0, -1,
+                             signal=torch.zeros((8,), dtype=torch.int64))
+    words = torch.zeros((8,), dtype=torch.int32)
+    got = halo_pack.put_signal(src, idx, (4,), 0, -1, signal=words,
+                               wire_dtype=wire)
+    assert torch.equal(got, halo_pack.put_signal_plain(src, idx, (4,), 0,
+                                                       -1, wire))
+
+
+@pytest.mark.parametrize("mesh_shape,widths,pulses,need", [
+    ((2, 2, 2), (1, 1, 1), None, 2 * 8),
+    ((3, 2, 1), (1, 1, 1), None, 2 * 6),
+    ((2, 2, 2), (2, 2, 2), (2, 2, 2), 8 * 2 + 1),
+    ((3, 1, 1), (2, 1, 1), (2, 1, 1), 3 * 2 + 1)])
+def test_signal_backend_words_hold_every_launch(mesh_shape, widths, pulses,
+                                                need):
+    """The plan's one set of signal words serves every launch: at least
+    2 x n_dom for put_signal (arrival words, then counters) and n_dom x
+    pulses + 1 for fused_pulses (arrival words, then the ticket)."""
+    from repro_torch.core.halo_plan import HaloPlan, HaloSpec
+    from repro_torch.launch.mesh import make_mesh
+
+    axes = ("z", "y", "x")
+    plan = HaloPlan.build(HaloSpec(axes, widths, backend="signal",
+                                   pulses=pulses),
+                          make_mesh(mesh_shape, axes), device="cpu")
+    words = plan.backend._words(plan)
+    assert words.dtype == torch.int32 and words.numel() == need
+    assert plan.backend._words(plan) is words         # allocated once
 
 
 # ---- the CUDA kernels against their plain forms (on the card) --------------
@@ -877,7 +962,7 @@ def test_cuda_put_signal_matches_plain_bitwise(cuda_device, dtype, p, m, f,
     src = torch.from_numpy(_src(rng, (n_dom, p, f), dtype)).to(cuda_device)
     idx = torch.from_numpy(rng.randint(-1, p, size=(m,)).astype(np.int32))
     idx = idx.to(cuda_device)
-    words = torch.full((n_dom + 3,), -7, dtype=torch.int32,
+    words = torch.full((2 * n_dom + 3,), -7, dtype=torch.int32,
                        device=cuda_device)
     for shift in (-1, 1):
         n0 = halo_pack.put_signal.launches
@@ -887,7 +972,102 @@ def test_cuda_put_signal_matches_plain_bitwise(cuda_device, dtype, p, m, f,
         assert torch.equal(got, halo_pack.put_signal_plain(src, idx, mesh,
                                                            axis, shift))
         assert words[:n_dom].tolist() == [m] * n_dom
-        assert words[n_dom:].tolist() == [-7] * 3     # nothing past them
+        # the counters: every receiver got the same number of words
+        assert len(set(words[n_dom:2 * n_dom].tolist())) == 1
+        assert words[2 * n_dom:].tolist() == [-7] * 3  # nothing past them
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a tensor whose base lies one element past a
+    16-byte boundary (only element words fit it)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _repeat_put(src, idx, mesh, axis, wire=None, n=200):
+    """``n`` back-to-back launches per shift, each checked on the device
+    against the plain form, with every arrival word equal to M after each
+    one and nothing past the 2 x n_dom words touched."""
+    n_dom, M = src.shape[0], idx.shape[0]
+    words = torch.full((2 * n_dom + 3,), -7, dtype=torch.int32,
+                       device=src.device)
+    for shift in (-1, 1):
+        want = halo_pack.put_signal_plain(src, idx, mesh, axis, shift, wire)
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            want.element_size()]
+        bad = torch.zeros((), dtype=torch.int64, device=src.device)
+        bad_words = torch.zeros_like(bad)
+        for _ in range(n):
+            got = halo_pack.put_signal(src, idx, mesh, axis, shift,
+                                       signal=words, wire_dtype=wire)
+            bad += (got.view(ints) != want.view(ints)).sum()
+            bad_words += (words[:n_dom] != M).sum()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype
+        assert int(bad) == 0 and int(bad_words) == 0, (int(bad),
+                                                       int(bad_words))
+        assert words[2 * n_dom:].tolist() == [-7] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,axis", [((2, 2, 2), 0), ((2, 2, 2), 2),
+                                       ((3, 2, 1), 0), ((3, 2, 1), 1)])
+@pytest.mark.parametrize("dtype,p,m,f,aligned", [
+    (np.float32, 7, 1, 7840, True),    # a row spans 8 blocks, 16-byte words
+    (np.float32, 9, 3, 8, True),       # a block spans every receiver
+    (np.float32, 9, 3, 6, True),       # 8-byte words
+    (np.float32, 9, 5, 7, True),       # element words
+    (np.float32, 7, 1, 7840, False),   # element words, an unaligned base
+    (np.int32, 56, 8, 1120, True),
+    (np.float64, 7, 1, 3920, True),
+    (np.float64, 9, 4, 7, True),       # 8-byte element words
+    (np.float64, 9, 4, 6, False)])
+def test_cuda_put_signal_repeated_launches_keep_the_words(
+        cuda_device, dtype, p, m, f, aligned, mesh, axis):
+    """B3's release on the flat grid, launch after launch: rows that span
+    several blocks and blocks that span several receivers, every word
+    width, padding rows."""
+    n_dom = int(np.prod(mesh))
+    rng = np.random.RandomState(p + m + f)
+    src = torch.from_numpy(_src(rng, (n_dom, p, f), dtype)).to(cuda_device)
+    if not aligned:
+        src = _misaligned(src)
+    idx = rng.randint(-1, p, size=(m,)).astype(np.int32)
+    if m > 1:
+        idx[-1] = -1
+    _repeat_put(src, torch.from_numpy(idx).to(cuda_device), mesh, axis)
+
+
+def _near_ties(shape, dtype) -> np.ndarray:
+    """Values at and beside the f32, f16 and bf16 rounding ties."""
+    k = np.arange(int(np.prod(shape)), dtype=np.float64)
+    ulp = np.where(k % 3 == 0, 2.0 ** -24, np.where(k % 3 == 1, 2.0 ** -11,
+                                                    2.0 ** -8))
+    x = (1 + (k % 64) / 64 + ulp + (k % 5 - 2) * 2.0 ** -44) * \
+        2.0 ** (k % 17 - 8) * (-1) ** (k // 2)
+    return x.astype(dtype).reshape(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,axis", [((2, 2, 2), 0), ((3, 2, 1), 1)])
+@pytest.mark.parametrize("m,f", [(1, 7840), (5, 16), (5, 12), (5, 10),
+                                 (5, 7), (5, 6)])
+@pytest.mark.parametrize("dt,wire", WIRE_CASES)
+def test_cuda_put_signal_wire_repeated_launches_keep_the_words(
+        cuda_device, dt, wire, m, f, mesh, axis):
+    """B3w at F divisible by 8 (16-byte wire words), by 4 only, by 2 only
+    and by none of them, a wide row and short ones, on near-tie values:
+    bitwise the plain form (one rounding, as XLA), launch after launch,
+    with the arrival words right after each."""
+    n_dom = int(np.prod(mesh))
+    src = torch.from_numpy(_near_ties((n_dom, 9, f), dt)).to(cuda_device)
+    idx = np.arange(m, dtype=np.int32) * 2 % 9
+    if m > 1:
+        idx[m // 2] = -1
+    _repeat_put(src, torch.from_numpy(idx).to(cuda_device), mesh, axis,
+                wire=wire)
 
 
 @pytest.mark.cuda

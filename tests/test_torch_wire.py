@@ -771,7 +771,8 @@ def cuda_device():
     (np.float64, "float16"), (np.float32, "bfloat16"),
     (np.float32, "float16")])
 @pytest.mark.parametrize("n_dom,p,m,f", [(8, 448, 64, 160), (8, 56, 8, 1120),
-                                         (6, 33, 5, 7)])
+                                         (6, 33, 5, 10), (6, 33, 5, 7),
+                                         (6, 33, 5, 6)])
 def test_cuda_wire_kernels_match_plain_bitwise(cuda_device, dtype,
                                                wire_dtype, n_dom, p, m, f):
     rng = np.random.RandomState(p + m)
