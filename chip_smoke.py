@@ -65,13 +65,16 @@ Phases, each asserting (any failure exits non-zero with no result line):
     then the reverse pulses at widths (2,2,2)) plus a 3x2x1 mesh along
     both axes and both shifts, and ``halo_pack.fused_pulses`` at the
     forward shapes of widths (2,2,2) / pulses (2,2,2), f32 and int32, and
-    a crafted map whose second pulse forwards rows of the first and has
-    padding, 1,000 launches back to back; all bitwise against the plain
-    forms, with every arrival word equal to its chunk count; each
+    two crafted maps, 1,000 launches back to back each: one whose second
+    pulse forwards rows of the first and has padding, and a three-pulse
+    one whose pulses 1 and 2 forward from their first rows; all bitwise
+    against the plain forms, with every arrival word equal to its chunk
+    count (fused_pulses: the counters and the block ticket too); each
     put_signal shape also 200 launches back to back, the payload and
-    every arrival word checked on the device after each, and exactly one
-    kernel node and one memset node a launch in a CUDA graph capture, in
-    both forms (the wire form as float32 -> bfloat16 at the f32 shapes);
+    every arrival word checked on the device after each; exactly one
+    kernel node and one memset node a launch in a CUDA graph capture at
+    every shape of both kernels and both crafted maps, put_signal in both
+    forms (the wire form as float32 -> bfloat16 at the f32 shapes);
     timed beside the plain form, the library yardstick and the byte
     bound, with each shape's device us per launch (torch.profiler) and
     its share of the bound, and one step's launches summed;
@@ -1235,6 +1238,39 @@ def crafted_dependent(cases):
     return (src, dep.contiguous(), n_local, mesh, axis)
 
 
+def crafted_three_pulse(cases):
+    """The x dim's forward at widths (2,2,2) with a third pulse: pulses 1
+    and 2 forward rows of the pulse before from their first row on, and
+    end in padding.  A pulse is 8 x 81 x 40 16-byte words, 101.25 blocks
+    of 256: on the card's grid the pulses are padded to whole blocks."""
+    import torch
+    args = next(a for k, t, a in cases
+                if k == "fused_pulses" and t == "w2p2-fwd-f32-x")
+    src, maps, n_local, mesh, axis = args[:5]
+    M = maps.shape[1]
+    j = torch.arange(M, device=maps.device, dtype=torch.int32)
+    p1 = torch.where(j % 3 == 0, n_local + (M - 1 - j), maps[1])
+    p2 = torch.where(j % 2 == 0, n_local + (j * 7) % M, maps[0])
+    dep = torch.stack([maps[0], p1, p2])
+    dep[1:, -max(1, M // 8):] = -1
+    return (src, dep.contiguous(), n_local, mesh, axis)
+
+
+def fused_blocks(args):
+    """(block count, counter value) of one fused_pulses launch on the
+    flat grid: each pulse's n_dom x M x V words padded to whole blocks of
+    256, V the row's 16-byte, 8-byte or element words."""
+    src, maps = args[:2]
+    n_dom, _, F = src.shape
+    P_, M = maps.shape
+    e = src.element_size()
+    row = F * e
+    w = next((w for w in (16, 8) if w > e and row % w == 0
+              and src.data_ptr() % w == 0), e)
+    V = row // w
+    return P_ * -(-n_dom * M * V // 256), M * V
+
+
 def signal_bytes(kernel, args):
     src = args[0]
     s = src.element_size()
@@ -1265,13 +1301,23 @@ def signal_kernel_phase(system, n_repeat: int = 1000,
                "bound_ms": 0.0, "bytes": 0, "ops": 0, "device_us": 0.0,
                "device_n": 0, "launches": 0} for k in kern}
 
+    # the words' layout of the checkout under test: arrival words,
+    # counters and the block ticket, or (before the flat grid) arrival
+    # words and a row ticket
+    fused_words = getattr(halo_pack, "fused_pulses_words", None)
+
     def words_ok(kernel, args):
         n_dom = args[0].shape[0]
         if kernel == "put_signal":
             return words[:n_dom].tolist() == [args[1].shape[0]] * n_dom
         P_, M = args[1].shape
-        return (words[:n_dom * P_].tolist() == [M] * (n_dom * P_)
-                and int(words[n_dom * P_]) == P_ * n_dom * M)
+        arrived = words[:n_dom * P_].tolist() == [M] * (n_dom * P_)
+        if fused_words is None:
+            return arrived and int(words[n_dom * P_]) == P_ * n_dom * M
+        blocks, MV = fused_blocks(args)
+        return (arrived and words[n_dom * P_:2 * n_dom * P_].tolist()
+                == [MV] * (n_dom * P_)
+                and int(words[fused_words(n_dom, P_) - 1]) == blocks)
 
     def run(kernel, args):
         kw = {"signal": words} if kernel == "put_signal" else {"words": words}
@@ -1289,13 +1335,14 @@ def signal_kernel_phase(system, n_repeat: int = 1000,
 
     cases = signal_cases(system)
     dev = cases[0][2][0].device
-    words = torch.empty((8 * 2 + 1,), dtype=torch.int32, device=dev)
+    # enough for three pulses on 8 domains in either layout
+    words = torch.empty((2 * 8 * 3 + 1,), dtype=torch.int32, device=dev)
     print(f"signal kernel phase: {len(cases)} launch shapes (ms per launch; "
           "bound = bytes / 3.35 TB/s; device us per launch from "
           "torch.profiler over 50, its share of the bound = bound / device "
-          "time; put_signal: device operations per launch from a CUDA graph "
-          f"of 10 calls, both forms, and {n_put_repeat} launches back to "
-          "back, each checked)")
+          "time; device operations per launch from a CUDA graph of 10 "
+          "calls, put_signal in both forms; put_signal: "
+          f"{n_put_repeat} launches back to back, each checked)")
     for kernel, tag, args in cases:
         got = run(kernel, args)
         want = plain[kernel](*args)
@@ -1329,6 +1376,10 @@ def signal_kernel_phase(system, n_repeat: int = 1000,
                 check(w_ops == PUT_SIGNAL_OPS, f"put_signal {tag} (wire "
                       f"bfloat16): device operations a launch {w_ops}, "
                       f"expected {PUT_SIGNAL_OPS}")
+        else:
+            ops = graph_ops(lambda: run(kernel, args))
+            check(ops == PUT_SIGNAL_OPS, f"fused_pulses {tag}: device "
+                  f"operations a launch {ops}, expected {PUT_SIGNAL_OPS}")
         d_us = device_us(lambda: run(kernel, args), f"{kernel}_kernel")
         t_k = cuda_ms(lambda: run(kernel, args))
         t_p = cuda_ms(lambda: plain[kernel](*args))
@@ -1363,34 +1414,48 @@ def signal_kernel_phase(system, n_repeat: int = 1000,
             if d_us is not None:
                 a["device_us"] += d_us
                 a["device_n"] += 1
-    # the crafted dependent case, back to back
-    args = crafted_dependent(cases)
-    want = halo_pack.fused_pulses_plain(*args)
-    check(bool((args[1][1] >= args[2]).any()) and
-          bool((args[1][1] < 0).any()), "crafted map has no dependent or "
-          "padded entries")
-    bad = torch.zeros((), dtype=torch.int64, device=dev)
-    bad_words = torch.zeros((), dtype=torch.int64, device=dev)
-    err_dep = torch.zeros((), dtype=torch.float64, device=dev)
-    P_, M = args[1].shape
-    n_dom = args[0].shape[0]
-    for _ in range(n_repeat):
-        got = halo_pack.fused_pulses(*args, words=words)
-        bad += (got != want).sum()
-        err_dep = torch.maximum(
-            err_dep, (got.double() - want.double()).abs().max())
-        bad_words += (words[:n_dom * P_] != M).sum()
-    torch.cuda.synchronize()
-    acc["fused_pulses"]["max_abs_err"] = max(
-        acc["fused_pulses"]["max_abs_err"], float(err_dep))
-    check(int(bad) == 0 and int(bad_words) == 0,
-          f"crafted dependent fused_pulses: {int(bad)} elements and "
-          f"{int(bad_words)} arrival words wrong over {n_repeat} launches")
-    t_dep = cuda_ms(lambda: halo_pack.fused_pulses(*args, words=words))
-    print(f"  fused_pulses crafted dependent [{'x'.join(map(str, args[1].shape))}"
-          f" map, {int((args[1][1] >= args[2]).sum())} forwarded, "
-          f"{int((args[1][1] < 0).sum())} padded entries]: {n_repeat} "
-          f"launches bitwise, words right; {t_dep:.6f} ms per launch")
+    # the crafted dependent maps, back to back
+    for label, args in (("crafted dependent", crafted_dependent(cases)),
+                        ("crafted three-pulse", crafted_three_pulse(cases))):
+        want = halo_pack.fused_pulses_plain(*args)
+        check(bool((args[1][1:] >= args[2]).any()) and
+              bool((args[1][1:] < 0).any()), f"{label} map has no "
+              "dependent or padded entries")
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        bad_words = torch.zeros((), dtype=torch.int64, device=dev)
+        err_dep = torch.zeros((), dtype=torch.float64, device=dev)
+        P_, M = args[1].shape
+        n_dom = args[0].shape[0]
+        for _ in range(n_repeat):
+            got = halo_pack.fused_pulses(*args, words=words)
+            bad += (got != want).sum()
+            err_dep = torch.maximum(
+                err_dep, (got.double() - want.double()).abs().max())
+            bad_words += (words[:n_dom * P_] != M).sum()
+        torch.cuda.synchronize()
+        acc["fused_pulses"]["max_abs_err"] = max(
+            acc["fused_pulses"]["max_abs_err"], float(err_dep))
+        check(int(bad) == 0 and int(bad_words) == 0,
+              f"{label} fused_pulses: {int(bad)} elements and "
+              f"{int(bad_words)} arrival words wrong over {n_repeat} "
+              "launches")
+        check(words_ok("fused_pulses", args), f"{label} fused_pulses: "
+              f"words {words.tolist()} do not match the launch")
+        ops = graph_ops(lambda: halo_pack.fused_pulses(*args, words=words))
+        check(ops == PUT_SIGNAL_OPS, f"{label} fused_pulses: device "
+              f"operations a launch {ops}, expected {PUT_SIGNAL_OPS}")
+        t_dep = cuda_ms(lambda: halo_pack.fused_pulses(*args, words=words))
+        d_us = device_us(lambda: halo_pack.fused_pulses(*args, words=words),
+                         "fused_pulses_kernel")
+        d_txt = "device not measured" if d_us is None else \
+            f"device {d_us:.3f} us/launch"
+        print(f"  fused_pulses {label} [{'x'.join(map(str, args[1].shape))}"
+              f" map, {int((args[1][1:] >= args[2]).sum())} forwarded, "
+              f"{int((args[1][1:] < 0).sum())} padded entries]: {n_repeat} "
+              f"launches bitwise, words right; {t_dep:.6f} ms per launch, "
+              f"{d_txt}, "
+              + " + ".join(f"{v:g} {k}" for k, v in sorted(ops.items()))
+              + " op/launch")
     step_device_lines(acc)
     return acc
 
@@ -2391,7 +2456,13 @@ def main():
                "put_signal": "a flat 16-byte word grid over the launch, the "
                              "last arriver releases each destination",
                "put_signal_wire": "the same grid, N elements a thread into "
-                                  "one 16-byte wire word"}
+                                  "one 16-byte wire word",
+               "fused_pulses": "the flat word grid, pulses padded to whole "
+                               "blocks and taken by ticket; a block waits "
+                               "only for forwarded words, the last arriver "
+                               "releases each (destination, pulse)",
+               "pack_wire": "a flat grid, N elements a thread into one "
+                            "16-byte wire word"}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
                       **flash_kernel,

@@ -19,10 +19,10 @@ redesign is built from (:mod:`repro_torch.kernels.halo_pack`):
 On a CUDA block the kernels run or raise; on a CPU block their plain
 forms run (the reference's jnp oracle with the kernels' semantics).  The
 port has no fallback latch.  Index maps are static per local shape and
-cached on the plan, as are the signal words (one int32 per (domain,
-pulse) plus the ticket of ``fused_pulses``, and at least ``put_signal``'s
-two per domain; every launch resets the words it uses on the stream, so
-one set serves every launch of the plan).
+cached on the plan, as are the signal words (``fused_pulses``' two per
+(domain, pulse) plus its ticket where a dim has several pulses, and at
+least ``put_signal``'s two per domain; every launch resets the words it
+uses on the stream, so one set serves every launch of the plan).
 
 Like the other backends this one ships one hop per pulse, so halo widths
 must not exceed the local block (``w <= n``); multi-pulse splits of such
@@ -50,16 +50,18 @@ class SignalBackend(PallasBackend):
     critical_path = "fused"
 
     def _words(self, plan) -> torch.Tensor:
-        """The plan's signal words: one per (domain, pulse of the longest
-        dim) plus the ticket of ``fused_pulses``, and at least two per
-        domain, ``put_signal``'s arrival words and counters; allocated
-        once."""
+        """The plan's signal words: two per domain, ``put_signal``'s
+        arrival words and counters, and where a dim has several pulses
+        ``fused_pulses``' arrival word and counter per (domain, pulse of
+        the longest dim) plus its ticket; allocated once."""
         words = plan._index_maps.get(("signal_words",))
         if words is None:
             n_pulses = max(len(plan.sched.dim_pulses(d))
                            for d in range(plan.spec.ndim))
             n_dom = math.prod(plan.axis_sizes)
-            words = torch.zeros((max(n_dom * n_pulses + 1, 2 * n_dom),),
+            fused = halo_pack.fused_pulses_words(n_dom, n_pulses) \
+                if n_pulses > 1 else 0
+            words = torch.zeros((max(fused, 2 * n_dom),),
                                 dtype=torch.int32, device=plan.device)
             plan._index_maps[("signal_words",)] = words
         return words

@@ -17,8 +17,7 @@
 // 2.3 MB a launch) it is a microsecond or less: what is left is the
 // launch latency and how fast the card fills with loads.
 //
-// The design (the bit copies and unpack-add; the converting pack keeps
-// its one-block-per-row kernel):
+// The design (flat_grid.cuh, shared with halo_signal.cu):
 //   * a flat grid: one thread per word of the output, 256-thread blocks,
 //     over all n_dom x rows x words of a launch, so one launch serves every
 //     domain of the virtual mesh and a pulse of one wide row (the forward
@@ -26,6 +25,9 @@
 //     blocks;
 //   * a word is 16 bytes where the row's byte width and every base pointer
 //     allow it, else 8, else the element (4 or 8 bytes), on the same grid;
+//     the converting pack moves N source elements a thread, N x the wire's
+//     width being a 16- or 8-byte output word (f64 -> f32: 4, from two
+//     16-byte loads into one 16-byte store), else one element;
 //   * each thread finds (domain, row, word) from its index in 32-bit
 //     arithmetic, and reads its map entry through the read-only path; a
 //     launch whose arrays hold 2^31 words or more is refused
@@ -51,12 +53,6 @@
 #include <cstdint>
 
 namespace {
-
-// N elements of T moved as one word of N * sizeof(T) bytes
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Lanes {
-  T v[N];
-};
 
 // ---- pack: out[b, m, :] = idx[m] >= 0 ? src[b, idx[m], :] : 0 ------------
 //
@@ -85,28 +81,36 @@ __global__ void __launch_bounds__(kThreads)
 //
 // The wire form (compressed halo payloads): the gathered row is rounded to
 // the wire dtype in registers and only the narrow row is stored, so the
-// source rows are read once and the wire rows written once.  Each cast
-// rounds as XLA's convert does (WireConv, wire_conv.cuh).  A padding row
-// is the wire dtype's +0.
+// source rows are read once and the wire rows written once.  A thread
+// converts the N source elements of one output word; each cast rounds as
+// XLA's convert does (WireConv, wire_conv.cuh).  A padding row is the wire
+// dtype's +0.
 
-template <typename S, typename D>
-__global__ void pack_convert_kernel(const S* __restrict__ src,
-                                    const int32_t* __restrict__ idx,
-                                    D* __restrict__ out, int64_t R,
-                                    int64_t M, int64_t F) {
-  const int64_t m = blockIdx.x;
-  const int64_t b = blockIdx.y;
-  const int32_t i = idx[m];
-  D* dst = out + (b * M + m) * F;
+template <typename S, typename D, int N>
+__global__ void __launch_bounds__(kThreads)
+    pack_convert_kernel(const Lanes<S, N>* __restrict__ src,
+                        const int32_t* __restrict__ idx,
+                        Lanes<D, N>* __restrict__ out, int R, int M, int V,
+                        int total) {
+  const int g = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= total) return;
+  const int row = g / V;             // b * M + m
+  const int v = g - row * V;
+  const int b = row / M;
+  const int m = row - b * M;
+  const int32_t i = __ldg(idx + m);
   if (i >= R) __trap();
-  if (i < 0) {
+  Lanes<D, N> w;
+  if (i >= 0) {
+    const Lanes<S, N> x = src[(b * R + i) * V + v];
+#pragma unroll
+    for (int k = 0; k < N; ++k) w.v[k] = WireConv<S, D>::apply(x.v[k]);
+  } else {
     const D zero = WireConv<S, D>::apply(S(0));
-    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) dst[f] = zero;
-    return;
+#pragma unroll
+    for (int k = 0; k < N; ++k) w.v[k] = zero;
   }
-  const S* row = src + (b * R + i) * F;
-  for (int64_t f = threadIdx.x; f < F; f += blockDim.x)
-    dst[f] = WireConv<S, D>::apply(row[f]);
+  out[g] = w;
 }
 
 // ---- unpack-add: out[b, r, :] = dst[b, r, :] (+ rows[b, inv[r], :]) ------
@@ -133,18 +137,6 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < N; ++k) a.v[k] = a.v[k] + add.v[k];
   }
   out[g] = a;
-}
-
-bool grid_ok(int64_t n_dom, int64_t M) {
-  return n_dom >= 1 && n_dom <= 65535 && M >= 1 && M <= 2147483647;
-}
-
-int threads_for(int64_t width) {
-  // one warp per 32 elements of the row, between one warp and 256 threads
-  int64_t t = ((width + 31) / 32) * 32;
-  if (t < 32) t = 32;
-  if (t > 256) t = 256;
-  return static_cast<int>(t);
 }
 
 template <typename W>
@@ -178,17 +170,36 @@ int launch_pack(int elem, const void* src, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, typename D, int N>
+void pack_convert_words(const void* src, const int32_t* idx, void* out,
+                        int64_t R, int64_t M, int64_t V, int64_t total,
+                        cudaStream_t s) {
+  pack_convert_kernel<S, D, N><<<flat_blocks(total), kThreads, 0, s>>>(
+      static_cast<const Lanes<S, N>*>(src), idx,
+      static_cast<Lanes<D, N>*>(out), static_cast<int>(R),
+      static_cast<int>(M), static_cast<int>(V), static_cast<int>(total));
+}
+
 template <typename S, typename D>
 int launch_pack_convert(const void* src, const void* idx, void* out,
                         int64_t n_dom, int64_t R, int64_t M, int64_t F,
                         void* stream) {
-  if (!grid_ok(n_dom, M) || F < 1 || R < 1)
+  if (n_dom < 1 || R < 1 || M < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(n_dom));
-  pack_convert_kernel<S, D><<<grid, threads_for(F), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(src), static_cast<const int32_t*>(idx),
-      static_cast<D*>(out), R, M, F);
+  const int n = convert_lanes<S, D>(F, src, out);
+  const int64_t V = F / n;
+  if (!fits_32(n_dom * (R > M ? R : M) * V))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = n_dom * M * V;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  constexpr int N16 = 16 / sizeof(D);  // elements of a 16-byte wire word
+  if (n == N16)
+    pack_convert_words<S, D, N16>(src, ix, out, R, M, V, total, s);
+  else if (n == N16 / 2)
+    pack_convert_words<S, D, N16 / 2>(src, ix, out, R, M, V, total, s);
+  else
+    pack_convert_words<S, D, 1>(src, ix, out, R, M, V, total, s);
   return static_cast<int>(cudaGetLastError());
 }
 

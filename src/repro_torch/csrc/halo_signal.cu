@@ -36,23 +36,30 @@
 // them once) and can read them back.  Padding rows (index -1) land as zero
 // rows and count.
 //
-// fused_pulses runs all pulses of one dim in one launch.  Work items are
-// (pulse, source domain, row), numbered pulse-major, and each CTA takes
-// its item from an atomic ticket counter rather than from blockIdx.  An
-// entry in [n_local, n_local + M) reads row (entry - n_local) of the
-// previous pulse's receive buffer of its own domain (staged forwarding):
-// the CTA first acquire-waits until that buffer's arrival word equals M
-// (one thread spins on a volatile load with __nanosleep backoff, then
-// __threadfence() and __syncthreads()).  Every item such a wait depends on
-// has a smaller ticket, so it was taken by a CTA that is already resident
-// and can finish: the wait cannot deadlock at any grid size, with no
-// cooperative launch and no persistent-grid sizing.  The kernel writes the
-// buffer it reads, so `out` is not __restrict__ and the forwarded rows are
-// read with __ldcg (L2, coherent across SMs), never through the
-// non-coherent read-only path.  Each of its CTAs is one row: after its
-// stores it synchronises the block, and one thread releases the row with
-// __threadfence() + atomicAdd of 1 on the receiver's arrival word of that
-// pulse, so after a launch every arrival word equals M.
+// fused_pulses runs all pulses of one dim in one launch, on the same flat
+// grid.  Its work space is P pulses x n_dom x M x V words, pulse-major, and
+// each pulse is padded up to a whole number of blocks, so no block
+// straddles two pulses.  A block takes its place in that space from an
+// atomic ticket counter rather than from blockIdx.  An entry in [n_local,
+// n_local + M) reads row (entry - n_local) of the previous pulse's receive
+// buffer of its own domain (staged forwarding): a block that holds such a
+// word (__syncthreads_or) first acquire-waits until the arrival word of
+// (source domain, p - 1) equals M, for each source domain of its span (one
+// thread a domain spins on ld.acquire.gpu with __nanosleep backoff, then
+// the block syncs); a block of local or padding words never waits.  Every
+// block such a wait depends on holds words of an earlier pulse, so it took
+// a smaller ticket: it is already resident and can finish, and the wait
+// cannot deadlock at any grid size, with no cooperative launch and no
+// persistent-grid sizing.  Were a block to straddle pulses p - 1 and p, it
+// could wait for a destination into which it has not yet stored its own
+// words of p - 1, and the card would hang: hence the padding.  The kernel
+// writes the buffer it reads, so `out` is not __restrict__ and the
+// forwarded words are read with __ldcg (L2, coherent across SMs), never
+// through the non-coherent read-only path.  The release is put_signal's,
+// per (destination, pulse): the caller's words hold the arrival words
+// [n_dom x P], then the counters [n_dom x P], then the ticket, all reset by
+// the launch's one cudaMemsetAsync; after a launch every arrival word
+// equals M, every counter M x V and the ticket the launch's block count.
 //
 // Faults of the map trap the kernel, as the plain forms raise: an index
 // >= R (put_signal), an index >= n_local in pulse 0, or >= n_local + M in
@@ -84,9 +91,11 @@
 //     kernel node a launch, nothing else.  The atomic waits for the block's
 //     stores to drain and makes a round trip to L2 on the last block's
 //     path, which is what the release adds to B1's time.
-// fused_pulses keeps one block per work item (above).  The bit copies are
-// keyed on element width (b4 serves f32 and int32, b8 f64); put_signal's
-// converting form is keyed on (source, wire) element type: it rounds each
+// fused_pulses moves the same words on the same grid (above).  The bit
+// copies are keyed on element width (b4 serves f32 and int32, b8 f64);
+// put_signal's converting form is keyed on (source, wire) element type
+// (convert_lanes and Lanes in flat_grid.cuh, shared with halo_pack.cu's
+// converting pack): it rounds each
 // gathered element to the wire dtype in registers and stores only the
 // narrow row in the receiver's slab (the reference's wire-dtyped scratch
 // and put), so the wire rows are written once and never staged.  It rounds
@@ -105,29 +114,6 @@
 
 namespace {
 
-// N elements of T moved as one word, aligned to its size up to 16 bytes (a
-// longer word is read as 16-byte loads)
-template <typename T, int N>
-struct alignas(sizeof(T) * N < 16 ? sizeof(T) * N : 16) Lanes {
-  T v[N];
-};
-
-// the converting put's elements a thread: N wire elements make a 16- or
-// 8-byte output word where F and the output base allow it, and the source
-// base allows its N elements' 16-byte loads; else one element (never a
-// 4-byte word of two 16-bit elements: the launch has no kernel for it)
-template <typename S, typename D>
-int convert_lanes(int64_t F, const void* src, const void* out) {
-  for (int w = 16; w >= 8 && w > static_cast<int>(sizeof(D)); w /= 2) {
-    const int n = w / static_cast<int>(sizeof(D));
-    const int64_t load = n * sizeof(S) < 16 ? n * sizeof(S) : 16;
-    if (F % n == 0 && reinterpret_cast<uintptr_t>(out) % w == 0 &&
-        reinterpret_cast<uintptr_t>(src) % load == 0)
-      return n;
-  }
-  return 1;
-}
-
 // domain b's neighbour along the exchange axis, in 32-bit arithmetic; the
 // shift is taken mod the ring on the host, so 0 <= shift < ring
 struct Ring {
@@ -142,43 +128,6 @@ struct Ring {
 Ring ring_of(int64_t ring, int64_t inner, int64_t shift) {
   return {static_cast<int>(ring), static_cast<int>(inner),
           static_cast<int>((shift % ring + ring) % ring)};
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-int threads_for(int64_t width) {
-  // one warp per 32 words of the row, between one warp and 256 threads
-  int64_t t = ((width + 31) / 32) * 32;
-  if (t < 32) t = 32;
-  if (t > 256) t = 256;
-  return static_cast<int>(t);
-}
-
-template <typename W>
-__device__ __forceinline__ W zero_word() {
-  return W{};
-}
-
-template <>
-__device__ __forceinline__ uint4 zero_word<uint4>() {
-  return make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ int64_t neighbour(int64_t b, int64_t ring,
-                                             int64_t inner, int64_t shift) {
-  const int64_t c = (b / inner) % ring;
-  const int64_t to = ((c + shift) % ring + ring) % ring;
-  return b + (to - c) * inner;
-}
-
-__device__ __forceinline__ void release(int* word) {
-  __syncthreads();  // every thread's stores of the chunk are done
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(word, 1);
-  }
 }
 
 // ---- put_signal's release: the last arriver raises a destination ----------
@@ -207,21 +156,30 @@ __device__ __forceinline__ void add_release(int* word, int v) {
                : "memory");
 }
 
-__device__ __forceinline__ void release_span(int* arrival, int* stored,
-                                             int total, int M, int MV,
-                                             Ring nb) {
-  __syncthreads();  // every thread's stores of the span are done
-  const int g0 = static_cast<int>(blockIdx.x) * kThreads;
-  const int g1 = min(g0 + kThreads, total);
+// the release of the words [g0, g1) of one launch (or one pulse), each
+// destination d's arrival word and counter at arrival[d * stride] and
+// stored[d * stride]; after a barrier over the block's stores
+__device__ __forceinline__ void release_range(int* arrival, int* stored,
+                                              int stride, int g0, int g1,
+                                              int M, int MV, Ring nb) {
   const int b0 = g0 / MV;
   const int n = (g1 - 1) / MV - b0 + 1;  // <= kThreads source domains
   for (int k = threadIdx.x; k < n; k += kThreads) {
     const int b = b0 + k;
     const int words = min(g1, (b + 1) * MV) - max(g0, b * MV);
-    const int d = nb(b);
+    const int d = nb(b) * stride;
     if (add_acq_rel(stored + d, words) + words == MV)
       add_release(arrival + d, M);
   }
+}
+
+__device__ __forceinline__ void release_span(int* arrival, int* stored,
+                                             int total, int M, int MV,
+                                             Ring nb) {
+  __syncthreads();  // every thread's stores of the span are done
+  const int g0 = static_cast<int>(blockIdx.x) * kThreads;
+  release_range(arrival, stored, 1, g0, min(g0 + kThreads, total), M, MV,
+                nb);
 }
 
 // ---- put_signal: recv[nb(b), m, :] = idx[m] >= 0 ? src[b, idx[m], :] : 0 --
@@ -288,48 +246,69 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- fused_pulses: all pulses of one dim, put to the -1 neighbour ----------
 
+__device__ __forceinline__ int load_acquire(const int* word) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(word)
+               : "memory");
+  return v;
+}
+
+// out[nb(b), p, m, :] = entry < 0 ? 0 : entry < n_local ? src[b, entry, :]
+//                       : out[b, p - 1, entry - n_local, :]
+// (entry = idx[p, m]) for every pulse p, nb the -1 neighbour; W the word
 template <typename W>
-__global__ void fused_pulses_kernel(const W* __restrict__ src,
-                                    const int32_t* __restrict__ idx, W* out,
-                                    int* arrival, int* ticket, int64_t n_dom,
-                                    int64_t R, int64_t n_local, int64_t P,
-                                    int64_t M, int64_t F, int64_t ring,
-                                    int64_t inner) {
-  __shared__ int s_item;
-  if (threadIdx.x == 0) s_item = atomicAdd(ticket, 1);
+__global__ void __launch_bounds__(kThreads)
+    fused_pulses_kernel(const W* __restrict__ src,
+                        const int32_t* __restrict__ idx, W* out,
+                        int* arrival, int* stored, int* ticket, int R,
+                        int n_local, int P, int M, int V, int per_pulse,
+                        int total, Ring nb) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(ticket, 1);
   __syncthreads();
-  const int64_t item = s_item;
-  const int64_t m = item % M;
-  const int64_t b = (item / M) % n_dom;
-  const int64_t p = item / (M * n_dom);
-  const int32_t i = idx[p * M + m];
-  if (i >= n_local + M || (p == 0 && i >= n_local)) __trap();
+  const int p = s_ticket / per_pulse;  // blocks of one pulse, pulse-major
+  const int g0 = (s_ticket - p * per_pulse) * kThreads;
+  const int g = g0 + threadIdx.x;
+  const int MV = M * V;
+  int b = 0, m = 0, v = 0;
+  int32_t i = -1;
+  if (g < total) {
+    const int row = g / V;  // b * M + m
+    v = g - row * V;
+    b = row / M;
+    m = row - b * M;
+    i = __ldg(idx + p * M + m);
+    if (i >= n_local + M || (p == 0 && i >= n_local)) __trap();
+  }
   const bool dep = i >= n_local;
-  if (dep && threadIdx.x == 0) {
-    // acquire: the previous pulse's receive buffer of this domain is full
-    volatile int* flag = arrival + b * P + (p - 1);
-    unsigned ns = 32;
-    while (*flag < M) {
-      __nanosleep(ns);
-      if (ns < 1024) ns *= 2;
+  const int g1 = min(g0 + kThreads, total);
+  if (__syncthreads_or(dep)) {
+    // acquire: the previous pulse's receive buffer of each source domain
+    // of the span is full
+    const int b0 = g0 / MV;
+    const int n = (g1 - 1) / MV - b0 + 1;
+    for (int k = threadIdx.x; k < n; k += kThreads) {
+      const int* flag = arrival + (b0 + k) * P + (p - 1);
+      unsigned ns = 32;
+      while (load_acquire(flag) < M) {
+        __nanosleep(ns);
+        if (ns < 256) ns *= 2;
+      }
     }
-    __threadfence();
+    __syncthreads();
   }
-  __syncthreads();
-  const int64_t dst = neighbour(b, ring, inner, -1);
-  W* to = out + ((dst * P + p) * M + m) * F;
-  if (i < 0) {
-    const W zero = zero_word<W>();
-    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) to[f] = zero;
-  } else if (dep) {
-    const W* row = out + ((b * P + (p - 1)) * M + (i - n_local)) * F;
-    for (int64_t f = threadIdx.x; f < F; f += blockDim.x)
-      to[f] = __ldcg(row + f);
-  } else {
-    const W* row = src + (b * R + i) * F;
-    for (int64_t f = threadIdx.x; f < F; f += blockDim.x) to[f] = row[f];
+  if (g < total) {
+    W w{};
+    if (dep)
+      w = __ldcg(out + ((b * P + (p - 1)) * M + (i - n_local)) * V + v);
+    else if (i >= 0)
+      w = src[(b * R + i) * V + v];
+    out[((nb(b) * P + p) * M + m) * V + v] = w;
   }
-  release(arrival + dst * P + p);
+  __syncthreads();  // every thread's stores of the span are done
+  release_range(arrival + p, stored + p, P, g0, g1, M, MV, nb);
 }
 
 bool mesh_ok(int64_t n_dom, int64_t ring, int64_t inner) {
@@ -424,41 +403,56 @@ int launch_put_signal_convert(const void* src, const void* idx, void* out,
 }
 
 template <typename W>
-int launch_fused_pulses(const void* src, const void* idx, void* out,
-                        void* words, int64_t n_dom, int64_t R,
+void fused_words(const void* src, const int32_t* idx, void* out, int* words,
+                 int64_t n_dom, int64_t R, int64_t n_local, int64_t P,
+                 int64_t M, int64_t V, Ring nb, cudaStream_t s) {
+  const int64_t total = n_dom * M * V;  // words of one pulse
+  const unsigned per_pulse = flat_blocks(total);
+  fused_pulses_kernel<W><<<per_pulse * static_cast<unsigned>(P), kThreads,
+                           0, s>>>(
+      static_cast<const W*>(src), idx, static_cast<W*>(out), words,
+      words + n_dom * P, words + 2 * n_dom * P, static_cast<int>(R),
+      static_cast<int>(n_local), static_cast<int>(P), static_cast<int>(M),
+      static_cast<int>(V), static_cast<int>(per_pulse),
+      static_cast<int>(total), nb);
+}
+
+int launch_fused_pulses(int elem, const void* src, const void* idx,
+                        void* out, void* words, int64_t n_dom, int64_t R,
                         int64_t n_local, int64_t P, int64_t M, int64_t F,
                         int64_t ring, int64_t inner, void* stream) {
   if (!mesh_ok(n_dom, ring, inner) || M < 1 || F < 1 || P < 1 ||
-      n_local < 1 || n_local > R || P * n_dom * M > 2147483647)
+      n_local < 1 || n_local > R)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_bytes = F * elem;
+  const int w = word_bytes(row_bytes, elem, {src, out});
+  const int64_t V = row_bytes / w;
+  const int64_t padded = P * flat_blocks(n_dom * M * V) * kThreads;
+  if (!fits_32(n_dom * R * V) || !fits_32(padded))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // arrival[n_dom * P] then the ticket counter
+  // the arrival words, the counters, then the ticket
   cudaError_t e =
-      cudaMemsetAsync(words, 0, (n_dom * P + 1) * sizeof(int), s);
+      cudaMemsetAsync(words, 0, (2 * n_dom * P + 1) * sizeof(int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int* arrival = static_cast<int*>(words);
-  int* ticket = arrival + n_dom * P;
-  const unsigned grid = static_cast<unsigned>(P * n_dom * M);
-  const int64_t row_bytes = F * static_cast<int64_t>(sizeof(W));
   const int32_t* ix = static_cast<const int32_t*>(idx);
-  if (row_bytes % 16 == 0 && aligned16(src) && aligned16(out)) {
-    const int64_t V = row_bytes / 16;
-    fused_pulses_kernel<uint4><<<grid, threads_for(V), 0, s>>>(
-        static_cast<const uint4*>(src), ix, static_cast<uint4*>(out),
-        arrival, ticket, n_dom, R, n_local, P, M, V, ring, inner);
-  } else {
-    fused_pulses_kernel<W><<<grid, threads_for(F), 0, s>>>(
-        static_cast<const W*>(src), ix, static_cast<W*>(out), arrival,
-        ticket, n_dom, R, n_local, P, M, F, ring, inner);
-  }
+  int* wd = static_cast<int*>(words);
+  const Ring nb = ring_of(ring, inner, -1);
+  if (w == 16)
+    fused_words<uint4>(src, ix, out, wd, n_dom, R, n_local, P, M, V, nb, s);
+  else if (w == 8)
+    fused_words<uint2>(src, ix, out, wd, n_dom, R, n_local, P, M, V, nb, s);
+  else
+    fused_words<uint32_t>(src, ix, out, wd, n_dom, R, n_local, P, M, V, nb,
+                          s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// by element width in bytes: both kernels are bit copies (put_signal picks
-// its word from the width and the bases, fused_pulses moves W or uint4)
-#define REPRO_SIGNAL_ENTRIES(BYTES, W)                                       \
+// by element width in bytes: both kernels are bit copies, each picking its
+// word from the width and the bases
+#define REPRO_SIGNAL_ENTRIES(BYTES)                                          \
   extern "C" int halo_put_signal_b##BYTES(                                   \
       const void* src, const void* idx, void* out, void* signal,             \
       int64_t n_dom, int64_t R, int64_t M, int64_t F, int64_t ring,          \
@@ -470,8 +464,8 @@ int launch_fused_pulses(const void* src, const void* idx, void* out,
       const void* src, const void* idx, void* out, void* words,              \
       int64_t n_dom, int64_t R, int64_t n_local, int64_t P, int64_t M,       \
       int64_t F, int64_t ring, int64_t inner, void* stream) {                \
-    return launch_fused_pulses<W>(src, idx, out, words, n_dom, R, n_local,   \
-                                  P, M, F, ring, inner, stream);             \
+    return launch_fused_pulses(BYTES, src, idx, out, words, n_dom, R,        \
+                               n_local, P, M, F, ring, inner, stream);       \
   }
 
 // put_signal's converting form by (source, wire) element type
@@ -485,8 +479,8 @@ int launch_fused_pulses(const void* src, const void* idx, void* out,
                                            stream);                          \
   }
 
-REPRO_SIGNAL_ENTRIES(4, unsigned int)
-REPRO_SIGNAL_ENTRIES(8, unsigned long long)
+REPRO_SIGNAL_ENTRIES(4)
+REPRO_SIGNAL_ENTRIES(8)
 REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_f32, double, float)
 REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_bf16, double, __nv_bfloat16)
 REPRO_PUT_SIGNAL_CONVERT_ENTRY(f64_to_f16, double, __half)

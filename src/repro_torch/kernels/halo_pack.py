@@ -272,15 +272,15 @@ def _ring(mesh_shape: Sequence[int], axis: int, n_dom: int):
     return mesh_shape[axis], math.prod(mesh_shape[axis + 1:])
 
 
-def _words(signal: Optional[torch.Tensor], n: int,
-           like: torch.Tensor) -> torch.Tensor:
+def _words(signal: Optional[torch.Tensor], n: int, like: torch.Tensor,
+           name: str = "signal") -> torch.Tensor:
     """The caller's signal words (int32, at least ``n``, on ``like``'s
     device), or fresh ones."""
     if signal is None:
         return like.new_empty((n,), dtype=torch.int32)
-    check("signal", signal, 1, like.get_device(), torch.int32)
+    check(name, signal, 1, like.get_device(), torch.int32)
     if signal.numel() < n:
-        raise ValueError(f"signal holds {signal.numel()} words, needs {n}")
+        raise ValueError(f"{name} holds {signal.numel()} words, needs {n}")
     return signal
 
 
@@ -366,6 +366,12 @@ def _check_fused_maps(index_maps: torch.Tensor, n_local: int) -> None:
                          f"rows + {M} forwarded rows")
 
 
+def fused_pulses_words(n_dom: int, n_pulses: int) -> int:
+    """The int32 words one :func:`fused_pulses` launch needs: an arrival
+    word and a counter per (domain, pulse), then the ticket."""
+    return 2 * n_dom * n_pulses + 1
+
+
 def fused_pulses_plain(src: torch.Tensor, index_maps: torch.Tensor,
                        n_local: int, mesh_shape: Sequence[int],
                        axis: int) -> torch.Tensor:
@@ -402,9 +408,16 @@ def fused_pulses(src: torch.Tensor, index_maps: torch.Tensor, n_local: int,
     M)`` rows of the previous pulse's receive buffer, negative entries
     zero rows.  A pulse-0 entry ``>= n_local`` or any entry ``>= n_local
     + M`` raises here and traps the kernel on the card.  ``words`` (int32,
-    >= n_dom * n_pulses + 1; fresh when None) hold the arrival word of
-    each (domain, pulse), then the work-item ticket; the launch resets
-    them, and afterwards every arrival word equals M.
+    at least :func:`fused_pulses_words` ``(n_dom, n_pulses)`` = 2 x n_dom
+    x n_pulses + 1, ValueError otherwise, on the CPU too; fresh when None)
+    hold the arrival word of each (domain, pulse), then a counter per
+    (domain, pulse), then the ticket; the launch resets them.  On the
+    card a receiver's arrival word of a pulse is raised by M once all of
+    its M rows of that pulse are stored, so afterwards ``words[:n_dom *
+    n_pulses]`` all equal M, each counter holds the words the kernel
+    stored for its receiver and pulse (M times the row's words at the
+    width the launch chose), and the ticket the launch's block count;
+    words past those are not touched.
     """
     dev = src.get_device()
     check("src", src, 3, dev, _SUFFIX)
@@ -414,6 +427,8 @@ def fused_pulses(src: torch.Tensor, index_maps: torch.Tensor, n_local: int,
     ring, inner = _ring(mesh_shape, axis, n_dom)
     if not 1 <= n_local <= R:
         raise ValueError(f"n_local={n_local} outside [1, {R}]")
+    words = _words(words, fused_pulses_words(n_dom, n_pulses), src,
+                   "words")
     if not src.is_cuda:
         if src.is_cpu:
             return fused_pulses_plain(src, index_maps, n_local, mesh_shape,
@@ -422,7 +437,6 @@ def fused_pulses(src: torch.Tensor, index_maps: torch.Tensor, n_local: int,
     out = src.new_empty(n_dom, n_pulses, M, F)
     if not out.numel():
         return out
-    words = _words(words, n_dom * n_pulses + 1, src)
     fn = _FUSED_PULSES[src.element_size()]
     rc = fn(src.data_ptr(), index_maps.data_ptr(), out.data_ptr(),
             words.data_ptr(), n_dom, R, int(n_local), n_pulses, M, F, ring,

@@ -267,12 +267,19 @@ PUT_MAPS = {"plain": [0, 1, 4], "padded": [-1, 5, 2, -1, 0]}
 # grid splits it over several blocks
 WIDE_ROWS, WIDE_F, WIDE_MAP = 2, 7840, [1]
 # (n_pulses, M) maps: entries >= N_LOCAL forward rows of the previous
-# pulse's receive buffer; "dep2" is the map of check_kernel_halo.py
+# pulse's receive buffer; "dep2" is the map of check_kernel_halo.py (on the
+# card's flat grid, 3x2 domains and F = 40 f32, pulse 0 is 240 words and
+# the first block of 256 would run into pulse 1's forwarded row 1 were
+# pulses not padded to whole blocks); "dep3w" has 300 words a pulse there
+# (two blocks, the second part-filled) and forwards in the first rows of
+# pulses 1 and 2, one of them a padding row
 FUSED_MAPS = {
     "indep": [[0, 1, 2, 3], [5, 4, 3, 2]],
     "dep2": [[0, 1, 2, 3], [4, N_LOCAL + 1, N_LOCAL + 3, -1]],
     "dep3": [[5, 0, -1], [N_LOCAL + 0, 2, N_LOCAL + 1],
              [N_LOCAL + 2, N_LOCAL + 0, 3]],
+    "dep3w": [[0, 5, 2, -1, 4], [N_LOCAL + 1, 1, N_LOCAL + 0, 3, -1],
+              [N_LOCAL + 4, N_LOCAL + 0, 0, -1, N_LOCAL + 2]],
 }
 
 _JAX_RING_SCRIPT = r"""
@@ -506,16 +513,45 @@ def test_put_signal_refuses_a_short_signal_buffer(wire):
                                                        -1, wire))
 
 
+@pytest.mark.parametrize("wire", [None, "bfloat16"])
+def test_fused_pulses_refuses_a_short_words_buffer(wire):
+    """``words`` holds an arrival word and a counter per (domain, pulse),
+    then the ticket: fewer than 2 x n_dom x n_pulses + 1 words raise, here
+    as on the card, before any launch.  (``wire`` is put_signal's case
+    beside it: fused_pulses always ships dense, so the same words serve a
+    plan's wire and dense launches.)"""
+    src = torch.zeros((4, 6, 3))
+    maps = torch.tensor([[0, 5], [N_LOCAL + 1, -1]], dtype=torch.int32)
+    need = halo_pack.fused_pulses_words(4, 2)
+    assert need == 2 * 4 * 2 + 1
+    short = torch.zeros((need - 1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="words holds 16 words, needs 17"):
+        halo_pack.fused_pulses(src, maps, N_LOCAL, (4,), 0, words=short)
+    with pytest.raises(TypeError, match="int32"):
+        halo_pack.fused_pulses(src, maps, N_LOCAL, (4,), 0,
+                               words=torch.zeros((need,), dtype=torch.int64))
+    words = torch.zeros((need,), dtype=torch.int32)
+    got = halo_pack.fused_pulses(src, maps, N_LOCAL, (4,), 0, words=words)
+    assert torch.equal(got, halo_pack.fused_pulses_plain(src, maps, N_LOCAL,
+                                                         (4,), 0))
+    # the plan's words serve both kernels
+    put = halo_pack.put_signal(src, maps[0], (4,), 0, -1, signal=words,
+                               wire_dtype=wire)
+    assert torch.equal(put, halo_pack.put_signal_plain(src, maps[0], (4,), 0,
+                                                       -1, wire))
+
+
 @pytest.mark.parametrize("mesh_shape,widths,pulses,need", [
     ((2, 2, 2), (1, 1, 1), None, 2 * 8),
     ((3, 2, 1), (1, 1, 1), None, 2 * 6),
-    ((2, 2, 2), (2, 2, 2), (2, 2, 2), 8 * 2 + 1),
-    ((3, 1, 1), (2, 1, 1), (2, 1, 1), 3 * 2 + 1)])
+    ((2, 2, 2), (2, 2, 2), (2, 2, 2), 2 * 8 * 2 + 1),
+    ((3, 1, 1), (2, 1, 1), (2, 1, 1), max(2 * 3 * 2 + 1, 6))])
 def test_signal_backend_words_hold_every_launch(mesh_shape, widths, pulses,
                                                 need):
     """The plan's one set of signal words serves every launch: at least
-    2 x n_dom for put_signal (arrival words, then counters) and n_dom x
-    pulses + 1 for fused_pulses (arrival words, then the ticket)."""
+    2 x n_dom for put_signal (arrival words, then counters) and, where a
+    dim has several pulses, 2 x n_dom x pulses + 1 for fused_pulses
+    (arrival words, then counters, then the ticket)."""
     from repro_torch.core.halo_plan import HaloPlan, HaloSpec
     from repro_torch.launch.mesh import make_mesh
 
@@ -1070,30 +1106,86 @@ def test_cuda_put_signal_wire_repeated_launches_keep_the_words(
                 wire=wire)
 
 
+def _fused_blocks(src, maps):
+    """The block count of one fused_pulses launch on the card: P pulses,
+    each n_dom x M x V words padded up to whole 256-thread blocks, V the
+    row's 16-byte, 8-byte or element words."""
+    n_dom, _R, F = src.shape
+    P_, M = maps.shape
+    row = F * src.element_size()
+    w = next((w for w in (16, 8) if w > src.element_size() and row % w == 0
+              and src.data_ptr() % w == 0),
+             src.element_size())
+    V = row // w
+    return P_ * -(-n_dom * M * V // 256), M * V
+
+
+def _repeat_fused(src, maps, n_local, mesh, axes, n=200):
+    """``n`` back-to-back launches per axis, each checked on the device
+    against the plain form, with every arrival word equal to M after each
+    one, the counters and the ticket right after the last, and nothing
+    past the 2 x n_dom x P + 1 words touched."""
+    n_dom = src.shape[0]
+    P_, M = maps.shape
+    need = halo_pack.fused_pulses_words(n_dom, P_)
+    words = torch.full((need + 3,), -7, dtype=torch.int32,
+                       device=src.device)
+    blocks, MV = _fused_blocks(src, maps)
+    for ax in axes:
+        want = halo_pack.fused_pulses_plain(src, maps, n_local, mesh, ax)
+        ints = {4: torch.int32, 8: torch.int64}[want.element_size()]
+        bad = torch.zeros((), dtype=torch.int64, device=src.device)
+        bad_words = torch.zeros_like(bad)
+        n0 = halo_pack.fused_pulses.launches
+        for _ in range(n):
+            got = halo_pack.fused_pulses(src, maps, n_local, mesh, ax,
+                                         words=words)
+            bad += (got.view(ints) != want.view(ints)).sum()
+            bad_words += (words[:n_dom * P_] != M).sum()
+        torch.cuda.synchronize()
+        assert halo_pack.fused_pulses.launches == n0 + n
+        assert int(bad) == 0 and int(bad_words) == 0, (int(bad),
+                                                       int(bad_words))
+        assert words[n_dom * P_:2 * n_dom * P_].tolist() == \
+            [MV] * (n_dom * P_)
+        assert int(words[need - 1]) == blocks          # every block's ticket
+        assert words[need:].tolist() == [-7] * 3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FUSED_MAPS))
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_fused_pulses_matches_plain_bitwise(cuda_device, dtype, name):
-    """The crafted maps (dependent and padded pulses) on a 3x2 mesh along
-    both axes, repeated to shake out races on the arrival words."""
+    """The crafted maps (dependent and padded pulses; "dep2" the one whose
+    first block would straddle the pulses unpadded, "dep3w" pulses of two
+    blocks) on a 3x2 mesh along both axes, 200 launches each to shake out
+    races on the arrival words."""
     rng = np.random.RandomState(5)
     src = torch.from_numpy(_src(rng, (6, N_LOCAL, 40), dtype))
     src = src.to(cuda_device)
     maps = torch.tensor(FUSED_MAPS[name], dtype=torch.int32,
                         device=cuda_device)
-    P_, M = maps.shape
-    words = torch.empty((6 * P_ + 1,), dtype=torch.int32, device=cuda_device)
-    for axis in (0, 1):
-        want = halo_pack.fused_pulses_plain(src, maps, N_LOCAL, (3, 2), axis)
-        n0 = halo_pack.fused_pulses.launches
-        for _ in range(200):
-            got = halo_pack.fused_pulses(src, maps, N_LOCAL, (3, 2), axis,
-                                         words=words)
-            assert torch.equal(got, want)
-        torch.cuda.synchronize()
-        assert halo_pack.fused_pulses.launches == n0 + 200
-        assert words[:-1].tolist() == [M] * (6 * P_)
-        assert int(words[-1]) == P_ * 6 * M           # every ticket taken
+    _repeat_fused(src, maps, N_LOCAL, (3, 2), (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forwarded", [False, True])
+@pytest.mark.parametrize("p,m,f", [(7, 1, 7840), (63, 9, 1120),
+                                   (567, 81, 160)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_fused_pulses_at_the_two_pulse_shapes(cuda_device, dtype, p, m,
+                                                   f, forwarded):
+    """The forward z / y / x shapes of a grappa-45k run at widths (2,2,2) /
+    pulses (2,2,2) on 2x2x2 domains (rows p, M rows a pulse, F elements a
+    row), every word width's grid, with padding rows and, ``forwarded``,
+    pulse 1 reading rows of pulse 0's receive buffer."""
+    rng = np.random.RandomState(p + m)
+    src = torch.from_numpy(_src(rng, (8, p, f), dtype)).to(cuda_device)
+    maps = rng.randint(-1, p, size=(2, m)).astype(np.int32)
+    if forwarded:
+        maps[1, ::2] = p + rng.randint(0, m, size=maps[1, ::2].shape)
+    maps = torch.from_numpy(maps).to(cuda_device)
+    _repeat_fused(src, maps, p, (2, 2, 2), (0, 2), n=50)
 
 
 @pytest.mark.cuda

@@ -796,6 +796,43 @@ def test_cuda_wire_kernels_match_plain_bitwise(cuda_device, dtype,
             src, idx, mesh, axis, shift, wire_dtype))
 
 
+WIRE_CONVERSIONS = [(np.float64, "float32"), (np.float64, "bfloat16"),
+                    (np.float64, "float16"), (np.float32, "bfloat16"),
+                    (np.float32, "float16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,wire_dtype", WIRE_CONVERSIONS)
+@pytest.mark.parametrize("n_dom,p,m,f,offset", [
+    (6, 33, 5, 6, 0), (6, 33, 5, 10, 0), (6, 33, 5, 7, 0),
+    (6, 33, 5, 6, 1), (6, 33, 5, 10, 1), (6, 33, 5, 7, 1),
+    (8, 7, 1, 7840, 0)])
+def test_cuda_pack_wire_flat_grid_words(cuda_device, dtype, wire_dtype,
+                                        n_dom, p, m, f, offset):
+    """B1w on its flat grid: rows of F = 6 and 10 (8-byte wire words, or
+    4 source elements where the wire is 16-bit and F allows), F = 7 (one
+    element a thread), each also from a base one element past a 16-byte
+    boundary (the 8-byte and one-element paths), and the forward z pulse's
+    one wide row; bitwise the plain form on near-tie values, padding rows
+    included."""
+    rng = np.random.RandomState(f + offset)
+    vals = torch.from_numpy(tie_values(rng, (n_dom, p, f), dtype))
+    flat = torch.empty(vals.numel() + offset, dtype=vals.dtype,
+                       device=cuda_device)
+    src = flat[offset:].view(vals.shape)
+    src.copy_(vals)
+    idx = rng.randint(0, p, size=(m,)).astype(np.int32)
+    if m > 1:
+        idx[1::3] = -1
+    idx = torch.from_numpy(idx).to(cuda_device)
+    n0 = halo_pack.pack.wire_launches
+    got = halo_pack.pack(src, idx, wire_dtype=wire_dtype)
+    torch.cuda.synchronize()
+    assert halo_pack.pack.wire_launches == n0 + 1
+    assert same_bits(got, halo_pack.pack_plain(src, idx, wire_dtype))
+    assert same_bits(got, halo_pack.pack_plain(vals, idx.cpu(), wire_dtype))
+
+
 @pytest.mark.cuda
 def test_cuda_wire_engine_runs_through_the_kernels(cuda_device):
     """A 2x2x2 f64 bfloat16-wire run on the card: the converting pack and
