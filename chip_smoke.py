@@ -6,6 +6,16 @@
         # phase 15's kernel part alone, on the kernels of another checkout
         # (a parent commit unpacked with git archive), measured as below;
         # prints no result lines
+    python3 chip_smoke.py --steps CHECKOUT     # host and device ms per
+        # steady step of every MD cell of phase 16, in its pipeline mode
+        # and the other, through another checkout's default path (a
+        # same-call comparison of commits); prints no result lines
+
+The MD engine issues each block as a CUDA graph by default on the card
+(``capture="block"``: the first block of a shape runs eagerly, the next
+captures, later ones replay), so every MD phase runs the captured path;
+its profiles and timed blocks come after two untimed blocks, so they
+time replays.
 
 Phases, each asserting (any failure exits non-zero with no result line):
 
@@ -130,7 +140,17 @@ Phases, each asserting (any failure exits non-zero with no result line):
     200 steps held to the reference's classification; a profiled steady
     block per format (the converting kernels' device us per launch);
     host ms per steady step for the dense payload, bfloat16 and int8_ef,
-    in turns.
+    in turns;
+16. step graphs: every MD cell (dense and pruned pallas, nstprune 0
+    and 5; signal double_buffer at depths 2-4 with overlap_rebin; signal
+    w2p2; f64 float32 / int8_ef wires through pallas and signal) runs
+    ``simulate(40)`` on the default, captured path and with
+    ``capture="off"``, bitwise equal in PE, KE, momentum, final state,
+    migration and schedule, with the same launch counts and at least
+    20 replayed steps; per cell the captures and replays (with each
+    capture's ms), the steady block's host ms per step, its device ms per
+    step, busy share and kernels per step (torch.profiler), the host API
+    launches per step and one step graph's nodes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -306,15 +326,24 @@ def graph_ops(fn, n: int = 10) -> dict:
     type: ``n`` calls are captured into a CUDA graph and its nodes read
     through the driver API.  Unlike a profiler session, a capture loses
     no operation."""
-    import ctypes
     import torch
-    cu = ctypes.CDLL("libcuda.so.1")
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g):
         for _ in range(n):
             fn()
+    kinds = graph_nodes(g)
+    del g
+    torch.cuda.synchronize()
+    return {k: v / n for k, v in kinds.items()}
+
+
+def graph_nodes(g) -> dict:
+    """The nodes of a captured ``torch.cuda.CUDAGraph(keep_graph=True)``,
+    counted by type through the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(g.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     rc = cu.cuGraphGetNodes(graph, None, ctypes.byref(count))
@@ -330,9 +359,7 @@ def graph_ops(fn, n: int = 10) -> dict:
         name = GRAPH_NODE_TYPES[t.value] \
             if 0 <= t.value < len(GRAPH_NODE_TYPES) else f"type {t.value}"
         kinds[name] = kinds.get(name, 0) + 1
-    del g
-    torch.cuda.synchronize()
-    return {k: v / n for k, v in kinds.items()}
+    return kinds
 
 
 def device_txt(d, bound_us, ops=None):
@@ -647,7 +674,11 @@ def _profile(fn, n: int, steps_per_call: int = 1, host_calls=None,
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
-        fn()                                  # warm the allocator
+        # warm the allocator and, for an engine block, its step graphs
+        # (a step unit's first two calls of a key run eagerly, the
+        # third captures)
+        fn()
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -754,11 +785,16 @@ def host_constants_before_after(eng, rs, rounds: int = 4):
     """Dense host ms per steady step with the force pass's constants
     built by ``torch.tensor`` on every call (a blocking host copy each,
     as before they were cached) against now: one 20-step block from the
-    same state per timing, the two in turns.  A repair, not a claim."""
+    same state per timing, the two in turns, issued eagerly
+    (``capture="off"``: a replayed graph builds no constant).  A repair,
+    not a claim."""
     import contextlib
     import statistics
     import torch
+    from repro_torch import MDEngine
     from repro_torch.core.md import forces
+
+    eng = MDEngine(eng.system, eng.mesh, eng.spec, capture="off")
 
     @contextlib.contextmanager
     def per_call_constants():
@@ -1588,13 +1624,26 @@ def signal_profile_phase(system):
         del eng, rs
 
 
+def warm_blocks(engines, state, n: int = 2):
+    """``n`` untimed steady blocks per engine from ``state``: under
+    block capture a step unit's first two calls of a key run eagerly,
+    the third captures, so the steps of timed blocks after these
+    replay."""
+    import torch
+    for eng in engines:
+        for _ in range(n):
+            eng.run_block(eng.begin_run(state), eng.system.params.nstlist)
+    torch.cuda.synchronize()
+
+
 def host_off_vs_double_buffer(system, rounds: int = 6):
     """Host ms per steady step, signal / off against signal /
     double_buffer, dense and pruned: one 20-step block from the same
     post-rebin state per timing, the two modes in turns (off first in
-    even rounds, double_buffer first in odd ones).  Both modes issue the
-    same serial chain on one stream; the difference is the ledger's slot
-    bookkeeping, not overlap."""
+    even rounds, double_buffer first in odd ones), after two untimed
+    blocks each (a step unit's first two calls run eagerly, the third
+    captures).  Each step is a replayed CUDA graph; double_buffer's are
+    the ring's prologue, unit per slot and epilogue, on one stream."""
     import statistics
     import torch
 
@@ -1603,6 +1652,7 @@ def host_off_vs_double_buffer(system, rounds: int = 6):
                 for m in ("off", "double_buffer")}
         state = engs["off"].init_state()
         nst = system.params.nstlist
+        warm_blocks(engs.values(), state)
         times = {m: [] for m in engs}
         for r in range(rounds):
             for m in (("off", "double_buffer") if r % 2 == 0
@@ -2287,8 +2337,9 @@ def wire_profile(system):
 
 def wire_speed(system, rounds: int = 5):
     """Host ms per steady step (one 20-step block from the same
-    post-rebin state, after a sync), dense payload against bfloat16 and
-    int8_ef, pallas / off, in turns."""
+    post-rebin state, after a sync, following two untimed blocks each),
+    dense payload against bfloat16 and int8_ef, pallas / off, in
+    turns."""
     import statistics
     import torch
 
@@ -2296,6 +2347,7 @@ def wire_speed(system, rounds: int = 5):
     engs = {wd: wire_engine(system, "pallas", wd) for wd in fmts}
     state = engs[None].init_state()
     nst = system.params.nstlist
+    warm_blocks(engs.values(), state)
     times = {wd: [] for wd in fmts}
     for r in range(rounds):
         for wd in (fmts if r % 2 == 0 else fmts[::-1]):
@@ -2311,10 +2363,186 @@ def wire_speed(system, rounds: int = 5):
               for wd, t in times.items()))
 
 
+# ---- phase 16: step graphs ----------------------------------------------------
+
+def block_cells(system, system64):
+    """Every MD cell of PERF.md's section 4 as ``(label, system, engine
+    arguments)`` for ``signal_engine``: dense and pruned pallas (nstprune
+    0 and 5), signal double_buffer at depths 2-4 with overlap_rebin,
+    signal w2p2, and f64 float32 / int8_ef wires through pallas and
+    signal."""
+    pruned = dict(backend="pallas", force_backend="pallas")
+    cells = [("dense pallas/off", system, dict(backend="pallas")),
+             ("pruned pallas/off", system, pruned),
+             ("pruned pallas/off nstprune5", system,
+              dict(pruned, nstprune=5))]
+    for depth in (2, 3, 4):
+        cells.append((f"signal/db{depth} ovr", system, dict(
+            pipeline="double_buffer", pipeline_depth=depth,
+            overlap_rebin=True)))
+    cells.append(("signal/db2 w2p2", system, dict(
+        widths=(2, 2, 2), pulses=(2, 2, 2), pipeline="double_buffer")))
+    for wd in ("float32", "int8_ef"):
+        cells.append((f"f64 {wd} pallas/off", system64,
+                      dict(pruned, wire_dtype=wd)))
+        cells.append((f"f64 {wd} signal/db2", system64, dict(
+            force_backend="pallas", pipeline="double_buffer",
+            wire_dtype=wd)))
+    return cells
+
+
+def steady_blocks(eng, rounds: int):
+    """Host ms per step of ``rounds`` steady blocks (each a host clock
+    between two syncs, fused with its rebin under overlap_rebin) after
+    two untimed ones, then one profiled block: ``(times, profile, host
+    runtime calls per step)``."""
+    import torch
+    nst = eng.system.params.nstlist
+    rs = eng.begin_run()
+
+    def block():
+        eng.run_block(rs, nst, fuse=eng.overlap_rebin)
+
+    for _ in range(2):
+        block()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / nst)
+    host = {}
+    prof = _profile(block, 1, nst, host_calls=host)
+    return times, prof, {k: v / nst for k, v in host.items()}
+
+
+def launch_calls(host) -> float:
+    """Host API launches per step: kernel and graph launches, memsets and
+    copies, from the profiler's runtime-call counts."""
+    return sum(v for k, v in host.items()
+               if "Launch" in k or "Memset" in k or "Memcpy" in k)
+
+
+def block_graph_phase(system, system64, rounds: int = 3):
+    """Every MD cell through the default, captured path against
+    ``capture="off"``: ``simulate(40)`` bitwise (PE, KE, momentum, final
+    state, migration, schedule) with the same launch counts; the cell's
+    captures / replays, the steady block's host and device ms per step,
+    busy share, host API launches and graph nodes per step."""
+    import statistics
+
+    for label, sys_, kw in block_cells(system, system64):
+        t0 = time.perf_counter()
+        eng_off = signal_engine(sys_, capture="off", **kw)
+        eng = signal_engine(sys_, **kw)
+        check(eng.capture == "block", f"{label}: the default on the card "
+              f"is {eng.capture!r}")
+        ref = run_counted(eng_off)
+        got = run_counted(eng)
+        pruned = kw.get("force_backend") == "pallas"
+        same_run(got, ref, f"{label}: block vs off",
+                 *((eng, eng_off) if pruned else ()))
+        check(got[4] == ref[4], f"{label}: launches {got[4]} captured, "
+              f"{ref[4]} eager")
+        st = eng.block_graphs.stats()
+        steps = {k: v for k, v in st["replays_by_kind"].items()
+                 if k == "step" or k.startswith("unit")}
+        check(sum(steps.values()) >= 20, f"{label}: the steps of "
+              f"simulate(40) replayed {steps} times: {st}")
+        times, prof, host = steady_blocks(eng, rounds)
+        st = eng.block_graphs.stats()
+        nst = sys_.params.nstlist
+        nodes = {}
+        for key, blk in eng.block_graphs.graphs():
+            if key[0] in ("step", "unit1"):
+                nodes = graph_nodes(blk.graph)      # one step's
+        dev = "not measured" if prof is None else (
+            f"device {prof[1] / 1e3:.4f} ms/step, busy {prof[3]:.4f}, "
+            f"{prof[2]:.2f} kernels/step")
+        print(f"block graphs {label}: simulate(40) bitwise equal to "
+              f"capture='off', launches {got[4]}; {st['eager']} eager, "
+              f"{st['captures']} captures "
+              f"({', '.join(f'{m:.1f}' for m in st['capture_ms'])} ms), "
+              f"{st['replays']} replays {st['replays_by_kind']}; steady "
+              f"(fixed ladder, no rebin) host ms/step median "
+              f"{statistics.median(times):.4f} {times}; {dev}; host API "
+              f"launches/step {launch_calls(host):.2f}; graph nodes/step "
+              f"{nodes} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del eng, eng_off, ref, got
+
+
+def steps_phase(rounds: int = 5):
+    """Host and device ms per steady step of every MD cell, in its
+    pipeline mode and the other (off against double_buffer), through
+    the engine's
+    default path, and in its own mode the ms per step of a first
+    ``simulate(40)`` and ``simulate(200)`` on fresh engines (with the
+    block graphs' eager / capture / replay counts): a same-call
+    comparison of checkouts (a parent without block capture issues
+    eagerly)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import make_grappa_like
+
+    system = make_grappa_like(45_000, seed=0)
+    system64 = make_grappa_like(45_000, seed=0, dtype=np.float64)
+    for label, sys_, kw in block_cells(system, system64):
+        db = kw.get("pipeline") == "double_buffer"
+        for mode in (("double_buffer", "off") if db
+                     else ("off", "double_buffer")):
+            kw2 = dict(kw, pipeline=mode)
+            if mode == "off":
+                kw2.pop("pipeline_depth", None)
+            eng = signal_engine(sys_, **kw2)
+            fresh = ""
+            if mode == kw.get("pipeline", "off"):
+                # first runs on fresh engines, rebins and prunes
+                # included: under block capture a step unit's first two
+                # calls of a key (a tier ladder) run eagerly, the third
+                # captures
+                for n_steps in (40, 200):
+                    run = eng if n_steps == 40 else signal_engine(sys_, **kw2)
+                    state = run.init_state()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run.simulate(n_steps, state=state)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+                    graphs = getattr(run, "block_graphs", None)
+                    fresh += (f"; fresh simulate({n_steps}) {ms:.4f} "
+                              "ms/step" + ("" if graphs is None else
+                                           " (" + ", ".join(
+                                               f"{k} {v}" for k, v in
+                                               graphs.stats().items()
+                                               if k in ("eager", "captures",
+                                                        "replays",
+                                                        "captures_by_kind"))
+                                           + ")"))
+                    del run
+            times, prof, host = steady_blocks(eng, rounds)
+            graphs = getattr(eng, "block_graphs", None)
+            st = graphs.stats() if graphs is not None else None
+            dev = "device not measured" if prof is None else (
+                f"device {prof[1] / 1e3:.4f} ms/step, busy {prof[3]:.4f}, "
+                f"{prof[2]:.2f} kernels/step")
+            print(f"steps {label} [{mode}]: host ms/step median "
+                  f"{statistics.median(times):.4f} [{min(times):.4f}, "
+                  f"{max(times):.4f}]; {dev}; host API launches/step "
+                  f"{launch_calls(host):.2f}; graphs "
+                  + ("none" if st is None else
+                     f"{st['captures']} captures, {st['replays']} replays")
+                  + fresh)
+            del eng
+
+
 def main():
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] != "--kernels"):
-        fail("usage: chip_smoke.py [--kernels CHECKOUT]")
+    if args and (len(args) != 2 or args[0] not in ("--kernels", "--steps")):
+        fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT]")
     src = Path(args[1]).resolve() / "src" if args else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -2333,6 +2561,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{kind}")
 
+    if args and args[0] == "--steps":
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded"])
+        steps_phase()
+        print(card)
+        return
     if args:
         # phase 7, phase 10 and phase 15's kernel part alone on another
         # checkout's kernels, measured as this script measures its own (a
@@ -2416,6 +2650,11 @@ def main():
     wire_drift_phase(system64)
     wire_profile(system64)
     wire_speed(system64)
+
+    # 16. every MD cell through its step graphs against capture="off"
+    t16 = time.perf_counter()
+    block_graph_phase(make_grappa_like(45_000, seed=0), system64)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
     del system64
 
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",

@@ -131,10 +131,12 @@ class HaloBackend:
     critical_path: str = "serialized"
 
     def fwd(self, plan: "HaloPlan", local: torch.Tensor,
-            wrap_shift: Optional[torch.Tensor]) -> torch.Tensor:
+            wrap_shift: Optional[torch.Tensor], slot: int = 0
+            ) -> torch.Tensor:
         raise NotImplementedError
 
-    def rev(self, plan: "HaloPlan", ext: torch.Tensor) -> torch.Tensor:
+    def rev(self, plan: "HaloPlan", ext: torch.Tensor, slot: int = 0
+            ) -> torch.Tensor:
         raise NotImplementedError
 
     def ships_fwd_wire(self, plan: "HaloPlan",
@@ -155,11 +157,11 @@ class SerializedBackend(HaloBackend):
 
     name = "serialized"
 
-    def fwd(self, plan, local, wrap_shift):
+    def fwd(self, plan, local, wrap_shift, slot=0):
         return _halo.exchange_fwd_serialized(local, plan.sched,
                                              plan.axis_sizes, wrap_shift)
 
-    def rev(self, plan, ext):
+    def rev(self, plan, ext, slot=0):
         return _halo.exchange_rev_serialized(ext, plan.sched,
                                              plan.axis_sizes)
 
@@ -170,11 +172,11 @@ class FusedBackend(HaloBackend):
     name = "fused"
     critical_path = "fused"
 
-    def fwd(self, plan, local, wrap_shift):
+    def fwd(self, plan, local, wrap_shift, slot=0):
         return _halo.exchange_fwd_fused(local, plan.sched, plan.axis_sizes,
                                         wrap_shift)
 
-    def rev(self, plan, ext):
+    def rev(self, plan, ext, slot=0):
         return _halo.exchange_rev_fused(ext, plan.sched, plan.axis_sizes,
                                         self._local_shape(plan, ext))
 
@@ -313,7 +315,7 @@ class PallasBackend(HaloBackend):
         return x.contiguous().reshape(n_dom, math.prod(x.shape[nd:nd + d + 1]),
                                       -1)
 
-    def fwd(self, plan, local, wrap_shift):
+    def fwd(self, plan, local, wrap_shift, slot=0):
         sched = plan.sched
         nd = plan.spec.ndim
         local_shape = tuple(local.shape[nd:2 * nd])
@@ -338,7 +340,7 @@ class PallasBackend(HaloBackend):
             ext = self._shift_halos(plan, ext, wrap_shift, local_shape)
         return ext
 
-    def rev(self, plan, ext):
+    def rev(self, plan, ext, slot=0):
         sched = plan.sched
         nd = plan.spec.ndim
         _, rev_maps = self._maps(plan, self._local_shape(plan, ext))
@@ -699,49 +701,56 @@ class HaloPlan:
         return (slice(None),) * self.spec.ndim + tuple(
             slice(0, int(n)) for n in local_shape)
 
-    def fwd(self, local: torch.Tensor, wrap_shift=_UNSET) -> torch.Tensor:
+    def fwd(self, local: torch.Tensor, wrap_shift=_UNSET, slot: int = 0
+            ) -> torch.Tensor:
         """Coordinate exchange: ``(*domains, *local)`` -> extended blocks
         (each local dim ``d`` grows by ``widths[d]``).
 
         With ``spec.wire_dtype`` an f64 payload is gridded to the float32
         floor before the sends and the exact body spliced back after:
-        received halo data is wire-lossy, local data never is.
+        received halo data is wire-lossy, local data never is.  ``slot``
+        is the step pipeline's ledger slot: the ``signal`` backend keeps
+        one set of signal words per slot, so launches of different slots
+        never share a word; the other backends ignore it.
         """
         self._check(local)
         shift = self._resolve_shift(wrap_shift)
         if self.wire_pack_dtype(local.dtype) is None:
-            return self.backend.fwd(self, local, shift)
+            return self.backend.fwd(self, local, shift, slot)
         # the backend's extended block is a new tensor: splice in place
-        ext = self.backend.fwd(self, self.wire.fwd_roundtrip(local), shift)
+        ext = self.backend.fwd(self, self.wire.fwd_roundtrip(local), shift,
+                               slot)
         ext[self._body_idx(local.shape[self.spec.ndim:])] = local
         return ext
 
-    def rev(self, ext: torch.Tensor) -> torch.Tensor:
+    def rev(self, ext: torch.Tensor, slot: int = 0) -> torch.Tensor:
         """Force-return exchange (adjoint of :meth:`fwd`).  With a wire
         format the halo-region contributions are wire-rounded before the
-        return puts; the body (never sent) stays exact."""
+        return puts; the body (never sent) stays exact.  ``slot`` as in
+        :meth:`fwd`."""
         self._check(ext)
         if not self._wire_active(ext):
-            return self.backend.rev(self, ext)
-        return self.backend.rev(self, self._rev_wire(ext, None)[0])
+            return self.backend.rev(self, ext, slot)
+        return self.backend.rev(self, self._rev_wire(ext, None)[0], slot)
 
     # the reference's device-local names; every call here sees all domains
     fwd_local = fwd
     rev_local = rev
 
-    def rev_local_ef(self, ext: torch.Tensor, ef: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def rev_local_ef(self, ext: torch.Tensor, ef: torch.Tensor,
+                     slot: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`rev` with error-feedback state (``ext``-shaped)."""
         self._check(ext)
         q, new_ef = self._rev_wire(ext, ef)
-        return self.backend.rev(self, q), new_ef
+        return self.backend.rev(self, q, slot), new_ef
 
-    def rev_local_raw(self, ext: torch.Tensor) -> torch.Tensor:
+    def rev_local_raw(self, ext: torch.Tensor, slot: int = 0
+                      ) -> torch.Tensor:
         """Reverse exchange with no wire seam, for a buffer that is
         already wire-gridded (the step pipeline's slot ring decodes at
         drain; quantizing again would apply error feedback twice)."""
         self._check(ext)
-        return self.backend.rev(self, ext)
+        return self.backend.rev(self, ext, slot)
 
     def _rev_wire(self, ext, ef):
         q, new_ef = self.wire.roundtrip(ext, ef)

@@ -39,6 +39,20 @@ f64 coordinates cross the wire as f32, the force return in the named
 format; the plan build rejects a format whose measured drift exceeds the
 dense-f32 bound (``verify="warn"`` / ``"off"`` waive it).
 
+``capture="block"`` (the default on CUDA) issues each step's device
+work (the step pipeline's serial step, or its ring's prologue, unit per
+slot and epilogue) and each between-block rebin and prune as a CUDA
+graph (:mod:`repro_torch.core.pipeline.block_graph`): the first two
+calls of a function and input shape (a tier ladder) run eagerly, the
+third captures, later ones replay, so a block replays its steps from
+its fourth on whatever its ladder.  What stays eager is the block's step
+context (its atoms' halo indices and tier batches, and with
+``nstprune`` each sub-block's rolling prune), and on the host between
+blocks the read of the prune's histograms, the rolling prune's overflow
+and the migration counters.  ``capture="off"`` (the default on the CPU)
+issues every operation eagerly, the port's counterpart of
+``jax.disable_jit``; both give the same bits.
+
 The reference's other knobs (the static ladder, tracing, fault
 injection, health monitors) come with later slices of the port; asking
 for any of them raises ``NotImplementedError``.
@@ -78,16 +92,19 @@ from repro_torch.core.md.schedule_opt import (
     tier_rows,
 )
 from repro_torch.core.md.system import MDSystem
+from repro_torch.core.pipeline.block_graph import BlockGraphs
+from repro_torch.core.pipeline.ledger import LedgerState
 from repro_torch.core.pipeline.step_pipeline import (
     PIPELINE_MODES,
     StepFns,
     StepPipeline,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import const, resolve_device
 from repro_torch.launch.mesh import DomainMesh
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
+CAPTURE_MODES = ("block", "off")
 
 
 @dataclasses.dataclass
@@ -105,6 +122,7 @@ class RunState:
     disable: bool             # next block falls back to the outer ladder
     step: int                 # steps completed so far
     diags: list               # per-rebin migration diagnostics (ints)
+    ledger: LedgerState | None = None   # the last block's final ledger
 
 
 def _not_ported(knob: str, value, slice_name: str):
@@ -125,7 +143,10 @@ class MDEngine:
     ``overlap_rebin``.  ``verify`` (``"error"`` / ``"warn"`` / ``"off"``)
     is the build-time gate of the schedule verifier and of the wire
     format's drift (``wire_dtype``, or ``spec.wire_dtype``).  ``device``
-    defaults to ``"cuda"`` and raises when CUDA is absent.
+    defaults to ``"cuda"`` and raises when CUDA is absent.  ``capture``
+    (``"block"`` / ``"off"``; None: ``"block"`` on CUDA, ``"off"`` on the
+    CPU) issues each block as a CUDA graph or every operation eagerly;
+    ``"block"`` on the CPU raises.
     """
 
     def __init__(self, system: MDSystem, mesh: DomainMesh,
@@ -144,8 +165,18 @@ class MDEngine:
                  obs=None, trace: bool = False,
                  inject: bool = False, health: bool = False,
                  static_ladder: bool = False,
-                 device="cuda"):
+                 device="cuda", capture: str | None = None):
         self.device = resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        if capture is None:
+            capture = "block" if on_cuda else "off"
+        if capture not in CAPTURE_MODES:
+            raise ValueError(f"unknown capture mode {capture!r}; "
+                             f"available: {CAPTURE_MODES}")
+        if capture == "block" and not on_cuda:
+            raise ValueError("capture='block' needs a CUDA device (a CUDA "
+                             "graph per block); the CPU issues eagerly, "
+                             "capture='off'")
         if spec is None:
             spec = HaloSpec(axis_names=AXES, widths=(1, 1, 1))
         if spec.axis_names != tuple(AXES):
@@ -267,12 +298,21 @@ class MDEngine:
             n_pulses=max(1, self.plan.sched.total_pulses), verify=verify,
             inner_safety=self.inner_safety, r_list_factor=r_list_factor,
             mig_frac=mig_frac, capacity_safety=capacity_safety)
+        self.capture = capture
+        # the graphs' cache; a key's leading part is this engine's
+        # configuration (mode, depth, dtype, backend, wire format)
+        self.block_graphs = BlockGraphs(self.device) \
+            if capture == "block" else None
+        self._graph_key = (self.pipeline_mode, self.pipeline_depth,
+                           self.dtype, self.backend, self.wire_dtype)
         # verify="off": the engine's gate verified a superset (block length,
         # nstprune sub-blocks, rebin fusion) of the pipeline's own probe
         self.pipeline = StepPipeline.build(self.plan, self._make_step_fns(),
                                            mode=self.pipeline_mode,
                                            depth=self.pipeline_depth,
-                                           verify="off")
+                                           verify="off",
+                                           graphs=self.block_graphs,
+                                           graph_key=self._graph_key)
 
     @property
     def spec(self) -> HaloSpec:
@@ -406,7 +446,7 @@ class MDEngine:
             else:
                 F_trim, pe = compute_forces(self._trim_ext(ext_f),
                                             ctx["ext_i_trim"], layout, ff)
-            return self._pad_force(F_trim, ext_f.shape), {"pe": torch.sum(pe)}
+            return self._pad_force(F_trim, ext_f.shape), {"pe": pe}
 
         def finish(cell_f, vel_half, f_new, ctx):
             valid = ctx["cell_i"][..., 0] >= 0
@@ -417,12 +457,22 @@ class MDEngine:
             vel_new = vel_half + torch.where(vmask, f_new * half_dt_m, zero)
             cell_f = cell_f.clone()
             cell_f[..., 4:7] = torch.where(vmask, vel_new, zero)
-            ke = integrate.kinetic_energy(vel_new, valid, mass)
-            mom = integrate.momentum(torch.where(vmask, vel_new, zero),
-                                     valid, mass)
-            return cell_f, f_new, {"ke": ke, "mom": mom}
+            return cell_f, f_new, {"vel": vel_new, "valid": valid}
 
-        return StepFns(begin=begin, force=force, finish=finish)
+        def reduce(raw):
+            # the step's metrics: no later step waits for them
+            out = {}
+            if "pe" in raw:
+                out["pe"] = torch.sum(raw["pe"])
+            if "vel" in raw:
+                vel, valid = raw["vel"], raw["valid"]
+                out["ke"] = integrate.kinetic_energy(vel, valid, mass)
+                out["mom"] = integrate.momentum(
+                    torch.where(valid[..., None], vel, zero), valid, mass)
+            return out
+
+        return StepFns(begin=begin, force=force, finish=finish,
+                       reduce=reduce)
 
     def _block_ctx(self, cell_i):
         return {"cell_i": cell_i,
@@ -436,47 +486,66 @@ class MDEngine:
             self.pair_schedule, ctx["ext_i_trim"],
             sel[..., :tier_rows(tiers)], tiers)}
 
+    def block_dense(self, cell_f, cell_i, force, n_steps: int):
+        """Dense-backend block; returns ``(cell_f, force, metrics, None,
+        ledger)``."""
+        cell_f, f_last, metrics, led = self.pipeline.run_local(
+            cell_f, force, n_steps, self._block_ctx(cell_i))
+        return cell_f, f_last, metrics, None, led
+
     def block_sched(self, cell_f, cell_i, force, sel, n_steps: int, tiers,
                     tiers_inner):
         """Pruned-backend block; returns ``(cell_f, force, metrics,
-        overflow)``, the overflow an int32 scalar on the device.
+        overflow, ledger)``, the overflow an int32 scalar on the device,
+        the ledger that of the last sub-block.
 
         With an inner ladder the block is a chain of ``nstprune``-step
-        sub-blocks: each starts with the rolling prune (a current-coordinate
-        re-partition of the outer prefix) and runs the step pipeline over
-        the inner ladder only.  The overflow counts survivors the static
-        ladder could not seat (0 = the inner approximation held).
+        sub-blocks (:meth:`sub_block`): each starts with the rolling prune
+        (a current-coordinate re-partition of the outer prefix) and runs
+        the step pipeline over the inner ladder only.  The overflow counts
+        survivors the static ladder could not seat (0 = the inner
+        approximation held).
         """
         ctx = self._block_ctx(cell_i)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if not tiers_inner:
-            cell_f, f_last, metrics, _led = self.pipeline.run_local(
+            cell_f, f_last, metrics, led = self.pipeline.run_local(
                 cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers))
-            return cell_f, f_last, metrics, zero
-        budget = torch.tensor(
-            tier_cum(tiers_inner, SLOT_QUANTUM, self.pair_schedule.levels),
-            dtype=torch.int32, device=self.device)
+            return cell_f, f_last, metrics, zero, led
         sel_exec = sel[..., :tier_rows(tiers)]
         overflow, f_cur, chunks, done = zero, force, [], 0
         while done < n_steps:
             take = min(self.nstprune, n_steps - done)
-            # the done=0 refresh re-derives the partition the boundary
-            # prune already saw (same coordinates), as the reference does:
-            # sel stays outer-packed, so force_fn and the outer-ladder
-            # fallback stay valid on it
-            ext_f = self.plan.fwd_local(cell_f[..., :4])
-            sel_exec, cum_s = roll_prune(
-                self.pair_schedule, sel_exec, self._trim_ext(ext_f),
-                ctx["ext_i_trim"], self.r_inner)
-            overflow = torch.maximum(
-                overflow, torch.amax(torch.clamp(cum_s - budget, min=0)))
-            cell_f, f_cur, m, _led = self.pipeline.run_local(
-                cell_f, f_cur, take,
-                self._sched_ctx(ctx, sel_exec, tiers_inner))
+            cell_f, f_cur, m, overflow, sel_exec, led = self.sub_block(
+                cell_f, cell_i, ctx["ext_i_trim"], f_cur, sel_exec,
+                overflow, take, tiers_inner)
             chunks.append(m)
             done += take
         metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
-        return cell_f, f_cur, metrics, overflow
+        return cell_f, f_cur, metrics, overflow, led
+
+    def sub_block(self, cell_f, cell_i, ext_i_trim, force, sel_exec,
+                  overflow, n_steps: int, tiers_inner):
+        """One rolling-prune sub-block; returns ``(cell_f, force, metrics,
+        overflow, sel_exec, ledger)``.  The first sub-block's refresh
+        re-derives the partition the boundary prune already saw (same
+        coordinates), as the reference does: ``sel`` stays outer-packed,
+        so ``force_fn`` and the outer-ladder fallback stay valid on it."""
+        budget = const(
+            tuple(tier_cum(tiers_inner, SLOT_QUANTUM,
+                           self.pair_schedule.levels)),
+            torch.int32, self.device)
+        ext_f = self.plan.fwd_local(cell_f[..., :4])
+        sel_exec, cum_s = roll_prune(
+            self.pair_schedule, sel_exec, self._trim_ext(ext_f), ext_i_trim,
+            self.r_inner)
+        overflow = torch.maximum(
+            overflow, torch.amax(torch.clamp(cum_s - budget, min=0)))
+        ctx = {"cell_i": cell_i, "ext_i_trim": ext_i_trim}
+        cell_f, force, m, led = self.pipeline.run_local(
+            cell_f, force, n_steps, self._sched_ctx(ctx, sel_exec,
+                                                    tiers_inner))
+        return cell_f, force, m, overflow, sel_exec, led
 
     def do_prune(self, cell_f, cell_i):
         """The between-block outer prune; the exec shapes must agree
@@ -489,29 +558,6 @@ class MDEngine:
         dims = (0, 1, 2)
         return (sel, torch.amax(cum, dim=dims),
                 torch.amax(cum_inner, dim=dims), torch.amax(occ))
-
-    # the fused between-block path (overlap_rebin): the block's steps, then
-    # its rebin / migration (and, pruned, the boundary prune), one call
-
-    def block_rebin(self, cell_f, cell_i, force, n_steps: int):
-        """Dense block plus its rebin; returns ``(cell_f, cell_i, force,
-        metrics, diag)`` with the rebin's force carry."""
-        cell_f, _f_last, metrics, _led = self.pipeline.run_local(
-            cell_f, force, n_steps, self._block_ctx(cell_i))
-        new_f, new_i, force, diag = self.rebin_fn(cell_f, cell_i)
-        return new_f, new_i, force, metrics, diag
-
-    def block_sched_rebin(self, cell_f, cell_i, force, sel, n_steps: int,
-                          tiers, tiers_inner):
-        """Pruned block plus its rebin and the next block's prune; returns
-        ``(cell_f, cell_i, force, metrics, diag, sel, cum, cum_inner, occ,
-        overflow)``."""
-        cell_f, _f_last, metrics, ovf = self.block_sched(
-            cell_f, cell_i, force, sel, n_steps, tiers, tiers_inner)
-        new_f, new_i, force, diag = self.rebin_fn(cell_f, cell_i)
-        sel2, cum, cum_inner, occ = self.do_prune(new_f, new_i)
-        return (new_f, new_i, force, metrics, diag, sel2, cum, cum_inner,
-                occ, ovf)
 
     def rebin_fn(self, cell_f, cell_i):
         """Wrap, migrate, re-bin, then the force carry for the new bins
@@ -574,7 +620,7 @@ class MDEngine:
         right after the rebin; None on the dense backend."""
         if self.force_backend == "dense":
             return None
-        sel, cum, cum_inner, occ = self.do_prune(cell_f, cell_i)
+        sel, cum, cum_inner, occ = self._prune(cell_f, cell_i)
         return self._bucket_exec(sel, cum, cum_inner, occ,
                                  disable_inner=disable_inner)
 
@@ -635,13 +681,27 @@ class MDEngine:
                 stacklevel=3)
         return True
 
+    def _issue(self, what: str, fn, inputs):
+        """``fn(*inputs)`` on the device: eagerly (``capture="off"``), or
+        through this engine's graphs, keyed by ``what`` and the inputs'
+        shapes."""
+        if self.block_graphs is None:
+            return fn(*inputs)
+        return self.block_graphs.run(what, self._graph_key, fn, inputs)
+
+    def _rebin(self, cell_f, cell_i):
+        return self._issue("rebin", self.rebin_fn, (cell_f, cell_i))
+
+    def _prune(self, cell_f, cell_i):
+        return self._issue("prune", self.do_prune, (cell_f, cell_i))
+
     def begin_run(self, state=None, disable_inner: bool = False) -> RunState:
         """Open a block-loop run: bin (or adopt) the state, run the first
         rebin and prune, and return the live :class:`RunState`.
         ``disable_inner=True`` starts the first block on the outer
         ladder."""
         cell_f, cell_i = self.init_state() if state is None else state
-        cell_f, cell_i, force, diag = self.rebin_fn(cell_f, cell_i)
+        cell_f, cell_i, force, diag = self._rebin(cell_f, cell_i)
         sched = self._refresh_schedule(cell_f, cell_i,
                                        disable_inner=disable_inner)
         return RunState(cell_f, cell_i, force, sched, bool(disable_inner), 0,
@@ -652,40 +712,39 @@ class MDEngine:
         (mutated in place); returns the block's metrics on the device.
         ``fuse=True`` also runs the between-block rebin (and, pruned, the
         prune) after the steps: the ``overlap_rebin`` path."""
-        if fuse and rs.sched is None:
-            rs.cell_f, rs.cell_i, rs.force, m, diag = self.block_rebin(
+        if rs.sched is None:
+            cell_f, force, m, ovf, rs.ledger = self.block_dense(
                 rs.cell_f, rs.cell_i, rs.force, take)
-        elif fuse:
+        else:
             sel, tiers, tiers_inner = rs.sched
-            (rs.cell_f, rs.cell_i, rs.force, m, diag, sel2, cum, cum_inner,
-             occ, ovf) = self.block_sched_rebin(
+            cell_f, force, m, ovf, rs.ledger = self.block_sched(
                 rs.cell_f, rs.cell_i, rs.force, sel, take, tiers,
                 tiers_inner)
+        rs.step += take
+        if not fuse:
+            rs.cell_f, rs.force = cell_f, force
+            if ovf is not None:
+                # read the overflow now, not at the next boundary, so a
+                # final block's overflow is still counted and warned
+                rs.disable = self._note_overflow(ovf)
+            return m
+        # overlap_rebin: the block's rebin / migration and, pruned, the
+        # next block's prune follow its steps
+        rs.cell_f, rs.cell_i, rs.force, diag = self._rebin(cell_f, rs.cell_i)
+        if ovf is not None:
+            sel2, cum, cum_inner, occ = self._prune(rs.cell_f, rs.cell_i)
             rs.sched = self._bucket_exec(
                 sel2, cum, cum_inner, occ,
                 disable_inner=self._note_overflow(ovf))
-        elif rs.sched is None:
-            rs.cell_f, rs.force, m, _led = self.pipeline.run_local(
-                rs.cell_f, rs.force, take, self._block_ctx(rs.cell_i))
-        else:
-            sel, tiers, tiers_inner = rs.sched
-            rs.cell_f, rs.force, m, ovf = self.block_sched(
-                rs.cell_f, rs.cell_i, rs.force, sel, take, tiers,
-                tiers_inner)
-            # read the overflow now, not at the next boundary, so a final
-            # block's overflow is still counted and warned
-            rs.disable = self._note_overflow(ovf)
-        rs.step += take
-        if fuse:
-            rs.diags.append(self._host_diag(diag))
+        rs.diags.append(self._host_diag(diag))
         return m
 
     def advance_schedule(self, rs: RunState):
         """The between-block rebin / migration and pair-schedule prune
         (the host-dispatched path; fused blocks already carried theirs)."""
         old_sched = rs.sched
-        rs.cell_f, rs.cell_i, rs.force, diag = self.rebin_fn(rs.cell_f,
-                                                             rs.cell_i)
+        rs.cell_f, rs.cell_i, rs.force, diag = self._rebin(rs.cell_f,
+                                                           rs.cell_i)
         rs.sched = self._refresh_schedule(
             rs.cell_f, rs.cell_i,
             disable_inner=old_sched is not None and rs.disable)

@@ -19,10 +19,13 @@ redesign is built from (:mod:`repro_torch.kernels.halo_pack`):
 On a CUDA block the kernels run or raise; on a CPU block their plain
 forms run (the reference's jnp oracle with the kernels' semantics).  The
 port has no fallback latch.  Index maps are static per local shape and
-cached on the plan, as are the signal words (``fused_pulses``' two per
-(domain, pulse) plus its ticket where a dim has several pulses, and at
-least ``put_signal``'s two per domain; every launch resets the words it
-uses on the stream, so one set serves every launch of the plan).
+cached on the plan, as are the signal words: one set per ledger slot of
+the step pipeline (``slot``, the step's ``k % depth``; ``off`` uses slot
+0 only), each ``put_signal``'s two words per domain followed, where a
+dim has several pulses, by ``fused_pulses``' two per (domain, pulse) and
+its ticket.  Every launch resets the words it uses on the stream, so the
+launches of one slot, which run in stream order, share a set; launches
+of two slots never share a word or a ticket.
 
 Like the other backends this one ships one hop per pulse, so halo widths
 must not exceed the local block (``w <= n``); multi-pulse splits of such
@@ -49,21 +52,25 @@ class SignalBackend(PallasBackend):
     # fused critical-path model describes this backend
     critical_path = "fused"
 
-    def _words(self, plan) -> torch.Tensor:
-        """The plan's signal words: two per domain, ``put_signal``'s
-        arrival words and counters, and where a dim has several pulses
-        ``fused_pulses``' arrival word and counter per (domain, pulse of
-        the longest dim) plus its ticket; allocated once."""
-        words = plan._index_maps.get(("signal_words",))
+    def _words(self, plan, slot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Ledger slot ``slot``'s signal words, allocated at the slot's
+        first launch: ``(put_signal's, fused_pulses')``, two views of one
+        buffer.  ``put_signal`` takes two per domain (arrival words, then
+        counters); where a dim has several pulses ``fused_pulses`` takes
+        an arrival word and a counter per (domain, pulse of the longest
+        dim) plus its ticket, else none."""
+        key = ("signal_words", int(slot))
+        words = plan._index_maps.get(key)
         if words is None:
             n_pulses = max(len(plan.sched.dim_pulses(d))
                            for d in range(plan.spec.ndim))
             n_dom = math.prod(plan.axis_sizes)
             fused = halo_pack.fused_pulses_words(n_dom, n_pulses) \
                 if n_pulses > 1 else 0
-            words = torch.zeros((max(fused, 2 * n_dom),),
-                                dtype=torch.int32, device=plan.device)
-            plan._index_maps[("signal_words",)] = words
+            buf = torch.zeros((2 * n_dom + fused,), dtype=torch.int32,
+                              device=plan.device)
+            words = (buf[:2 * n_dom], buf[2 * n_dom:])
+            plan._index_maps[key] = words
         return words
 
     # -- per-dim forward index maps (cached on the plan) -------------------
@@ -107,11 +114,11 @@ class SignalBackend(PallasBackend):
 
     # -- exchange ----------------------------------------------------------
 
-    def fwd(self, plan, local, wrap_shift):
+    def fwd(self, plan, local, wrap_shift, slot=0):
         sched = plan.sched
         nd = plan.spec.ndim
         local_shape = tuple(local.shape[nd:2 * nd])
-        words = self._words(plan)
+        words, fused_words = self._words(plan, slot)
         per_dim = self._dim_fwd_maps(plan, local_shape)
         # the wire path shifts after the exchange, as the pallas one does
         wire = self._fwd_wire(plan, local)
@@ -131,7 +138,8 @@ class SignalBackend(PallasBackend):
                     signal=words, wire_dtype=wire).to(ext.dtype)]
             else:
                 out = halo_pack.fused_pulses(src, padded, src.shape[1],
-                                             plan.axis_sizes, d, words=words)
+                                             plan.axis_sizes, d,
+                                             words=fused_words)
                 recvs = [out[:, k, :counts[k]] for k in range(len(pulses))]
             for pulse, rows in zip(pulses, recvs):
                 slab = rows.reshape(shape[:nd + d] + (pulse.width,)
@@ -141,10 +149,10 @@ class SignalBackend(PallasBackend):
             ext = self._shift_halos(plan, ext, wrap_shift, local_shape)
         return ext
 
-    def rev(self, plan, ext):
+    def rev(self, plan, ext, slot=0):
         sched = plan.sched
         nd = plan.spec.ndim
-        words = self._words(plan)
+        words, _ = self._words(plan, slot)
         _, rev_maps = self._maps(plan, self._local_shape(plan, ext))
         out = ext
         for pulse, maps in zip(reversed(sched.serialized_order()), rev_maps):

@@ -5,41 +5,48 @@ seam between a :class:`~repro_torch.core.halo_plan.HaloPlan` and an
 engine's physics:
 
 * ``pipeline="off"``: the strictly serialized reference chain, each step
-  ``begin -> fwd halo -> forces -> rev halo -> finish``.
-* ``pipeline="double_buffer"``: the ledger of the software-pipelined
-  schedule with a ``depth >= 2`` in-flight window.  Step ``k``'s signals
-  live on slot ``k % depth`` of a
-  :class:`~repro_torch.core.pipeline.ledger.SignalLedger`; the build-time
-  verifier replays this mode's windowed release/acquire schedule.
+  ``begin -> fwd halo -> forces -> rev halo -> finish`` (``_run_serial``).
+* ``pipeline="double_buffer"``: the reference's software-pipelined
+  schedule with a ``depth >= 2`` in-flight window (``_run_pipelined``).
+  Extended force buffers live in a ``depth``-slot ring: the prologue runs
+  step 0's forward half and fills slot 0; each later step's skew-one unit
+  drains slot ``(k - 1) % depth`` (force return, final kick), then runs
+  its own ``begin``, forward halo and forces and fills slot ``k % depth``,
+  its force-return signal released at fill and acquired one step later;
+  the reference's windows of ``depth - 1`` units and its remainder run
+  back to back on one stream, then the epilogue drains the last slot.
+  Step ``k``'s signals live on slot ``k % depth`` of a
+  :class:`~repro_torch.core.pipeline.ledger.SignalLedger`, in the
+  reference's order, and its halo launches use that slot's signal words
+  (``plan.fwd_local(..., slot=)``); the build-time verifier replays this
+  schedule.
 
-The reference runs both as ``lax.scan`` programs and lets XLA overlap a
-window's force returns with the next steps' work.  Here both modes are
-one Python loop issuing every step's work on one CUDA stream, with
-per-step metrics kept on the device and stacked at the end (no host read
-inside a block).  Unrolled, the reference's windowed order (prologue,
-windows of ``depth - 1`` steps, epilogue drain) issues each step's
-``begin -> fwd -> force -> rev -> finish`` and each slot's release /
-acquire events in the serial order, so on one stream it is the serial
-chain: ``double_buffer`` differs from ``off`` only in the ledger slot a
-step's signals use, and both give bitwise identical trajectories at
-every depth.  Real overlap (a second stream, or a CUDA graph per block)
-is later work.
+Both modes run the same per-step operations on the same data in the same
+order (velocity Verlet needs step ``k``'s returned forces before step
+``k + 1``'s kick-drift), so they give bitwise identical trajectories at
+every depth.  Per-step metrics stay on the device and are stacked at the
+end, re-aligned as the reference's (a unit emits step ``k``'s force
+metrics beside step ``k - 1``'s finish metrics).
+
+Each step's device work is one function of tensors (the serial step; the
+prologue, the unit of each ring slot, the epilogue of each slot), issued
+eagerly or, given ``graphs`` (:mod:`repro_torch.core.pipeline.block_graph`),
+as a CUDA graph per function and input shape; the ledger's transitions
+are host bookkeeping and run around it.
 
 With a wire format (``HaloSpec.wire_dtype``) the force return carries
-the named format, quantized at the plan seam in both modes
-(``plan.rev_local``, or ``plan.rev_local_ef`` threading the ``int8_ef``
-error-feedback residual step by step).  The reference's
-``double_buffer`` keeps its in-flight slot ring in wire form
-(``plan.wire_encode_ext`` at fill, ``plan.wire_decode_ext`` and
-``plan.rev_local_raw`` at drain); that pair equals the seam bitwise, and
-with no window in flight here there is nothing for it to hold, so one
-path serves both modes until a real ring exists.  The coordinate
-direction's float32 floor sits inside ``plan.fwd_local``.
+the named format.  ``off`` quantizes at the plan seam (``plan.rev_local``,
+or ``plan.rev_local_ef`` threading the ``int8_ef`` residual); the ring
+holds each slot in wire form (``plan.wire_encode_ext`` at fill, the
+residual updated there, once per step as in serial mode) and drains it
+through ``plan.wire_decode_ext`` and ``plan.rev_local_raw``; the two
+compositions are equal bitwise.  The coordinate direction's float32
+floor sits inside ``plan.fwd_local``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,12 +68,17 @@ class StepFns:
     ``finish``; ``ctx`` is constant for the whole multi-step call, so both
     pipeline modes see the same block-level inputs.  ``force`` must return
     a fresh tensor (the ring keeps it until its slot drains).
+
+    ``reduce``, when given, maps the raw tensors that ``force`` and
+    ``finish`` return as metrics (either dict alone) to the step's
+    metrics.  None: the metrics are final as returned.
     """
 
     begin: Callable[[Any, torch.Tensor, Any], Tuple[Any, Any, torch.Tensor]]
     force: Callable[[torch.Tensor, Any], Tuple[torch.Tensor, Metrics]]
     finish: Callable[[Any, Any, torch.Tensor, Any],
                      Tuple[Any, torch.Tensor, Metrics]]
+    reduce: Optional[Callable[[Metrics], Metrics]] = None
 
 
 def _stack(per_step: List[Metrics]) -> Metrics:
@@ -74,11 +86,15 @@ def _stack(per_step: List[Metrics]) -> Metrics:
 
 
 class StepPipeline:
-    """Construct-once multi-step program over one :class:`HaloPlan`."""
+    """Construct-once multi-step program over one :class:`HaloPlan`.
+
+    ``graphs`` (a :class:`~repro_torch.core.pipeline.block_graph.BlockGraphs`)
+    issues each step's device work as a CUDA graph, keyed by ``graph_key``
+    and the step's function; None issues it eagerly."""
 
     def __init__(self, plan: HaloPlan, fns: StepFns,
                  mode: str = "double_buffer", depth: int = 2,
-                 verify: str = "error"):
+                 verify: str = "error", graphs=None, graph_key=()):
         if mode not in PIPELINE_MODES:
             raise ValueError(f"unknown pipeline mode {mode!r}; "
                              f"available: {PIPELINE_MODES}")
@@ -98,26 +114,18 @@ class StepPipeline:
             mode=self.mode, depth=self.depth,
             n_pulses=self.ledger.n_pulses, backend=plan.spec.backend,
             verify=verify)
+        self.graphs = graphs
+        self.graph_key = tuple(graph_key)
 
     @classmethod
     def build(cls, plan: HaloPlan, fns: StepFns, *,
               mode: str = "double_buffer", depth: int = 2,
-              verify: str = "error") -> "StepPipeline":
-        return cls(plan, fns, mode=mode, depth=depth, verify=verify)
+              verify: str = "error", graphs=None,
+              graph_key=()) -> "StepPipeline":
+        return cls(plan, fns, mode=mode, depth=depth, verify=verify,
+                   graphs=graphs, graph_key=graph_key)
 
     # -- execution -----------------------------------------------------------
-
-    def _rev(self, F_ext: torch.Tensor, wire_on: bool, wef):
-        """One step's force return: ``(f, new_ef)``.  ``wire_on`` is the
-        reference's ``_wire_state``: a wire format and a floating
-        payload; ``wef`` the ``int8_ef`` residual (None until the first
-        step sizes it)."""
-        plan = self.plan
-        if not (wire_on and plan.wire.stateful):
-            return plan.rev_local(F_ext), wef
-        if wef is None:
-            wef = torch.zeros_like(F_ext)
-        return plan.rev_local_ef(F_ext, wef)
 
     def run_local(self, state, f0: torch.Tensor, n_steps: int, ctx=None
                   ) -> Tuple[Any, torch.Tensor, Metrics, LedgerState]:
@@ -126,24 +134,134 @@ class StepPipeline:
         final signal-ledger state."""
         if n_steps < 1:
             raise ValueError("n_steps must be >= 1")
-        fns, plan, ledger = self.fns, self.plan, self.ledger
-        led, f, per_step = ledger.init(), f0, []
-        wire_on, wef = False, None
-        for k in range(n_steps):
-            buf = k % self.depth
-            state, aux, payload = fns.begin(state, f, ctx)
-            if k == 0:
-                wire_on = plan._wire_active(payload)
-            led = ledger.release(led, "fwd", buf)
-            ext = plan.fwd_local(payload)
-            led = ledger.acquire(led, "fwd", buf)
-            F_ext, m_force = fns.force(ext, ctx)
-            led = ledger.release(led, "rev", buf)
-            f_new, wef = self._rev(F_ext, wire_on, wef)
-            led = ledger.acquire(led, "rev", buf)
-            state, f, m_fin = fns.finish(state, aux, f_new, ctx)
-            per_step.append({**m_force, **m_fin})
+        if self.mode == "off":
+            return self._run_serial(state, f0, n_steps, ctx)
+        return self._run_pipelined(state, f0, n_steps, ctx)
+
+    def _issue(self, kind: str, fn, inputs: tuple, ctx):
+        """``fn(*inputs, ctx)``: eagerly, or through :attr:`graphs` (the
+        step context a constant of the graph; a ring slot, an int among
+        the inputs, part of the graph's key)."""
+        if self.graphs is None:
+            return fn(*inputs, ctx)
+        return self.graphs.run(kind, self.graph_key, fn, inputs, (ctx,))
+
+    def _metrics(self, raw: Metrics) -> Metrics:
+        return raw if self.fns.reduce is None else self.fns.reduce(raw)
+
+    def _serial_step(self, state, f, wef, ctx):
+        """One step of the serial chain: ``(state, f, wef, metrics)``."""
+        fns, plan = self.fns, self.plan
+        state, aux, payload = fns.begin(state, f, ctx)
+        ext = plan.fwd_local(payload, slot=0)
+        F_ext, m_force = fns.force(ext, ctx)
+        if plan._wire_active(payload) and plan.wire.stateful:
+            if wef is None:
+                wef = torch.zeros_like(F_ext)
+            f_new, wef = plan.rev_local_ef(F_ext, wef, slot=0)
+        else:
+            f_new = plan.rev_local(F_ext, slot=0)
+        state, f, m_fin = fns.finish(state, aux, f_new, ctx)
+        return state, f, wef, self._metrics({**m_force, **m_fin})
+
+    def _run_serial(self, state, f, n_steps, ctx):
+        ledger = self.ledger
+        led, per_step, wef = ledger.init(), [], None
+        for _ in range(n_steps):
+            led = ledger.release(led, "fwd", 0)
+            led = ledger.acquire(led, "fwd", 0)
+            led = ledger.release(led, "rev", 0)
+            led = ledger.acquire(led, "rev", 0)
+            state, f, wef, m = self._issue("step", self._serial_step,
+                                           (state, f, wef), ctx)
+            per_step.append(m)
         return state, f, _stack(per_step), led
+
+    # -- the depth-d ring ------------------------------------------------------
+
+    def _fill(self, F_ext, wef, wire_on: bool):
+        """A step's extended forces as a ring slot holds them: as they
+        are, or under a wire format as ``wire_encode_ext``'s parts (the
+        int8_ef residual updates here).  Returns ``(held, wef)``."""
+        if not wire_on:
+            return F_ext, wef
+        if wef is None and self.plan.wire.stateful:
+            wef = torch.zeros_like(F_ext)
+        return self.plan.wire_encode_ext(F_ext, wef)
+
+    def _drain(self, held, slot: int):
+        """Ring slot ``slot``'s force return from ``held`` as
+        :meth:`_fill` left it: decoded and spliced under a wire format
+        (the parts are a tuple; the exact body, last, has the forces'
+        dtype)."""
+        if not isinstance(held, tuple):
+            return self.plan.rev_local(held, slot=slot)
+        return self.plan.rev_local_raw(
+            self.plan.wire_decode_ext(held, held[-1].dtype), slot=slot)
+
+    def _forward_half(self, state, f, wef, cur: int, ctx):
+        """A step's ``begin``, forward halo and forces, filling ring slot
+        ``cur``: ``(state, aux, held, wef, force metrics)``."""
+        fns, plan = self.fns, self.plan
+        state, aux, payload = fns.begin(state, f, ctx)
+        ext = plan.fwd_local(payload, slot=cur)
+        F_ext, m_force = fns.force(ext, ctx)
+        held, wef = self._fill(F_ext, wef, plan._wire_active(payload))
+        return state, aux, held, wef, self._metrics(m_force)
+
+    def _prologue(self, state, f0, ctx):
+        """Step 0's forward half into slot 0."""
+        return self._forward_half(state, f0, None, 0, ctx)
+
+    def _unit(self, cur: int, state, aux, held, wef, ctx):
+        """The skew-one unit of a step ``k`` with ``k % depth == cur``
+        (``held``: slot ``(k - 1) % depth``): drain step ``k - 1``'s force
+        return and finish it, then run step ``k``'s forward half into slot
+        ``cur``: ``(state, aux, held, wef, finish metrics, force
+        metrics)``."""
+        f_prev = self._drain(held, (cur - 1) % self.depth)
+        state, f_carry, m_fin = self.fns.finish(state, aux, f_prev, ctx)
+        state, aux, held, wef, m_force = self._forward_half(
+            state, f_carry, wef, cur, ctx)
+        return state, aux, held, wef, self._metrics(m_fin), m_force
+
+    def _epilogue(self, slot: int, state, aux, held, ctx):
+        """Drain slot ``slot`` and finish the last step."""
+        f_last = self._drain(held, slot)
+        state, f_carry, m_fin = self.fns.finish(state, aux, f_last, ctx)
+        return state, f_carry, self._metrics(m_fin)
+
+    def _run_pipelined(self, state, f0, n_steps, ctx):
+        ledger, depth = self.ledger, self.depth
+        # prologue: step 0's forward half fills slot 0; its force-return
+        # signal is released at once
+        led = ledger.release(ledger.init(), "fwd", 0)
+        led = ledger.acquire(led, "fwd", 0)
+        led = ledger.release(led, "rev", 0)
+        state, aux, held, wef, m_force = self._issue(
+            "prologue", self._prologue, (state, f0), ctx)
+        forces, fins = [m_force], []
+        # the reference's windows of depth - 1 units, then its remainder:
+        # on one stream, the units of steps 1 .. n - 1 back to back
+        for k in range(1, n_steps):
+            prev, cur = (k - 1) % depth, k % depth
+            led = ledger.acquire(led, "rev", prev)
+            led = ledger.release(led, "fwd", cur)
+            led = ledger.acquire(led, "fwd", cur)
+            led = ledger.release(led, "rev", cur)
+            state, aux, held, wef, m_fin, m_force = self._issue(
+                f"unit{cur}", self._unit, (cur, state, aux, held, wef), ctx)
+            fins.append(m_fin)
+            forces.append(m_force)
+        # epilogue: the last step's outstanding force return
+        last = (n_steps - 1) % depth
+        led = ledger.acquire(led, "rev", last)
+        state, f_carry, m_fin = self._issue(
+            f"epilogue{last}", self._epilogue, (last, state, aux, held), ctx)
+        fins.append(m_fin)
+        # re-align: the prologue and units emitted step k's force metrics
+        # beside step k - 1's finish metrics
+        return state, f_carry, {**_stack(forces), **_stack(fins)}, led
 
     # -- introspection -----------------------------------------------------
 

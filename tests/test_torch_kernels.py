@@ -9,6 +9,7 @@ side runs on a 4-device ring in one session subprocess (as
 CUDA kernels against the plain forms on the card and skip without one.
 """
 import contextlib
+import math
 import os
 import subprocess
 import sys
@@ -541,17 +542,18 @@ def test_fused_pulses_refuses_a_short_words_buffer(wire):
                                                        -1, wire))
 
 
-@pytest.mark.parametrize("mesh_shape,widths,pulses,need", [
-    ((2, 2, 2), (1, 1, 1), None, 2 * 8),
-    ((3, 2, 1), (1, 1, 1), None, 2 * 6),
+@pytest.mark.parametrize("mesh_shape,widths,pulses,fused", [
+    ((2, 2, 2), (1, 1, 1), None, 0),
+    ((3, 2, 1), (1, 1, 1), None, 0),
     ((2, 2, 2), (2, 2, 2), (2, 2, 2), 2 * 8 * 2 + 1),
-    ((3, 1, 1), (2, 1, 1), (2, 1, 1), max(2 * 3 * 2 + 1, 6))])
+    ((3, 1, 1), (2, 1, 1), (2, 1, 1), 2 * 3 * 2 + 1)])
 def test_signal_backend_words_hold_every_launch(mesh_shape, widths, pulses,
-                                                need):
-    """The plan's one set of signal words serves every launch: at least
+                                                fused):
+    """Each ledger slot's signal words serve every launch of that slot:
     2 x n_dom for put_signal (arrival words, then counters) and, where a
     dim has several pulses, 2 x n_dom x pulses + 1 for fused_pulses
-    (arrival words, then counters, then the ticket)."""
+    (arrival words, then counters, then the ticket), one buffer a slot;
+    two slots share no word."""
     from repro_torch.core.halo_plan import HaloPlan, HaloSpec
     from repro_torch.launch.mesh import make_mesh
 
@@ -559,9 +561,15 @@ def test_signal_backend_words_hold_every_launch(mesh_shape, widths, pulses,
     plan = HaloPlan.build(HaloSpec(axes, widths, backend="signal",
                                    pulses=pulses),
                           make_mesh(mesh_shape, axes), device="cpu")
-    words = plan.backend._words(plan)
-    assert words.dtype == torch.int32 and words.numel() == need
-    assert plan.backend._words(plan) is words         # allocated once
+    n_dom = math.prod(mesh_shape)
+    put, fp = plan.backend._words(plan, 0)
+    assert put.dtype == fp.dtype == torch.int32
+    assert (put.numel(), fp.numel()) == (2 * n_dom, fused)
+    assert fp.numel() == 0 or fp.data_ptr() == put.data_ptr() + 8 * n_dom
+    assert plan.backend._words(plan, 0)[0] is put     # allocated once
+    other = plan.backend._words(plan, 1)[0]
+    lo, hi = put.data_ptr(), put.data_ptr() + 4 * (2 * n_dom + fused)
+    assert not lo <= other.data_ptr() < hi            # a set of its own
 
 
 # ---- the CUDA kernels against their plain forms (on the card) --------------

@@ -124,7 +124,7 @@ def _port_cell(backend, mode, width, depth, n_dom, n_steps=MATRIX_STEPS):
                                             n_steps, torch.tensor(0.5))
     return (state.numpy(), f.numpy(),
             {k: v.numpy() for k, v in metrics.items()},
-            pipe.ledger.summary(led))
+            pipe.ledger.summary(led), led)
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,7 +147,8 @@ def _jax_cell(backend, mode, width, depth, n_steps=MATRIX_STEPS):
     state, f, metrics, led = jax.jit(fn)(x0, jnp.zeros_like(x0))
     return (np.asarray(state), np.asarray(f),
             {k: np.asarray(v) for k, v in metrics.items()},
-            pipe.ledger.summary(jax.device_get(led)), pipe)
+            pipe.ledger.summary(jax.device_get(led)), pipe,
+            jax.device_get(led))
 
 
 # --------------------------------------------------------------------------
@@ -183,7 +184,7 @@ def _close(got, want):
     return float(np.abs(got - want).max()) <= TOL * scale
 
 
-@pytest.mark.parametrize("depth", (2, 3))
+@pytest.mark.parametrize("depth", (2, 3, 4))
 @pytest.mark.parametrize("width", MATRIX_WIDTHS)
 @pytest.mark.parametrize("mode", MATRIX_MODES)
 def test_signal_cells_match_jax(mode, width, depth):
@@ -195,6 +196,10 @@ def test_signal_cells_match_jax(mode, width, depth):
         assert got[2][k].shape == want[2][k].shape
         assert _close(got[2][k], want[2][k]), k
     assert got[3] == want[3]
+    # the ledger after the run, slot for slot
+    for name in ("released", "acquired", "clobbers"):
+        assert np.array_equal(getattr(got[4], name),
+                              np.asarray(getattr(want[5], name))), name
     port = _port_pipe("signal", mode, width, depth, 1)
     assert (port.mode, port.depth) == (want[4].mode, want[4].depth)
     assert port.ledger == SignalLedger(want[4].ledger.depth,
@@ -203,11 +208,12 @@ def test_signal_cells_match_jax(mode, width, depth):
         want[4].stats((6,), feature_elems=4)
 
 
-@pytest.mark.parametrize("n_steps", (1, 2, 3))
+@pytest.mark.parametrize("n_steps", (1, 2, 3, 4, 5))
 @pytest.mark.parametrize("depth", (2, 3, 4))
 def test_deep_window_short_blocks(depth, n_steps):
-    """Blocks no longer than the window: prologue, epilogue drain and the
-    final finish only (no whole window), still bitwise equal to off."""
+    """Blocks around the window's length: the prologue, no or one or
+    two whole windows, the epilogue drain and the final finish, still
+    bitwise equal to off on one domain and on a ring of three."""
     for n_dom in (1, 3):
         ref = _port_cell("signal", "off", 1, 2, n_dom, n_steps=n_steps)
         got = _port_cell("signal", "double_buffer", 1, depth, n_dom,

@@ -592,7 +592,7 @@ def _wire_cell(wire_dtype, backend, mode, depth, n_dom, dtype, n_steps=8):
     return state, f, metrics
 
 
-@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("depth", [2, 3, 4])
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("wire_dtype", FORMATS)
 def test_wire_conformance_matrix(wire_dtype, backend, depth):
