@@ -10,6 +10,8 @@
         # steady step of every MD cell of phase 16, in its pipeline mode
         # and the other, through another checkout's default path (a
         # same-call comparison of commits); prints no result lines
+    python3 chip_smoke.py --serve              # phases 1, 2 and 17 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -150,7 +152,24 @@ Phases, each asserting (any failure exits non-zero with no result line):
     20 replayed steps; per cell the captures and replays (with each
     capture's ms), the steady block's host ms per step, its device ms per
     step, busy share and kernels per step (torch.profiler), the host API
-    launches per step and one step graph's nodes.
+    launches per step and one step graph's nodes;
+17. MD serving (``SimServer``, replica lanes batched into one launch per
+    kernel): (a) the ``--md`` defaults, 8 x 200-atom replicas in bucket
+    256 on mesh (1,1,1), 40 steps at nstlist 10, dense and pruned
+    ``pallas`` x ``off`` / ``double_buffer`` with the ``pallas`` halo,
+    every lane bitwise equal to its solo run (``layout_atoms``, and
+    pruned ``static_ladder``) in ``cell_f`` and ``cell_i``, one compiled
+    shape, and a second wave of 8 on the warm shape capturing nothing;
+    one 4-lane block launching each kernel as often as one solo block;
+    (c) one NaN lane among three quarantined with a ``ReplicaFault``, its
+    co-residents bitwise; (b) 4 grappa-45k replicas (seeds 0-3,
+    ``box_atoms=45_000``) on the 2x2x2 mesh, bucket 45,000, 20-step
+    blocks, 40 steps, pruned ``pallas`` with the ``pallas`` then the
+    ``signal`` halo, every lane bitwise; replicas/s, step p50 / p99,
+    captures and replays per shape; one 4-lane block's launches as one
+    solo block's; the 4-lane batch's host and device ms per step beside
+    the 4 solo runs', in turns.  Every drive runs with the kernel
+    counters zeroed just before and read just after.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -2539,11 +2558,357 @@ def steps_phase(rounds: int = 5):
             del eng
 
 
+# ---- phase 17: MD serving (SimServer, replica lanes in one launch) ------------
+
+SERVE_NST_200 = 10          # the --md defaults: nstlist 10, 40 steps
+SERVE_BUCKET = 256
+
+
+def serve_counted(thunk):
+    """``thunk()`` with every kernel counter zeroed just before and read
+    just after: ``(result, launches)``."""
+    import torch
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = thunk()
+    torch.cuda.synchronize()
+    return out, {k: fn.launches for k, fn in counters.items()}
+
+
+def serve_solo(system, mesh, kw, n_steps, bucket):
+    """A replica's solo run under its bucket's layout (and, pruned, the
+    static ladder): the reference a lane must equal bit for bit."""
+    from repro_torch import MDEngine
+    pruned = kw.get("force_backend", "dense") != "dense"
+    eng = MDEngine(system, mesh, layout_atoms=bucket, static_ladder=pruned,
+                   **kw)
+    (cf, ci), m, _ = eng.simulate(n_steps, state=eng.init_state())
+    return eng, cf, ci, m
+
+
+def serve_check_lanes(label, handles, solos):
+    """Every handle's state equals its solo run bitwise; the largest
+    |difference| of the solo run's and the server's final KE, as a
+    report of the metrics."""
+    import numpy as np
+    for key, h in handles:
+        out = h.result()
+        cf, ci = solos[key][1], solos[key][2]
+        check(np.array_equal(out["cell_f"], cf.cpu().numpy())
+              and np.array_equal(out["cell_i"], ci.cpu().numpy()),
+              f"{label}: lane of replica {key} differs from its solo run")
+
+
+def serve_server(mesh, ladder, nst, kw):
+    from repro_torch import SimServer
+    return SimServer(mesh, ladder, block_steps=nst, engine_kwargs=kw)
+
+
+def serve_block_launches(label, system, mesh, ladder, nst, kw, bucket, rows):
+    """One server block of ``rows`` lanes (its rebin, prune and steps)
+    against one solo block of the same replica (its first rebin, prune
+    and steps), each with the kernel counters zeroed just before and
+    read just after, on warm graphs: the batch must launch each kernel
+    as often as the solo run, not ``rows`` times as often."""
+    from repro_torch import MDEngine, make_grappa_like
+    pruned = kw.get("force_backend", "dense") != "dense"
+    eng = MDEngine(system, mesh, layout_atoms=bucket, static_ladder=pruned,
+                   **kw)
+    srv = serve_server(mesh, ladder, nst, kw)
+    for i in range(rows):
+        srv.submit(make_grappa_like(system.n_atoms, seed=i, nstlist=nst,
+                                    box_atoms=bucket), 40 * nst)
+    for _ in range(3):                         # warm: eager, eager, capture
+        srv.run_cycle()
+        rs = eng.begin_run()
+        eng.run_block(rs, nst)
+
+    def solo():
+        rs = eng.begin_run()
+        eng.run_block(rs, nst)
+    _, one = serve_counted(solo)
+    _, batch = serve_counted(srv.run_cycle)
+    check(batch == one, f"{label}: a {rows}-lane block launched {batch}, "
+          f"a solo block {one}")
+    return srv, eng, one
+
+
+def serve_lane_metrics(label, systems, mesh, kw, bucket, nst):
+    """One block of the batch programs (rebin, prune, steps) over
+    ``systems`` as lanes against each replica's solo first block: the
+    state bitwise, and per metric (``pe``, ``ke``, ``mom``, ``health/*``)
+    whether every lane's values are the solo run's bits, else the largest
+    difference relative to the solo values' scale.  Returns the line."""
+    import numpy as np
+    import torch
+    from repro_torch import MDEngine, make_grappa_like
+    from repro_torch.convert import cells_to_domains
+    from repro_torch.core.md.pair_schedule import SLOT_QUANTUM
+    from repro_torch.core.md.schedule_opt import tier_plan
+    pruned = kw.get("force_backend", "dense") != "dense"
+    tmpl = MDEngine(make_grappa_like(bucket, seed=0, nstlist=nst), mesh,
+                    health=True, static_ladder=pruned, **kw)
+    lp = tmpl.lane_programs(len(systems))
+    rows = [cells_to_domains(*tmpl.bin_host(s), tmpl.axis_sizes)
+            for s in systems]
+    cf, ci = (torch.stack([torch.as_tensor(np.ascontiguousarray(r[j]))
+                           for r in rows]).to(tmpl.device) for j in (0, 1))
+    cf, ci, force, _ = lp["rebin"](cf, ci)
+    if pruned:
+        M = tmpl.pair_schedule.n_pairs
+        tiers = tier_plan([M] * tmpl.pair_schedule.levels, tmpl.pair_bucket,
+                          M, SLOT_QUANTUM, tmpl.layout.capacity)
+        sel = lp["prune"](cf, ci)[0]
+        cf, ci, _f, m, _o = lp["block_sched"](cf, ci, force, sel, nst,
+                                              tiers, ())
+    else:
+        cf, ci, _f, m = lp["block"](cf, ci, force, nst)
+    worst = {k: 0.0 for k in m}
+    for r, s in enumerate(systems):
+        eng = MDEngine(s, mesh, health=True, layout_atoms=bucket,
+                       static_ladder=pruned, **kw)
+        rs = eng.begin_run()
+        ms = eng.run_block(rs, nst)
+        check(torch.equal(cf[r], rs.cell_f) and torch.equal(ci[r], rs.cell_i),
+              f"{label}: lane {r}'s block differs from its solo block")
+        for k in m:
+            a = m[k][r].double().cpu()
+            b = ms[k].double().cpu()
+            if not torch.equal(a, b):
+                scale = max(float(b.abs().max()), 1e-300)
+                worst[k] = max(worst[k], float((a - b).abs().max()) / scale,
+                               1e-300)
+    return f"{label}: lane metrics against solo: " + ", ".join(
+        f"{k} {'bitwise' if v == 0.0 else f'{v:.3e} relative'}"
+        for k, v in worst.items())
+
+
+def serve_speed(label, srv, solo_engines, nst, rounds: int = 5):
+    """Host ms per step of a steady server cycle (rows lanes) against the
+    solo engines' blocks (block + rebin + prune each, one after another),
+    in turns, then one profiled round of each: ``(batch host, solo host,
+    batch profile, solo profile)``."""
+    import statistics
+    import torch
+    states = [e.begin_run() for e in solo_engines]
+
+    def solo_round():
+        for e, rs in zip(solo_engines, states):
+            e.run_block(rs, nst)
+            e.advance_schedule(rs)
+
+    for _ in range(2):
+        solo_round()
+    tb, ts = [], []
+    for _ in range(rounds):
+        for fn, acc in ((srv.run_cycle, tb), (solo_round, ts)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t0) * 1e3 / nst)
+    pb = _profile(srv.run_cycle, 1, nst)
+    ps_ = _profile(solo_round, 1, nst)
+    return (statistics.median(tb), tb, statistics.median(ts), ts, pb, ps_)
+
+
+def serve_profile_txt(p) -> str:
+    if p is None:
+        return "device not measured"
+    return (f"device {p[1] / 1e3:.4f} ms/step, busy {p[3]:.4f}, "
+            f"{p[2]:.2f} kernels/step")
+
+
+def serve_md_phase():
+    """Phase 17: the MD server on the card.  Returns the kernels'
+    launches over the served runs (counters zeroed just before each
+    drive and read just after, summed)."""
+    import numpy as np
+    import torch
+    from repro_torch import HaloSpec, make_grappa_like, make_md_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import BucketLadder, DONE, FAILED, ReplicaFault
+
+    t17 = time.perf_counter()
+    card = card_line()
+    served = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            served[k] = served.get(k, 0) + v
+
+    # (a) the --md defaults: 8 x 200-atom replicas in bucket 256, mesh
+    # (1,1,1), 40 steps at nstlist 10; dense and pruned pallas, off and
+    # double_buffer, HaloSpec pallas
+    mesh1 = make_mesh((1, 1, 1), AXES)
+    nst = SERVE_NST_200
+    ladder = BucketLadder()
+    for fb in ("dense", "pallas"):
+        for pipe in ("off", "double_buffer"):
+            label = f"serve 8x200 {fb}/{pipe}"
+            kw = dict(spec=HaloSpec(AXES, (1, 1, 1), backend="pallas"),
+                      force_backend=fb, pipeline=pipe)
+            systems = {i: make_grappa_like(200, seed=i, nstlist=nst,
+                                           box_atoms=SERVE_BUCKET)
+                       for i in range(8)}
+            solos = {i: serve_solo(s, mesh1, kw, 40, SERVE_BUCKET)
+                     for i, s in systems.items()}
+            srv = serve_server(mesh1, ladder, nst, kw)
+            handles = [(i, srv.submit(s, 40)) for i, s in systems.items()]
+            _, launches = serve_counted(srv.drain)
+            add(launches)
+            check(all(h.status == DONE for _, h in handles),
+                  f"{label}: {[h.status for _, h in handles]}")
+            serve_check_lanes(label, handles, solos)
+            st = srv.stats()
+            check(st["compiles"] == len(st["shapes_touched"]) == 1,
+                  f"{label}: compiles {st['compiles']}, shapes "
+                  f"{st['shapes_touched']}")
+            # churn on the warm shape: a second wave of 8 must add no
+            # capture
+            caps = dict(st["captures_by_shape"])
+            more = [srv.submit(make_grappa_like(
+                200, seed=100 + i, nstlist=nst, box_atoms=SERVE_BUCKET), 40)
+                for i in range(8)]
+            _, launches = serve_counted(srv.drain)
+            add(launches)
+            st = srv.stats()
+            check(all(h.status == DONE for h in more), f"{label}: churn")
+            check(st["captures_by_shape"] == caps, f"{label}: churn on a "
+                  f"warm shape captured {st['captures_by_shape']} against "
+                  f"{caps}")
+            bg = srv._programs[(8, SERVE_BUCKET)].lanes[
+                "engine"].block_graphs
+            check(bg is not None, f"{label}: the lanes run no graphs")
+            graphs = bg.stats()
+            print(f"{label}: 8 lanes bitwise equal to their solo runs "
+                  f"(cell_f, cell_i); launches {launches} for the second "
+                  f"wave; {st['replicas_done']} replicas, "
+                  f"{st['replicas_per_s']:.2f} replicas/s, step p50 "
+                  f"{st['step_latency_p50_ms']:.4f} ms p99 "
+                  f"{st['step_latency_p99_ms']:.4f} ms; compiles "
+                  f"{st['compiles']}; captures {graphs['captures_by_kind']}"
+                  f", replays {graphs['replays_by_kind']}, churn captured "
+                  f"nothing")
+            del srv, solos
+
+    print(serve_lane_metrics(
+        "serve 8x200 dense/off", [make_grappa_like(
+            200, seed=i, nstlist=nst, box_atoms=SERVE_BUCKET)
+            for i in range(8)], mesh1,
+        dict(spec=HaloSpec(AXES, (1, 1, 1), backend="pallas")),
+        SERVE_BUCKET, nst))
+
+    # the per-block launch check on the 200-atom shape, pruned
+    ladder4 = BucketLadder(row_buckets=(1, 2, 4),
+                           atom_buckets=(SERVE_BUCKET,))
+    kw = dict(spec=HaloSpec(AXES, (1, 1, 1), backend="pallas"),
+              force_backend="pallas")
+    _srv, _eng, one = serve_block_launches(
+        "serve 4x200 pallas/off", make_grappa_like(
+            200, seed=0, nstlist=nst, box_atoms=SERVE_BUCKET), mesh1,
+        ladder4, nst, kw, SERVE_BUCKET, 4)
+    print(f"serve 4x200 pallas/off: one 4-lane block launches {one}, "
+          "as one solo block")
+    del _srv, _eng
+
+    # (c) one NaN lane among three (200 atoms, pruned pallas): the lane
+    # is quarantined, its co-residents bitwise unchanged, no device fault
+    label = "serve NaN lane"
+    bad = make_grappa_like(200, seed=11, nstlist=nst, box_atoms=SERVE_BUCKET)
+    bad.vel[0] = np.inf
+    goods = {i: make_grappa_like(200, seed=i, nstlist=nst,
+                                 box_atoms=SERVE_BUCKET) for i in (1, 2)}
+    solos = {i: serve_solo(s, mesh1, kw, 20, SERVE_BUCKET)
+             for i, s in goods.items()}
+    srv = serve_server(mesh1, ladder4, nst, kw)
+    hb = srv.submit(bad, 20)
+    handles = [(i, srv.submit(s, 20)) for i, s in goods.items()]
+    _, launches = serve_counted(srv.drain)
+    add(launches)
+    check(hb.status == FAILED, f"{label}: the poisoned lane is {hb.status}")
+    try:
+        hb.result()
+        fail(f"{label}: no ReplicaFault")
+    except ReplicaFault as e:
+        check("non-finite" in str(e), f"{label}: {e}")
+    serve_check_lanes(label, handles, solos)
+    torch.cuda.synchronize()
+    st = srv.stats()
+    print(f"{label}: the poisoned lane quarantined ({st['replicas_failed']}"
+          f" failed), its 2 co-residents bitwise equal to their solo runs")
+    del srv, solos
+
+    # (b) full width: 4 grappa-45k replicas (seeds 0-3) on the 2x2x2
+    # virtual mesh, bucket 45,000, 20-step blocks, 40 steps, pruned
+    # pallas with the pallas halo, then the signal halo
+    mesh8 = make_md_mesh(8)
+    nst45 = 20
+    ladder45 = BucketLadder(row_buckets=(1, 2, 4), atom_buckets=(45_000,))
+    systems = {i: make_grappa_like(45_000, seed=i, nstlist=nst45,
+                                   box_atoms=45_000) for i in range(4)}
+    for backend in ("pallas", "signal"):
+        label = f"serve 4x45k pruned pallas, {backend} halo"
+        t0 = time.perf_counter()
+        kw = dict(spec=HaloSpec(AXES, (1, 1, 1), backend=backend),
+                  force_backend="pallas")
+        solos = {i: serve_solo(s, mesh8, kw, 40, 45_000)
+                 for i, s in systems.items()}
+        srv = serve_server(mesh8, ladder45, nst45, kw)
+        handles = [(i, srv.submit(s, 40)) for i, s in systems.items()]
+        _, launches = serve_counted(srv.drain)
+        add(launches)
+        check(all(h.status == DONE for _, h in handles), f"{label}: done")
+        serve_check_lanes(label, handles, solos)
+        st = srv.stats()
+        graphs = srv._programs[(4, 45_000)].lanes[
+            "engine"].block_graphs.stats()
+        print(f"{label}: 4 lanes bitwise equal to their solo runs; "
+              f"launches {launches}; {st['replicas_per_s']:.3f} replicas/s,"
+              f" step p50 {st['step_latency_p50_ms']:.4f} ms p99 "
+              f"{st['step_latency_p99_ms']:.4f} ms (first blocks eager "
+              f"and captured); captures {graphs['captures_by_kind']}, "
+              f"replays {graphs['replays_by_kind']}, eager "
+              f"{graphs['eager_by_kind']} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if backend == "pallas":
+            # one block's launches, then host and device ms a step: the
+            # 4-lane batch against the 4 solo runs, in turns
+            srv2, _e, one = serve_block_launches(
+                label, systems[0], mesh8, ladder45, nst45, kw, 45_000, 4)
+            engines = [solos[i][0] for i in solos]
+            hb_, tb, hs_, ts, pb, ps_ = serve_speed(label, srv2, engines,
+                                                    nst45)
+            print(f"{label}: one 4-lane block launches {one}, as one solo "
+                  f"block; steady host ms/step, 4-lane batch {hb_:.4f} "
+                  f"{[round(t, 4) for t in tb]} vs 4 solo runs {hs_:.4f} "
+                  f"{[round(t, 4) for t in ts]}; batch "
+                  f"{serve_profile_txt(pb)}; 4 solo runs "
+                  f"{serve_profile_txt(ps_)}; {card}")
+            del srv2, _e, engines
+            print(serve_lane_metrics(label, [systems[i] for i in systems],
+                                     mesh8, kw, 45_000, nst45))
+        del srv, solos
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s; served launches "
+          f"{served}")
+    for k in ("pack", "unpack_add", "pair_forces", "scatter_accum",
+              "put_signal"):
+        check(served.get(k, 0) > 0, f"phase 17: {k} never launched while "
+              f"serving: {served}")
+    return served
+
+
 def main():
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] not in ("--kernels", "--steps")):
-        fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT]")
-    src = Path(args[1]).resolve() / "src" if args else SRC
+    if args == ["--serve"]:
+        pass
+    elif args and (len(args) != 2
+                   or args[0] not in ("--kernels", "--steps")):
+        fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
+             "| --serve]")
+    src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
              "repository")
@@ -2561,6 +2926,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{kind}")
 
+    if args == ["--serve"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded"])
+        serve_md_phase()
+        print(card)
+        return
     if args and args[0] == "--steps":
         from repro_torch.kernels import _build
         _build.build(["halo_pack", "halo_signal", "nonbonded"])
@@ -2657,6 +3028,9 @@ def main():
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
     del system64
 
+    # 17. MD serving: replica lanes, one launch per kernel for all lanes
+    served = serve_md_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -2718,6 +3092,7 @@ def main():
             "bound_by": bound_by, "library_ms": acc["library_ms"],
             **({"device_us_per_launch": acc["device_us_per_launch"]}
                if "device_us_per_launch" in acc else {}),
+            **({"serve_launches": served[name]} if name in served else {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "

@@ -3,7 +3,11 @@
 The port of the JAX package's ``core/halo.py``.  A block tensor holds
 every domain: its leading ``nd`` dims are the domain grid (one per
 decomposed axis, in the schedule's axis order) and the local block
-follows, so local dim ``d`` sits at tensor dim ``nd + d``.
+follows, so local dim ``d`` sits at tensor dim ``nd + d``.  Every
+function also takes ``lead``, a count of batch dims in front of the
+domain grid (the MD server's replica lanes): domain dim ``d`` then sits
+at ``lead + d`` and local dim ``d`` at ``lead + nd + d``, and no exchange
+ever crosses a batch dim.
 
 The JAX ``lax.ppermute`` along axis ``d`` becomes a roll of domain dim
 ``d``: ``_perm_fwd`` ("receive from the +1 neighbour") is
@@ -72,16 +76,17 @@ class _Shifter:
     """
 
     def __init__(self, axis_sizes: Sequence[int],
-                 wrap_shift: Optional[torch.Tensor]):
+                 wrap_shift: Optional[torch.Tensor], lead: int = 0):
         self.axis_sizes = tuple(axis_sizes)
         self.wrap_shift = wrap_shift
+        self.lead = int(lead)
 
     def __call__(self, recv: torch.Tensor, d: int) -> torch.Tensor:
         if self.wrap_shift is None:
             return recv
         n = self.axis_sizes[d]
         view = [1] * recv.dim()
-        view[d] = n
+        view[self.lead + d] = n
         wrapped = (torch.arange(n, device=recv.device) == n - 1)
         # same arithmetic as where(wrapped, 1, 0) * shift in the reference
         mask = wrapped.to(recv.dtype).reshape(view)
@@ -95,11 +100,11 @@ class _Shifter:
 
 def exchange_fwd_serialized(local: torch.Tensor, sched: PulseSchedule,
                             axis_sizes: Sequence[int],
-                            wrap_shift: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            wrap_shift: Optional[torch.Tensor] = None,
+                            lead: int = 0) -> torch.Tensor:
     """MPI-like staged exchange: one full slab per pulse, fully sequential."""
-    nd = sched.ndim
-    shifter = _Shifter(axis_sizes, wrap_shift)
+    nd = lead + sched.ndim
+    shifter = _Shifter(axis_sizes, wrap_shift, lead)
     ext = local
     for pulse in sched.serialized_order():
         d, w, off = pulse.dim, pulse.width, pulse.offset
@@ -108,18 +113,18 @@ def exchange_fwd_serialized(local: torch.Tensor, sched: PulseSchedule,
         # the slab includes halo rows received by earlier pulses: staged
         # forwarding, which forces strict pulse ordering
         slab = ext.narrow(nd + d, off, w)
-        recv = shifter(recv_from_next(slab, d), d)
+        recv = shifter(recv_from_next(slab, lead + d), d)
         ext = torch.cat([ext, recv], dim=nd + d)
     return ext
 
 
 def exchange_fwd_fused(local: torch.Tensor, sched: PulseSchedule,
                        axis_sizes: Sequence[int],
-                       wrap_shift: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       wrap_shift: Optional[torch.Tensor] = None,
+                       lead: int = 0) -> torch.Tensor:
     """Fused dependency-partitioned exchange (paper Alg. 3/4)."""
     nd = sched.ndim
-    shifter = _Shifter(axis_sizes, wrap_shift)
+    shifter = _Shifter(axis_sizes, wrap_shift, lead)
     regions: Dict[Region, torch.Tensor] = {(): local}
     for phase in sched.forward_phases():
         new: Dict[Region, torch.Tensor] = {}
@@ -131,13 +136,14 @@ def exchange_fwd_fused(local: torch.Tensor, sched: PulseSchedule,
             src = regions.get(tuple(k for k in region if k != d))
             if src is None:
                 continue
-            slab = src.narrow(nd + d, 0, w)
-            new[region] = shifter(recv_from_next(slab, d), d)
+            slab = src.narrow(lead + nd + d, 0, w)
+            new[region] = shifter(recv_from_next(slab, lead + d), d)
         regions.update(new)  # phase barrier: next phase may read these
-    return _assemble(regions, nd)
+    return _assemble(regions, nd, lead)
 
 
-def _assemble(regions: Dict[Region, torch.Tensor], nd: int) -> torch.Tensor:
+def _assemble(regions: Dict[Region, torch.Tensor], nd: int,
+              lead: int = 0) -> torch.Tensor:
     """Merge region dict into the extended block by progressive concat."""
     current = dict(regions)
     for d in range(nd - 1, -1, -1):
@@ -146,21 +152,22 @@ def _assemble(regions: Dict[Region, torch.Tensor], nd: int) -> torch.Tensor:
             if d in key:
                 continue
             hi = current.get(tuple(sorted(key + (d,))))
-            merged[key] = val if hi is None else torch.cat([val, hi],
-                                                           dim=nd + d)
+            merged[key] = val if hi is None else torch.cat(
+                [val, hi], dim=lead + nd + d)
         current = merged
     return current[()]
 
 
 def _decompose(ext: torch.Tensor, sched: PulseSchedule,
-               local_shape: Sequence[int]) -> Dict[Region, torch.Tensor]:
+               local_shape: Sequence[int],
+               lead: int = 0) -> Dict[Region, torch.Tensor]:
     """Inverse of :func:`_assemble`: slice the extended block into regions."""
-    nd = sched.ndim
+    nd = lead + sched.ndim
     regions: Dict[Region, torch.Tensor] = {}
     for region in ((),) + sched.regions():
         idx = [slice(None)] * ext.dim()
         skip = False
-        for d in range(nd):
+        for d in range(sched.ndim):
             n, w = local_shape[d], sched.widths[d]
             if d in region:
                 if w == 0:
@@ -179,25 +186,27 @@ def _decompose(ext: torch.Tensor, sched: PulseSchedule,
 # --------------------------------------------------------------------------
 
 def exchange_rev_serialized(ext: torch.Tensor, sched: PulseSchedule,
-                            axis_sizes: Sequence[int]) -> torch.Tensor:
+                            axis_sizes: Sequence[int],
+                            lead: int = 0) -> torch.Tensor:
     """MPI-like reverse: return halo contributions pulse-by-pulse (x->y->z)."""
-    nd = sched.ndim
+    nd = lead + sched.ndim
     out = ext
     for pulse in reversed(sched.serialized_order()):
         d, w, off = pulse.dim, pulse.width, pulse.offset
         if w == 0:
             continue
         body, halo = _split_high(out, nd + d, w)
-        out = _add_at(body, nd + d, off, w, recv_from_prev(halo, d))
+        out = _add_at(body, nd + d, off, w, recv_from_prev(halo, lead + d))
     return out
 
 
 def exchange_rev_fused(ext: torch.Tensor, sched: PulseSchedule,
                        axis_sizes: Sequence[int],
-                       local_shape: Sequence[int]) -> torch.Tensor:
+                       local_shape: Sequence[int],
+                       lead: int = 0) -> torch.Tensor:
     """Fused reverse (paper Alg. 6): deepest regions first, faces last."""
-    nd = sched.ndim
-    regions = _decompose(ext, sched, local_shape)
+    nd = lead + sched.ndim
+    regions = _decompose(ext, sched, local_shape, lead)
     for phase in sched.reverse_phases():
         recvs = []
         for region in phase:
@@ -205,7 +214,7 @@ def exchange_rev_fused(ext: torch.Tensor, sched: PulseSchedule,
                 continue
             d = max(region)
             w = sched.widths[d]
-            recv = recv_from_prev(regions.pop(region), d)
+            recv = recv_from_prev(regions.pop(region), lead + d)
             recvs.append((tuple(k for k in region if k != d), d, w, recv))
         for dst_key, d, w, recv in recvs:
             regions[dst_key] = _add_at(regions[dst_key], nd + d, 0, w, recv)

@@ -21,7 +21,11 @@ more, so with wrap shifts its pallas and signal backends differ from its
 serialized one; here every backend gives the serialized result.
 
 Block tensors carry every domain: ``(D_0, .., D_{nd-1}, *local)`` with
-one leading dim per decomposed axis, in ``spec.axis_names`` order.  The
+one leading dim per decomposed axis, in ``spec.axis_names`` order.  A
+lane plan (:meth:`HaloPlan.with_lanes`) takes ``(R, D_0, .., *local)``:
+``R`` independent replicas of the domain grid (the MD server's lanes),
+each exchanged as the plain plan exchanges one, with one launch of each
+kernel for all of them.  The
 pure-arithmetic accounting (:func:`compute_exchange_stats`,
 :func:`latency_model`, :func:`overlap_model`, :meth:`HaloPlan.stats`)
 returns the same dicts as the reference for the same spec and local
@@ -147,9 +151,9 @@ class HaloBackend:
 
     def _local_shape(self, plan: "HaloPlan", ext: torch.Tensor
                      ) -> Tuple[int, ...]:
-        nd = plan.spec.ndim
-        return tuple(ext.shape[nd + d] - plan.spec.widths[d]
-                     for d in range(nd))
+        L = plan.n_lead
+        return tuple(ext.shape[L + d] - plan.spec.widths[d]
+                     for d in range(plan.spec.ndim))
 
 
 class SerializedBackend(HaloBackend):
@@ -159,11 +163,12 @@ class SerializedBackend(HaloBackend):
 
     def fwd(self, plan, local, wrap_shift, slot=0):
         return _halo.exchange_fwd_serialized(local, plan.sched,
-                                             plan.axis_sizes, wrap_shift)
+                                             plan.axis_sizes, wrap_shift,
+                                             plan.lead)
 
     def rev(self, plan, ext, slot=0):
         return _halo.exchange_rev_serialized(ext, plan.sched,
-                                             plan.axis_sizes)
+                                             plan.axis_sizes, plan.lead)
 
 
 class FusedBackend(HaloBackend):
@@ -174,11 +179,12 @@ class FusedBackend(HaloBackend):
 
     def fwd(self, plan, local, wrap_shift, slot=0):
         return _halo.exchange_fwd_fused(local, plan.sched, plan.axis_sizes,
-                                        wrap_shift)
+                                        wrap_shift, plan.lead)
 
     def rev(self, plan, ext, slot=0):
         return _halo.exchange_rev_fused(ext, plan.sched, plan.axis_sizes,
-                                        self._local_shape(plan, ext))
+                                        self._local_shape(plan, ext),
+                                        plan.lead)
 
 
 class RevMaps(NamedTuple):
@@ -202,8 +208,9 @@ class PallasBackend(HaloBackend):
     One launch serves every domain: a block viewed as
     ``(n_dom, prod(local[:d+1]), -1)`` numbers its rows per domain
     exactly as the reference's ``reshape(prod(shape[:d+1]), -1)``, so
-    the same map holds for all domains.  Pulses run in serialized order,
-    so the serialized critical-path model applies.  On a CUDA block the
+    the same map holds for all domains (and, on a lane plan, for every
+    lane's domains: lanes only multiply ``n_dom``).  Pulses run in
+    serialized order, so the serialized critical-path model applies.  On a CUDA block the
     kernels run or raise; on a CPU block their plain forms run.
 
     With an f64 payload under a wire format the forward packs convert to
@@ -285,8 +292,9 @@ class PallasBackend(HaloBackend):
         ships dense, and :meth:`HaloPlan.stats` counts its forward bytes
         dense.
         """
-        nd = plan.spec.ndim
-        if not self.ships_fwd_wire(plan, local.shape[nd:2 * nd]):
+        L = plan.n_lead
+        if not self.ships_fwd_wire(plan,
+                                   local.shape[L:L + plan.spec.ndim]):
             return None
         return plan.wire_pack_dtype(local.dtype)
 
@@ -300,11 +308,11 @@ class PallasBackend(HaloBackend):
         ``d`` forwarded it), so the result is the serialized one."""
         if wrap_shift is None:
             return ext
-        nd = plan.spec.ndim
-        shifter = _halo._Shifter(plan.axis_sizes, wrap_shift)
+        L = plan.n_lead
+        shifter = _halo._Shifter(plan.axis_sizes, wrap_shift, plan.lead)
         for d, w in enumerate(plan.spec.widths):
             if w:
-                halo = ext.narrow(nd + d, local_shape[d], w)
+                halo = ext.narrow(L + d, local_shape[d], w)
                 halo.copy_(shifter(halo, d))
         return ext
 
@@ -317,11 +325,12 @@ class PallasBackend(HaloBackend):
 
     def fwd(self, plan, local, wrap_shift, slot=0):
         sched = plan.sched
-        nd = plan.spec.ndim
-        local_shape = tuple(local.shape[nd:2 * nd])
+        nd = plan.n_lead
+        local_shape = tuple(local.shape[nd:nd + plan.spec.ndim])
         wire = self._fwd_wire(plan, local)
         shifter = _halo._Shifter(plan.axis_sizes,
-                                 wrap_shift if wire is None else None)
+                                 wrap_shift if wire is None else None,
+                                 plan.lead)
         fwd_maps, _ = self._maps(plan, local_shape)
         ext = local
         for pulse, idx in zip(sched.serialized_order(), fwd_maps):
@@ -332,7 +341,7 @@ class PallasBackend(HaloBackend):
             slab = halo_pack.pack(self._rows2d(ext, nd, d), idx,
                                   wire_dtype=wire).reshape(
                 shape[:nd + d] + (w,) + shape[nd + d + 1:])
-            recv = _halo.recv_from_next(slab, d)
+            recv = _halo.recv_from_next(slab, plan.lead + d)
             if wire is not None:
                 recv = recv.to(local.dtype)     # dequantize after receive
             ext = torch.cat([ext, shifter(recv, d)], dim=nd + d)
@@ -342,7 +351,7 @@ class PallasBackend(HaloBackend):
 
     def rev(self, plan, ext, slot=0):
         sched = plan.sched
-        nd = plan.spec.ndim
+        nd = plan.n_lead
         _, rev_maps = self._maps(plan, self._local_shape(plan, ext))
         out = ext
         for pulse, maps in zip(reversed(sched.serialized_order()), rev_maps):
@@ -354,7 +363,7 @@ class PallasBackend(HaloBackend):
                                        maps.pack_idx)
             slab = halo_rows.reshape(shape[:nd + d] + (w,)
                                      + shape[nd + d + 1:])
-            recv = _halo.recv_from_prev(slab, d)
+            recv = _halo.recv_from_prev(slab, plan.lead + d)
             body = out.narrow(nd + d, 0, shape[nd + d] - w)
             body2d = self._rows2d(body, nd, d)
             rows = recv.reshape(body2d.shape[0], maps.add_idx.shape[0], -1)
@@ -561,11 +570,52 @@ class HaloPlan:
         self._wrap = spec.wrap_shift_array(self.device)
         self._index_maps: Dict[Tuple[int, ...], Any] = {}
         self._stats_cache: Dict[Tuple, dict] = {}
+        # replica lanes in front of the domain grid (with_lanes): 0 / None
+        # on a plain plan
+        self.lead = 0
+        self.lanes: Optional[int] = None
 
     @classmethod
     def build(cls, spec: HaloSpec, mesh: DomainMesh, device="cuda",
               verify: str = "error") -> "HaloPlan":
         return cls(spec, mesh, device=device, verify=verify)
+
+    def with_lanes(self, lanes: int) -> "HaloPlan":
+        """This plan over ``lanes`` independent replicas of its domain
+        grid: block tensors ``(lanes, *domains, *local)``.  Each lane is
+        exchanged exactly as this plan exchanges a block (its halos never
+        cross the lane dim), with one launch of each kernel serving every
+        lane: the pack / unpack-add maps are this plan's, lanes only
+        multiply the domain count of a launch, and the signal kernels
+        ring over the ``(lanes, *domains)`` mesh along axis ``1 + d``.
+        The lane plan keeps its own index maps and signal words (sized
+        for ``lanes`` times the domains) and its own wire codec (one
+        int8 scale per lane and domain)."""
+        if self.lead:
+            raise ValueError("with_lanes on a lane plan: lanes do not nest")
+        if int(lanes) < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        plan = object.__new__(type(self))
+        plan.__dict__.update(self.__dict__)
+        plan.lead = 1
+        plan.lanes = int(lanes)
+        plan.wire = _wire.make_codec(self.spec.wire_dtype,
+                                     n_lead=1 + self.spec.ndim)
+        plan._index_maps = {}
+        return plan
+
+    @property
+    def n_lead(self) -> int:
+        """Leading dims of a block tensor before its local block: the
+        lanes (on a lane plan) and the domain grid."""
+        return self.lead + self.spec.ndim
+
+    @property
+    def block_dims(self) -> Tuple[int, ...]:
+        """The leading dims a block tensor must have: ``axis_sizes``, with
+        the lane count in front on a lane plan (the signal kernels' ring
+        mesh)."""
+        return ((self.lanes,) if self.lead else ()) + self.axis_sizes
 
     # -- introspection -----------------------------------------------------
 
@@ -663,6 +713,19 @@ class HaloPlan:
             self._stats_cache[key] = stats
         return self._stats_cache[key]
 
+    def publish_stats(self, registry, local_shape: Sequence[int],
+                      **kw) -> dict:
+        """:meth:`stats`, also published as a ``halo_stats`` record (with
+        the backend's critical-path model, which the Perfetto exporter's
+        predicted lanes key on) into ``registry``, a
+        :class:`~repro_torch.obs.registry.MetricsRegistry`.  The registry
+        stays out of the stats cache key."""
+        stats = self.stats(local_shape, **kw)
+        registry.emit("halo_stats", backend=self.spec.backend,
+                      critical_path=self.backend.critical_path,
+                      local_shape=tuple(local_shape), data=stats)
+        return stats
+
     # -- execution ---------------------------------------------------------
 
     def _resolve_shift(self, wrap_shift):
@@ -673,14 +736,15 @@ class HaloPlan:
         return torch.as_tensor(wrap_shift, device=self.device)
 
     def _check(self, x: torch.Tensor) -> None:
-        nd = self.spec.ndim
+        nd = self.n_lead
         if x.device != self.device:
             raise ValueError(f"block tensor on {x.device}, plan on "
                              f"{self.device}")
-        if tuple(x.shape[:nd]) != self.axis_sizes:
+        if tuple(x.shape[:nd]) != self.block_dims:
             raise ValueError(
                 f"leading domain dims {tuple(x.shape[:nd])} do not match "
-                f"the mesh {self.axis_sizes} (axes {self.spec.axis_names})")
+                f"the mesh {self.block_dims} (axes "
+                f"{('lanes',) * self.lead + self.spec.axis_names})")
 
     def _wire_active(self, x: torch.Tensor) -> bool:
         """Wire compression applies to floating payloads only: integer
@@ -698,7 +762,7 @@ class HaloPlan:
     def _body_idx(self, local_shape: Sequence[int]) -> Tuple[slice, ...]:
         """Index of every domain's local body inside extended blocks
         (halos are appended at the high end of each decomposed dim)."""
-        return (slice(None),) * self.spec.ndim + tuple(
+        return (slice(None),) * self.n_lead + tuple(
             slice(0, int(n)) for n in local_shape)
 
     def fwd(self, local: torch.Tensor, wrap_shift=_UNSET, slot: int = 0
@@ -720,7 +784,7 @@ class HaloPlan:
         # the backend's extended block is a new tensor: splice in place
         ext = self.backend.fwd(self, self.wire.fwd_roundtrip(local), shift,
                                slot)
-        ext[self._body_idx(local.shape[self.spec.ndim:])] = local
+        ext[self._body_idx(local.shape[self.n_lead:])] = local
         return ext
 
     def rev(self, ext: torch.Tensor, slot: int = 0) -> torch.Tensor:
@@ -780,8 +844,8 @@ class HaloPlan:
         F = self.wire.decode(wire_parts, dtype)
         if F is wire_parts[0]:  # a cast to the payload's own dtype
             F = F.clone()
-        F[self._body_idx(bodyv.shape[self.spec.ndim:2 * self.spec.ndim])] \
-            = bodyv
+        L = self.n_lead
+        F[self._body_idx(bodyv.shape[L:L + self.spec.ndim])] = bodyv
         return F
 
     def exchange(self, x: torch.Tensor) -> torch.Tensor:

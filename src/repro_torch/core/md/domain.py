@@ -1,13 +1,17 @@
 """Domain decomposition on the virtual mesh: migration and re-binning.
 
 The port of the JAX package's ``core/md/domain.py``.  Pools are
-``(Dz, Dy, Dx, P, F)``: every domain at once, domain dims leading.  The
+``(Dz, Dy, Dx, P, F)``: every domain at once, domain dims leading; with
+``lead`` batch dims in front (the MD server's replica lanes) each lane
+migrates on its own, its counters summed per lane.  The
 reference's ``ppermute`` to the +1 / -1 neighbour becomes a roll of the
 domain dim, ``lax.axis_index`` a coordinate grid, ``lax.psum`` a sum
 over the domain dims.  Migration runs every ``nstlist`` steps, off the
 per-step path; routing is dimension-ordered (Z, Y, X), one hop per dim.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,18 +78,26 @@ def _merge_rows(pool_f, pool_i, buf_f, buf_i):
     return pool_f, pool_i, lost
 
 
-def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
+def _lane_sum(x, lead: int):
+    """int32 sum of ``x`` over every dim after the first ``lead``."""
+    return x.sum(dim=tuple(range(lead, x.dim()))).to(torch.int32)
+
+
+def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int,
+            lead: int = 0):
     """Dimension-ordered migration of atoms that left their domain.
 
-    pool_f: (Dz, Dy, Dx, P, Ff), coordinates first; pool_i:
-    (Dz, Dy, Dx, P, 2) [id, type] with id < 0 marking empty slots.
-    Returns the updated pools and a dict of global counters (0-dim
-    tensors) that must stay zero in healthy runs.
+    pool_f: (*lanes, Dz, Dy, Dx, P, Ff), coordinates first; pool_i:
+    (*lanes, Dz, Dy, Dx, P, 2) [id, type] with id < 0 marking empty
+    slots, ``lead`` lane dims in front.  Returns the updated pools and a
+    dict of counters per lane (0-dim tensors without lanes) that must
+    stay zero in healthy runs.
     """
     dev = pool_f.device
     box = const(tuple(layout.box), pool_f.dtype, dev)
-    dropped_total = torch.zeros((), dtype=torch.int32, device=dev)
-    lost_total = torch.zeros((), dtype=torch.int32, device=dev)
+    lanes = tuple(pool_f.shape[:lead])
+    dropped_total = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    lost_total = torch.zeros(lanes, dtype=torch.int32, device=dev)
 
     # wrap positions into the box first (global coordinates)
     pool_f = pool_f.clone()
@@ -100,8 +112,8 @@ def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
         valid = pool_i[..., 0] >= 0
         dest = torch.floor(pool_f[..., d] / extent).to(torch.int32)
         dest = torch.clamp(dest, 0, S - 1)
-        view = [1, 1, 1, 1]
-        view[d] = S
+        view = [1] * (lead + 4)
+        view[lead + d] = S
         me = torch.arange(S, dtype=torch.int32, device=dev).reshape(view)
         rel = torch.remainder(dest - me, S)
         send_hi = valid & (rel == 1)
@@ -111,7 +123,7 @@ def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
         # and count it so tests can fail loudly
         too_far = valid & (rel != 0) & (rel != 1) & (rel != S - 1)
         send_hi = send_hi | too_far
-        dropped_total = dropped_total + too_far.sum().to(torch.int32)
+        dropped_total = dropped_total + _lane_sum(too_far, lead)
 
         buf_f, buf_i, sent, drop1 = _take_rows(send_hi, pool_f, pool_i,
                                                mig_cap)
@@ -119,40 +131,47 @@ def migrate(pool_f, pool_i, layout: CellLayout, mig_cap: int):
         lbuf_f, lbuf_i, lsent, drop2 = _take_rows(send_lo, pool_f, pool_i,
                                                   mig_cap)
         pool_i = torch.where(lsent[..., None], -1, pool_i)
-        dropped_total = dropped_total + (drop1 + drop2).sum().to(torch.int32)
+        dropped_total = dropped_total + _lane_sum(drop1 + drop2, lead)
 
         # +1 neighbour receives (perm (j, j+1)): roll +1; -1 neighbour: -1
         pool_f, pool_i, lost1 = _merge_rows(
-            pool_f, pool_i, torch.roll(buf_f, 1, dims=d),
-            torch.roll(buf_i, 1, dims=d))
+            pool_f, pool_i, torch.roll(buf_f, 1, dims=lead + d),
+            torch.roll(buf_i, 1, dims=lead + d))
         pool_f, pool_i, lost2 = _merge_rows(
-            pool_f, pool_i, torch.roll(lbuf_f, -1, dims=d),
-            torch.roll(lbuf_i, -1, dims=d))
-        lost_total = lost_total + (lost1 + lost2).sum().to(torch.int32)
+            pool_f, pool_i, torch.roll(lbuf_f, -1, dims=lead + d),
+            torch.roll(lbuf_i, -1, dims=lead + d))
+        lost_total = lost_total + _lane_sum(lost1 + lost2, lead)
 
     diag = {"migration_dropped": dropped_total,
             "migration_lost": lost_total}
     return pool_f, pool_i, diag
 
 
-def rebin(cell_f, cell_i, layout: CellLayout, mig_cap: int):
+def rebin(cell_f, cell_i, layout: CellLayout, mig_cap: int, lead: int = 0):
     """Wrap, migrate and re-bin every domain's atoms (each nstlist steps).
 
-    cell_f / cell_i: (Dz, Dy, Dx, cz, cy, cx, K, F).
+    cell_f / cell_i: (*lanes, Dz, Dy, Dx, cz, cy, cx, K, F), ``lead`` lane
+    dims in front; the diagnostics are per lane.
     """
-    mesh = tuple(cell_f.shape[:3])
-    B = mesh[0] * mesh[1] * mesh[2]
-    pool_f, pool_i = cells_to_pool(cell_f.reshape(B, *cell_f.shape[3:]),
-                                   cell_i.reshape(B, *cell_i.shape[3:]))
-    pool_f = pool_f.reshape(*mesh, *pool_f.shape[1:])
-    pool_i = pool_i.reshape(*mesh, *pool_i.shape[1:])
-    pool_f, pool_i, diag = migrate(pool_f, pool_i, layout, mig_cap)
-    pool_f = pool_f.reshape(B, *pool_f.shape[3:])
-    pool_i = pool_i.reshape(B, *pool_i.shape[3:])
+    outer = tuple(cell_f.shape[:lead + 3])
+    mesh = outer[lead:]
+    lanes = outer[:lead]
+    B = math.prod(outer)
+    pool_f, pool_i = cells_to_pool(
+        cell_f.reshape(B, *cell_f.shape[lead + 3:]),
+        cell_i.reshape(B, *cell_i.shape[lead + 3:]))
+    pool_f = pool_f.reshape(*outer, *pool_f.shape[1:])
+    pool_i = pool_i.reshape(*outer, *pool_i.shape[1:])
+    pool_f, pool_i, diag = migrate(pool_f, pool_i, layout, mig_cap, lead)
+    pool_f = pool_f.reshape(B, *pool_f.shape[lead + 3:])
+    pool_i = pool_i.reshape(B, *pool_i.shape[lead + 3:])
+    coords = domain_coords(mesh, cell_f.device)
+    if lead:
+        coords = coords.repeat(math.prod(lanes), 1)
     new_f, new_i, overflow = bin_to_cells(
-        pool_f[..., :3], pool_f[..., 3:], pool_i, layout,
-        domain_coords(mesh, cell_f.device))
-    diag["bin_overflow"] = overflow.sum().to(torch.int32)
-    diag["n_atoms"] = torch.sum(new_i[..., 0] >= 0)
-    return (new_f.reshape(*mesh, *new_f.shape[1:]),
-            new_i.reshape(*mesh, *new_i.shape[1:]), diag)
+        pool_f[..., :3], pool_f[..., 3:], pool_i, layout, coords)
+    diag["bin_overflow"] = _lane_sum(overflow.reshape(*lanes, -1), lead)
+    diag["n_atoms"] = torch.sum(
+        (new_i[..., 0] >= 0).reshape(*lanes, -1), dim=lead)
+    return (new_f.reshape(*outer, *new_f.shape[1:]),
+            new_i.reshape(*outer, *new_i.shape[1:]), diag)

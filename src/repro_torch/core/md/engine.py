@@ -53,12 +53,25 @@ and the migration counters.  ``capture="off"`` (the default on the CPU)
 issues every operation eagerly, the port's counterpart of
 ``jax.disable_jit``; both give the same bits.
 
-The reference's other knobs (the static ladder, tracing, fault
-injection, health monitors) come with later slices of the port; asking
-for any of them raises ``NotImplementedError``.
+The knobs the MD server rests on are the reference's: ``layout_atoms``
+sizes the cell layout as if the system held that many atoms (every
+replica of a server bucket shares the bucket's layout), ``static_ladder``
+runs the pruned backends on the data-independent worst-case tier ladder
+(one ``(M, K)`` tier), ``health`` adds the per-step ``health/nonfinite``
+count and the per-invocation ``health/led_violation`` flag to the
+metrics, ``obs`` is the :class:`~repro_torch.obs.registry.MetricsRegistry`
+the engine publishes its records, gauges, counters and spans to, and
+``simulate(on_boundary=)`` is the block-boundary hook.  Each is bitwise
+neutral.  :meth:`MDEngine.lane_programs` gives the block, rebin and prune
+bodies over ``R`` replica lanes, block tensors ``(R, Dz, Dy, Dx, cz, cy,
+cx, K, F)``, one launch of each kernel serving every lane: the Hopper
+form of the reference's ``jax.vmap(local_programs[...])``.  Tracing's
+per-step counters (``trace``) and fault injection (``inject``) come with
+later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import warnings
@@ -101,6 +114,8 @@ from repro_torch.core.pipeline.step_pipeline import (
 )
 from repro_torch.device import const, resolve_device
 from repro_torch.launch.mesh import DomainMesh
+from repro_torch.obs import default_registry
+from repro_torch.obs import span as obs_span
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -164,6 +179,7 @@ class MDEngine:
                  verify: str = "error",
                  obs=None, trace: bool = False,
                  inject: bool = False, health: bool = False,
+                 layout_atoms: int | None = None,
                  static_ladder: bool = False,
                  device="cuda", capture: str | None = None):
         self.device = resolve_device(device)
@@ -197,15 +213,12 @@ class MDEngine:
         if int(nstprune) < 0:
             raise ValueError("nstprune must be >= 0 (0 disables the "
                              "rolling inner prune)")
-        later = "a later slice of the port"
-        if static_ladder:
-            _not_ported("static_ladder", static_ladder,
-                        "the serving slice (the worst-case pair-schedule "
-                        "ladder of its replica buckets)")
-        for knob, value in (("obs", obs), ("trace", trace),
-                            ("inject", inject), ("health", health)):
-            if value:
-                _not_ported(knob, value, later)
+        if trace:
+            _not_ported("trace", trace, "ROADMAP A10b (per-step obs/* "
+                        "ledger counters)")
+        if inject:
+            _not_ported("inject", inject, "ROADMAP A11 (fault injection, "
+                        "resilience and checkpoints)")
         if system.pos.dtype not in _TORCH_DTYPE:
             raise TypeError(f"system dtype {system.pos.dtype} not "
                             "supported: float32 or float64")
@@ -215,11 +228,22 @@ class MDEngine:
         self.pipeline_depth = int(pipeline_depth)
         self.overlap_rebin = bool(overlap_rebin)
         self.dtype = _TORCH_DTYPE[system.pos.dtype]
+        self.health = bool(health)
+        # replica lanes in front of the domain dims: none here, one dim of
+        # ``lanes`` on the lane view that lane_programs builds
+        self.lead = 0
+        self.lanes = None
         mesh_shape = tuple(mesh.shape[a] for a in AXES)
         self.axis_sizes = mesh_shape
         r_list = system.params.ff.r_cut * r_list_factor
+        # ``layout_atoms`` sizes the cell capacity as if the system held
+        # that many atoms: every replica of a server bucket shares the
+        # bucket's layout, so a replica's solo run has the exact shapes
+        # (and operations) of its lane
+        self.layout_atoms = int(layout_atoms) if layout_atoms else None
         self.layout = choose_layout(system.box, mesh_shape, r_list,
-                                    system.n_atoms, safety=capacity_safety)
+                                    self.layout_atoms or system.n_atoms,
+                                    safety=capacity_safety)
         if force_backend != "dense" and min(self.layout.global_cells) < 2:
             # a pair schedule cannot tell a halo cell from its own periodic
             # image here; the dense path masks self-image pairs by atom id
@@ -232,6 +256,18 @@ class MDEngine:
         self.force_backend = force_backend
         if force_backend == "dense":
             nstprune = 0               # the dual list rides the schedule
+        # ``static_ladder``: the pruned backends run a data-independent
+        # worst-case tier ladder (every worklist row at the deepest level)
+        # instead of the measured histogram's, so the step shapes depend
+        # on the layout alone: no lane's data reaches another lane's
+        # shapes.  The prune still runs (``sel`` masks dropped pairs with
+        # the inert sentinel), so the physics is unchanged.
+        self.static_ladder = bool(static_ladder)
+        if self.static_ladder and int(nstprune):
+            raise ValueError(
+                "static_ladder=True is incompatible with nstprune: the "
+                "rolling inner prune exists to shrink the measured ladder "
+                "the static ladder deliberately ignores")
         self.nstprune = int(nstprune)
         self.inner_safety = float(inner_safety)
         self.pair_bucket = max(int(pair_bucket), 1)
@@ -298,6 +334,18 @@ class MDEngine:
             n_pulses=max(1, self.plan.sched.total_pulses), verify=verify,
             inner_safety=self.inner_safety, r_list_factor=r_list_factor,
             mig_frac=mig_frac, capacity_safety=capacity_safety)
+        # observability: the stats surfaces also publish records and
+        # instruments here (host bookkeeping: the steps are unchanged)
+        self.obs = obs if obs is not None else default_registry()
+        self.obs.emit(
+            "engine_build", backend=self.backend,
+            pipeline=self.pipeline_mode, pipeline_depth=self.pipeline_depth,
+            overlap_rebin=self.overlap_rebin,
+            force_backend=self.force_backend, nstprune=self.nstprune,
+            n_atoms=system.n_atoms, global_cells=self.layout.global_cells,
+            capacity=self.layout.capacity,
+            schedule_safe=(None if self.schedule_report is None
+                           else self.schedule_report.safe))
         self.capture = capture
         # the graphs' cache; a key's leading part is this engine's
         # configuration (mode, depth, dtype, backend, wire format)
@@ -328,11 +376,12 @@ class MDEngine:
         K = self.layout.capacity
         gz, gy, gx = self.layout.global_cells
         occupancy = self.system.n_atoms / float(gz * gy * gx * K)
-        return self.plan.stats(self.layout.cells_per_domain,
-                               index_elems=2 * K, index_itemsize=4,
-                               occupancy=occupancy,
-                               pipeline=self.pipeline_mode,
-                               depth=self.pipeline_depth)
+        return self.plan.publish_stats(self.obs,
+                                       self.layout.cells_per_domain,
+                                       index_elems=2 * K, index_itemsize=4,
+                                       occupancy=occupancy,
+                                       pipeline=self.pipeline_mode,
+                                       depth=self.pipeline_depth)
 
     def pair_stats(self) -> dict:
         """Evaluated-slot-pair accounting of the latest pruned block, per
@@ -348,13 +397,28 @@ class MDEngine:
             # jnp twin; the port has no fallback (a CUDA tensor launches
             # the kernel or raises), so the flag is always False
             out["pallas_fallback"] = False
+        self.obs.emit("pair_stats", data=out)
+        self.obs.gauge("md/prune_ratio").set(out.get("prune_ratio", 1.0))
         return out
 
     def overlap_stats(self) -> dict:
         """Per-step overlap model at this engine's pipeline mode / depth."""
-        return self.plan.stats(self.layout.cells_per_domain,
-                               pipeline=self.pipeline_mode,
-                               depth=self.pipeline_depth)["overlap"]
+        overlap = self.plan.stats(self.layout.cells_per_domain,
+                                  pipeline=self.pipeline_mode,
+                                  depth=self.pipeline_depth)["overlap"]
+        self.obs.emit("overlap_model", backend=self.backend, data=overlap)
+        return overlap
+
+    # ---- lanes: the domain dims sit after ``self.lead`` lane dims -------
+
+    def _psum(self, x):
+        """Sum over the domain dims: one value per lane (the reference's
+        ``lax.psum`` over the mesh axes), in a fixed order."""
+        return integrate.fixed_sum(x, self.lead)
+
+    def _pmax(self, x):
+        """Max over the domain dims (``lax.pmax``)."""
+        return torch.amax(x, dim=tuple(range(self.lead, self.lead + 3)))
 
     # ---- the force pass --------------------------------------------------
 
@@ -364,7 +428,7 @@ class MDEngine:
         if max(self.spec.widths) == 1:
             return ext
         n = self.layout.cells_per_domain
-        return ext[(slice(None),) * 3
+        return ext[(slice(None),) * (self.lead + 3)
                    + tuple(slice(0, n[d] + 1) for d in range(3))]
 
     def _pad_force(self, F_trim, ext_shape):
@@ -372,9 +436,10 @@ class MDEngine:
         if max(self.spec.widths) == 1:
             return F_trim
         n = self.layout.cells_per_domain
-        F = torch.zeros(tuple(ext_shape[:6]) + F_trim.shape[6:],
+        L = self.lead + 3
+        F = torch.zeros(tuple(ext_shape[:L + 3]) + F_trim.shape[L + 3:],
                         dtype=F_trim.dtype, device=F_trim.device)
-        F[(slice(None),) * 3
+        F[(slice(None),) * L
           + tuple(slice(0, n[d] + 1) for d in range(3))] = F_trim
         return F
 
@@ -387,7 +452,7 @@ class MDEngine:
                                     self._trim_ext(ext_i), self.layout,
                                     self.system.params.ff)
         f_local = self.plan.rev_local(self._pad_force(F_trim, ext_f.shape))
-        return f_local, torch.sum(pe)
+        return f_local, self._psum(pe)
 
     def _force_pass_sched(self, cell_f, cell_i, sel, tiers):
         """Schedule-driven force pass (pruned backends)."""
@@ -399,7 +464,7 @@ class MDEngine:
             self._trim_ext(ext_f), ext_i, self.layout, self.system.params.ff,
             sched=self.pair_schedule, batches=batches)
         f_local = self.plan.rev_local(self._pad_force(F_trim, ext_f.shape))
-        return f_local, torch.sum(pe)
+        return f_local, self._psum(pe)
 
     def force_fn(self, cell_f, cell_i):
         """One force pass (halo fwd -> NB -> halo rev) on block tensors,
@@ -419,6 +484,7 @@ class MDEngine:
         mass = params.mass
         layout, ff = self.layout, params.ff
         dtype, dev = self.dtype, self.device
+        lead, health = self.lead, self.health
         half_dt_m = torch.tensor(params.dt / (2 * mass), dtype=dtype,
                                  device=dev)
         dt = torch.tensor(params.dt, dtype=dtype, device=dev)
@@ -457,18 +523,33 @@ class MDEngine:
             vel_new = vel_half + torch.where(vmask, f_new * half_dt_m, zero)
             cell_f = cell_f.clone()
             cell_f[..., 4:7] = torch.where(vmask, vel_new, zero)
-            return cell_f, f_new, {"vel": vel_new, "valid": valid}
+            raw = {"vel": vel_new, "valid": valid}
+            if health:
+                raw.update(cell_f_new=cell_f, f_new=f_new)
+            return cell_f, f_new, raw
+
+        def count_bad(x):
+            bad = ~torch.isfinite(x)
+            return torch.sum(bad.reshape(bad.shape[:lead] + (-1,)),
+                             dim=lead, dtype=torch.int32)
 
         def reduce(raw):
             # the step's metrics: no later step waits for them
             out = {}
             if "pe" in raw:
-                out["pe"] = torch.sum(raw["pe"])
+                out["pe"] = self._psum(raw["pe"])
             if "vel" in raw:
                 vel, valid = raw["vel"], raw["valid"]
-                out["ke"] = integrate.kinetic_energy(vel, valid, mass)
+                out["ke"] = integrate.kinetic_energy(vel, valid, mass, lead)
                 out["mom"] = integrate.momentum(
-                    torch.where(valid[..., None], vel, zero), valid, mass)
+                    torch.where(valid[..., None], vel, zero), valid, mass,
+                    lead)
+            if "f_new" in raw:
+                # the in-step NaN / Inf monitor over the state after the
+                # kick and the returned forces: an observer, the
+                # trajectory is unchanged
+                out["health/nonfinite"] = (count_bad(raw["cell_f_new"])
+                                           + count_bad(raw["f_new"]))
             return out
 
         return StepFns(begin=begin, force=force, finish=finish,
@@ -486,10 +567,30 @@ class MDEngine:
             self.pair_schedule, ctx["ext_i_trim"],
             sel[..., :tier_rows(tiers)], tiers)}
 
+    def _run_pipe(self, cell_f, force, n_steps: int, ctx):
+        """The step pipeline over ``n_steps``, plus with ``health`` the
+        ledger monitor of the invocation: ``health/led_violation`` is 1
+        iff a put-with-signal bookkeeping law broke (a deposit left in
+        flight, an acquire before its release, a slot clobbered).  The
+        ledger is host bookkeeping, so the flag is computed on the host
+        (a CPU tensor, one per lane) and reads nothing from the device."""
+        cell_f, f_last, metrics, led = self.pipeline.run_local(
+            cell_f, force, n_steps, ctx)
+        if self.health:
+            lg = self.pipeline.ledger
+            bad = int(lg.in_flight(led) != 0 or not lg.consistent(led)
+                      or not lg.window_safe(led))
+            metrics = {**metrics, "health/led_violation": torch.full(
+                (1,) + self._lane_shape(), bad, dtype=torch.int32)}
+        return cell_f, f_last, metrics, led
+
+    def _lane_shape(self) -> tuple:
+        return (self.lanes,) if self.lead else ()
+
     def block_dense(self, cell_f, cell_i, force, n_steps: int):
         """Dense-backend block; returns ``(cell_f, force, metrics, None,
         ledger)``."""
-        cell_f, f_last, metrics, led = self.pipeline.run_local(
+        cell_f, f_last, metrics, led = self._run_pipe(
             cell_f, force, n_steps, self._block_ctx(cell_i))
         return cell_f, f_last, metrics, None, led
 
@@ -507,9 +608,10 @@ class MDEngine:
         approximation held).
         """
         ctx = self._block_ctx(cell_i)
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        zero = torch.zeros(self._lane_shape(), dtype=torch.int32,
+                           device=self.device)
         if not tiers_inner:
-            cell_f, f_last, metrics, led = self.pipeline.run_local(
+            cell_f, f_last, metrics, led = self._run_pipe(
                 cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers))
             return cell_f, f_last, metrics, zero, led
         sel_exec = sel[..., :tier_rows(tiers)]
@@ -539,10 +641,11 @@ class MDEngine:
         sel_exec, cum_s = roll_prune(
             self.pair_schedule, sel_exec, self._trim_ext(ext_f), ext_i_trim,
             self.r_inner)
-        overflow = torch.maximum(
-            overflow, torch.amax(torch.clamp(cum_s - budget, min=0)))
+        over = torch.clamp(cum_s - budget, min=0)
+        overflow = torch.maximum(overflow, torch.amax(
+            over.reshape(over.shape[:self.lead] + (-1,)), dim=self.lead))
         ctx = {"cell_i": cell_i, "ext_i_trim": ext_i_trim}
-        cell_f, force, m, led = self.pipeline.run_local(
+        cell_f, force, m, led = self._run_pipe(
             cell_f, force, n_steps, self._sched_ctx(ctx, sel_exec,
                                                     tiers_inner))
         return cell_f, force, m, overflow, sel_exec, led
@@ -555,20 +658,80 @@ class MDEngine:
         sel, cum, cum_inner, occ = prune_local(
             self.pair_schedule, self._trim_ext(ext_f), self._trim_ext(ext_i),
             self.r_prune, r_inner=self.r_inner)
-        dims = (0, 1, 2)
-        return (sel, torch.amax(cum, dim=dims),
-                torch.amax(cum_inner, dim=dims), torch.amax(occ))
+        return (sel, self._pmax(cum), self._pmax(cum_inner), self._pmax(occ))
 
     def rebin_fn(self, cell_f, cell_i):
         """Wrap, migrate, re-bin, then the force carry for the new bins
         (always the dense pass, as in the reference, whatever the force
         backend)."""
-        new_f, new_i, diag = rebin(cell_f, cell_i, self.layout, self.mig_cap)
+        new_f, new_i, diag = rebin(cell_f, cell_i, self.layout, self.mig_cap,
+                                   self.lead)
         force, _pe = self._force_pass(new_f[..., :4], new_i)
         force = torch.where(new_i[..., 0:1] >= 0, force,
                             torch.zeros((), dtype=force.dtype,
                                         device=force.device))
         return new_f, new_i, force, diag
+
+    # ---- replica lanes (the MD server's batch programs) -------------------
+
+    def lane_programs(self, lanes: int) -> dict:
+        """The block, rebin and prune bodies over ``lanes`` replica lanes,
+        under the reference's names (``"block"``, ``"block_sched"``,
+        ``"rebin"``, ``"prune"``): the Hopper form of its
+        ``jax.vmap(local_programs[...])``.
+
+        Block tensors are ``(lanes, Dz, Dy, Dx, cz, cy, cx, K, F)``; each
+        lane runs this engine's operations on its own block, and one
+        launch of each kernel serves every lane (the halo plan's lane
+        form, :meth:`HaloPlan.with_lanes`; the pair schedule batches lanes
+        as it batches domains), so a lane's trajectory is a solo run's
+        bit for bit.  Metrics come out with the lane dim leading, as
+        vmap gives them: ``(lanes, n_steps)`` (``mom`` ``(lanes, n_steps,
+        3)``), ``health/led_violation`` ``(lanes, 1)``; the rebin's
+        diagnostics, the prune's histograms and occupancy and the block's
+        overflow are per lane.
+
+        * ``block(cell_f, cell_i, force, n_steps) -> (cell_f, cell_i,
+          force, metrics)``;
+        * ``block_sched(cell_f, cell_i, force, sel, n_steps, tiers,
+          tiers_inner) -> (cell_f, cell_i, force, metrics, overflow)``;
+        * ``rebin(cell_f, cell_i) -> (cell_f, cell_i, force, diag)``;
+        * ``prune(cell_f, cell_i) -> (sel, cum, cum_inner, occ)``;
+        * ``engine``: the lane view of this engine the bodies run on.
+
+        With ``capture="block"`` the step units, rebin and prune run as
+        CUDA graphs of the lane view's own
+        :class:`~repro_torch.core.pipeline.block_graph.BlockGraphs`, kept
+        apart from this engine's (so each lane count keeps its graphs).
+        """
+        lane = copy.copy(self)
+        lane.lead, lane.lanes = 1, int(lanes)
+        lane.plan = self.plan.with_lanes(lanes)
+        lane.block_graphs = BlockGraphs(self.device) \
+            if self.capture == "block" else None
+        lane._graph_key = self._graph_key + (("lanes", lane.lanes),)
+        lane.pipeline = StepPipeline.build(
+            lane.plan, lane._make_step_fns(), mode=self.pipeline_mode,
+            depth=self.pipeline_depth, verify="off",
+            graphs=lane.block_graphs, graph_key=lane._graph_key)
+
+        def lanes_first(m):
+            return {k: v.movedim(1, 0) for k, v in m.items()}
+
+        def block(cell_f, cell_i, force, n_steps: int):
+            cell_f, f_last, m, _ovf, _led = lane.block_dense(
+                cell_f, cell_i, force, n_steps)
+            return cell_f, cell_i, f_last, lanes_first(m)
+
+        def block_sched(cell_f, cell_i, force, sel, n_steps: int, tiers,
+                        tiers_inner):
+            cell_f, f_last, m, ovf, _led = lane.block_sched(
+                cell_f, cell_i, force, sel, n_steps, tiers, tiers_inner)
+            return cell_f, cell_i, f_last, lanes_first(m), ovf
+
+        return {"block": block, "block_sched": block_sched,
+                "rebin": lane._rebin, "prune": lane._prune,
+                "engine": lane}
 
     # ---- state init --------------------------------------------------------
 
@@ -637,6 +800,10 @@ class MDEngine:
                          ).tolist()
         cum, cum_inner, occ = host[:L], host[L:2 * L], int(host[2 * L])
         n_keep = cum[0]
+        if self.static_ladder:
+            # the worst-case histogram: all M rows at the deepest level,
+            # one (M, K) tier, the same in every block and every lane
+            cum = [M] * len(cum)
         tiers = tier_plan(cum, self.pair_bucket, M, SLOT_QUANTUM, K)
         tiers_inner = ()
         if self.nstprune and not disable_inner:
@@ -663,6 +830,12 @@ class MDEngine:
         outer_rows = tier_rows(tiers)
         inner_rows = tier_rows(tiers_inner) if tiers_inner else outer_rows
         self.sched_history.append((outer_rows, inner_rows))
+        self.obs.gauge("md/outer_rows").set(outer_rows)
+        self.obs.gauge("md/inner_rows").set(inner_rows)
+        self.obs.emit("sched_update", block=len(self.sched_history),
+                      outer_rows=outer_rows, inner_rows=inner_rows,
+                      max_occupancy=occ,
+                      inner_disabled=bool(self.nstprune and disable_inner))
         self._sched_exec = (sel, tiers, tiers_inner)
         return self._sched_exec
 
@@ -672,6 +845,7 @@ class MDEngine:
         if not self.nstprune or int(ovf) == 0:
             return False
         self._inner_overflows += 1
+        self.obs.counter("md/inner_overflow_blocks").inc()
         if self._inner_overflows == 1:
             warnings.warn(
                 "rolling inner prune overflowed its tier ladder (more "
@@ -701,9 +875,11 @@ class MDEngine:
         ``disable_inner=True`` starts the first block on the outer
         ladder."""
         cell_f, cell_i = self.init_state() if state is None else state
-        cell_f, cell_i, force, diag = self._rebin(cell_f, cell_i)
-        sched = self._refresh_schedule(cell_f, cell_i,
-                                       disable_inner=disable_inner)
+        with obs_span("rebin_dispatch", self.obs) as sp:
+            cell_f, cell_i, force, diag = self._rebin(cell_f, cell_i)
+            sched = self._refresh_schedule(cell_f, cell_i,
+                                           disable_inner=disable_inner)
+            sp.sync(force)
         return RunState(cell_f, cell_i, force, sched, bool(disable_inner), 0,
                         [self._host_diag(diag)])
 
@@ -711,7 +887,17 @@ class MDEngine:
         """Advance one ``take``-step block on a live :class:`RunState`
         (mutated in place); returns the block's metrics on the device.
         ``fuse=True`` also runs the between-block rebin (and, pruned, the
-        prune) after the steps: the ``overlap_rebin`` path."""
+        prune) after the steps: the ``overlap_rebin`` path.  The
+        ``block_dispatch`` span synchronizes the device before it stops."""
+        with obs_span("block_dispatch", self.obs, steps=take,
+                      fused_rebin=fuse) as sp:
+            m = self._run_block(rs, take, fuse)
+            sp.sync(rs.force)
+        self.obs.counter("md/blocks").inc()
+        self.obs.counter("md/steps").inc(take)
+        return m
+
+    def _run_block(self, rs: RunState, take: int, fuse: bool):
         if rs.sched is None:
             cell_f, force, m, ovf, rs.ledger = self.block_dense(
                 rs.cell_f, rs.cell_i, rs.force, take)
@@ -743,24 +929,42 @@ class MDEngine:
         """The between-block rebin / migration and pair-schedule prune
         (the host-dispatched path; fused blocks already carried theirs)."""
         old_sched = rs.sched
-        rs.cell_f, rs.cell_i, rs.force, diag = self._rebin(rs.cell_f,
-                                                           rs.cell_i)
-        rs.sched = self._refresh_schedule(
-            rs.cell_f, rs.cell_i,
-            disable_inner=old_sched is not None and rs.disable)
+        with obs_span("rebin_dispatch", self.obs) as sp:
+            rs.cell_f, rs.cell_i, rs.force, diag = self._rebin(rs.cell_f,
+                                                               rs.cell_i)
+            rs.sched = self._refresh_schedule(
+                rs.cell_f, rs.cell_i,
+                disable_inner=old_sched is not None and rs.disable)
+            sp.sync(rs.force)
         rs.disable = False
         rs.diags.append(self._host_diag(diag))
 
-    def simulate(self, n_steps: int, state=None, collect: bool = True):
+    def simulate(self, n_steps: int, state=None, collect: bool = True,
+                 on_boundary=None):
         """Run ``n_steps`` in ``nstlist``-sized blocks.
 
         Returns ``((cell_f, cell_i), metrics, diags)``: the final block
-        tensors, per-step numpy metrics (``pe``, ``ke``, ``mom``) and one
+        tensors, per-step numpy metrics (``pe``, ``ke``, ``mom``; with
+        ``health`` also ``health/nonfinite`` per step and
+        ``health/led_violation`` per pipeline invocation) and one
         diagnostics dict per rebin.  With ``overlap_rebin`` every block
         that another block follows carries its own rebin; the final block
         runs plain.
+
+        ``on_boundary(rs)`` is called at every interior block boundary,
+        before the boundary rebin: the host-visible point the MD server
+        admits and retires replicas at.  It may replace ``rs.cell_f`` /
+        ``rs.cell_i``; the rebin that follows derives the force carry and
+        the pair schedule from whatever state it finds.  It cannot be
+        combined with ``overlap_rebin`` (a fused block carries its own
+        rebin).
         """
         nst = self.system.params.nstlist
+        if on_boundary is not None and self.overlap_rebin:
+            raise ValueError(
+                "on_boundary is incompatible with overlap_rebin: the "
+                "fused block carries its own rebin, so a boundary "
+                "mutation would run under the already-derived schedule")
         rs = self.begin_run(state)
         blocks = []
         while rs.step < n_steps:
@@ -770,11 +974,16 @@ class MDEngine:
             if collect:
                 blocks.append(m)
             if not fuse and rs.step < n_steps:
+                if on_boundary is not None:
+                    on_boundary(rs)
                 self.advance_schedule(rs)
         metrics = {}
         if blocks:
             metrics = {k: torch.cat([b[k] for b in blocks]).cpu().numpy()
                        for k in blocks[0]}
+        self.obs.snapshot(label="md/simulate", n_steps=n_steps,
+                          backend=self.backend,
+                          pipeline=self.pipeline_mode)
         return (rs.cell_f, rs.cell_i), metrics, rs.diags
 
     def gather_by_id(self, arrays, cell_i):

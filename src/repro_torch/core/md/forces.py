@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.md.cells import CellLayout
+from repro_torch.core.md.integrate import fixed_sum
 from repro_torch.core.md.system import ForceField
 from repro_torch.device import const
 
@@ -91,9 +92,11 @@ def compute_forces(ext_f, ext_i, layout: CellLayout, ff: ForceField):
 
     ext_f: (*D, cz+1, cy+1, cx+1, K, 4) — [x, y, z, charge], halo-shifted
     ext_i: (*D, cz+1, cy+1, cx+1, K, 2) — [atom id, type]; id < 0 = empty
-    ``*D`` are the domain dims.  Returns (F_ext, pe): forces accumulated
-    at both pair members (halo members hold partial sums for the reverse
-    exchange) and each domain's potential energy, shape ``D``.
+    ``*D`` are the domain dims (with any lane dims in front).  Returns
+    (F_ext, pe): forces accumulated at both pair members (halo members
+    hold partial sums for the reverse exchange) and each domain's
+    potential energy, shape ``D``, summed in a fixed order
+    (:func:`~repro_torch.core.md.integrate.fixed_sum`).
     """
     shape = layout.cells_per_domain
     dtype, dev = ext_f.dtype, ext_f.device
@@ -138,7 +141,7 @@ def compute_forces(ext_f, ext_i, layout: CellLayout, ff: ForceField):
             torch.sum(fvec, dim=-2)          # force on A atoms
         F_ext[..., b[0]:b[0] + cz, b[1]:b[1] + cy, b[2]:b[2] + cx, :, :] += \
             -torch.sum(fvec, dim=-3)         # Newton's third law
-        pe_total = pe_total + torch.sum(pe, dim=tuple(range(lead, pe.dim())))
+        pe_total = pe_total + fixed_sum(pe, lead)
 
     return F_ext, pe_total
 

@@ -52,6 +52,7 @@ from repro_torch.core.md.cells import (
     cell_levels,
 )
 from repro_torch.core.md.forces import compute_forces, stencil_pairs
+from repro_torch.core.md.integrate import fixed_sum
 from repro_torch.core.md.schedule_opt import tier_rows, tier_slot_pairs
 from repro_torch.core.md.system import ForceField, MDParams
 from repro_torch.kernels import nonbonded
@@ -458,7 +459,7 @@ def _eval_schedule(ext_f, ff: ForceField, batches: Sequence[TierBatch]):
             a, b, t.ta, t.tb, t.same, t.cell_a, t.cell_b, ff, n_cells,
             cnt_a=t.cnt_a, cnt_b=t.cnt_b, index=t.index)
         F_acc[:, :t.k] += F
-        pe = pe + torch.sum(pe_pairs.reshape(B, -1), dim=1)
+        pe = pe + fixed_sum(pe_pairs.reshape(B, -1), 1)
     F_ext = F_acc.reshape(B, -1, K, 3)[:, :-1]
     return F_ext.reshape(ext_f.shape[:-1] + (3,)), pe.reshape(D)
 

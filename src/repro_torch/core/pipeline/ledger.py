@@ -116,9 +116,14 @@ class SignalLedger:
         """True iff no release ever clobbered an outstanding slot."""
         return bool(np.all(st.clobbers == 0))
 
-    def summary(self, st: LedgerState) -> dict:
+    def summary(self, st: LedgerState, registry=None,
+                prefix: str = "ledger") -> dict:
         """Totals per kind, summed over slots and pulses, plus the
-        invariants (the reference's dict, key for key)."""
+        invariants (the reference's dict, key for key).
+
+        With a :class:`~repro_torch.obs.registry.MetricsRegistry`, also
+        publishes them as a ``ledger_summary`` record and ``<prefix>/*``
+        gauges, as the reference does."""
         out = {}
         for k, kind in enumerate(KINDS):
             lo = k * self.depth * self.n_pulses
@@ -131,4 +136,14 @@ class SignalLedger:
         out["in_flight"] = self.in_flight(st)
         out["clobbers"] = int(st.clobbers.sum())
         out["window_safe"] = self.window_safe(st)
+        if registry is not None:
+            registry.emit("ledger_summary", depth=self.depth,
+                          n_pulses=self.n_pulses, data=out)
+            for kind in KINDS:
+                registry.gauge(f"{prefix}/{kind}_released").set(
+                    out[kind]["released"])
+                registry.gauge(f"{prefix}/{kind}_acquired").set(
+                    out[kind]["acquired"])
+            registry.gauge(f"{prefix}/in_flight").set(out["in_flight"])
+            registry.gauge(f"{prefix}/clobbers").set(out["clobbers"])
         return out

@@ -30,6 +30,11 @@ of two slots never share a word or a ticket.
 Like the other backends this one ships one hop per pulse, so halo widths
 must not exceed the local block (``w <= n``); multi-pulse splits of such
 widths are supported.
+
+On a lane plan (:meth:`~repro_torch.core.halo_plan.HaloPlan.with_lanes`)
+the kernels ring over the ``(lanes, *domains)`` mesh along axis
+``1 + d``, so no put crosses a lane, and the words are sized for every
+lane's domains; the kernels are the same.
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ class SignalBackend(PallasBackend):
         if words is None:
             n_pulses = max(len(plan.sched.dim_pulses(d))
                            for d in range(plan.spec.ndim))
-            n_dom = math.prod(plan.axis_sizes)
+            n_dom = math.prod(plan.block_dims)
             fused = halo_pack.fused_pulses_words(n_dom, n_pulses) \
                 if n_pulses > 1 else 0
             buf = torch.zeros((2 * n_dom + fused,), dtype=torch.int32,
@@ -116,16 +121,18 @@ class SignalBackend(PallasBackend):
 
     def fwd(self, plan, local, wrap_shift, slot=0):
         sched = plan.sched
-        nd = plan.spec.ndim
-        local_shape = tuple(local.shape[nd:2 * nd])
+        nd = plan.n_lead
+        local_shape = tuple(local.shape[nd:nd + plan.spec.ndim])
         words, fused_words = self._words(plan, slot)
         per_dim = self._dim_fwd_maps(plan, local_shape)
         # the wire path shifts after the exchange, as the pallas one does
         wire = self._fwd_wire(plan, local)
         shifter = _halo._Shifter(plan.axis_sizes,
-                                 wrap_shift if wire is None else None)
+                                 wrap_shift if wire is None else None,
+                                 plan.lead)
+        mesh, lead = plan.block_dims, plan.lead
         ext = local
-        for d in range(nd):
+        for d in range(plan.spec.ndim):
             if per_dim[d] is None:
                 continue
             padded, counts = per_dim[d]
@@ -134,11 +141,11 @@ class SignalBackend(PallasBackend):
             src = self._rows2d(ext, nd, d)
             if len(pulses) == 1:
                 recvs = [halo_pack.put_signal(
-                    src, padded[0, :counts[0]], plan.axis_sizes, d, -1,
+                    src, padded[0, :counts[0]], mesh, lead + d, -1,
                     signal=words, wire_dtype=wire).to(ext.dtype)]
             else:
                 out = halo_pack.fused_pulses(src, padded, src.shape[1],
-                                             plan.axis_sizes, d,
+                                             mesh, lead + d,
                                              words=fused_words)
                 recvs = [out[:, k, :counts[k]] for k in range(len(pulses))]
             for pulse, rows in zip(pulses, recvs):
@@ -151,7 +158,7 @@ class SignalBackend(PallasBackend):
 
     def rev(self, plan, ext, slot=0):
         sched = plan.sched
-        nd = plan.spec.ndim
+        nd = plan.n_lead
         words, _ = self._words(plan, slot)
         _, rev_maps = self._maps(plan, self._local_shape(plan, ext))
         out = ext
@@ -162,8 +169,8 @@ class SignalBackend(PallasBackend):
             shape = out.shape
             # fused pack + put to the +1 neighbour: the force-return pulse
             recv = halo_pack.put_signal(self._rows2d(out, nd, d),
-                                        maps.pack_idx,
-                                        plan.axis_sizes, d, +1, signal=words)
+                                        maps.pack_idx, plan.block_dims,
+                                        plan.lead + d, +1, signal=words)
             body = out.narrow(nd + d, 0, shape[nd + d] - w)
             # unpack as a slab accumulate, as the reference does
             slab = recv.reshape(shape[:nd + d] + (w,) + shape[nd + d + 1:])

@@ -496,16 +496,19 @@ def _wire_spec(wire_dtype):
 
 
 @pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(force_backend="pallas", static_ladder=True),
-                 "static_ladder", id="kw2-static_ladder"),
+    # static_ladder, health and obs are ported (the serving slice): their
+    # cases pin the guards that remain, the reference's static_ladder +
+    # nstprune refusal and the unported trace / inject beside them
+    pytest.param(dict(force_backend="pallas", static_ladder=True,
+                      nstprune=2), "nstprune", id="kw2-static_ladder"),
     # wire compression is ported: through spec= and through the knob, the
     # drift gate rejects "int8" and an unknown name raises, as in JAX
     pytest.param(_wire_spec, "wire", id="kw3-wire"),
     pytest.param(lambda wd: dict(wire_dtype=wd), "wire", id="kw5-wire"),
-    pytest.param(dict(trace=True), "trace", id="kw6-trace"),
-    pytest.param(dict(inject=True), "inject", id="kw7-inject"),
-    pytest.param(dict(health=True), "health", id="kw8-health"),
-    pytest.param(dict(obs=object()), "obs", id="kw9-obs"),
+    pytest.param(dict(trace=True), "A10b", id="kw6-trace"),
+    pytest.param(dict(inject=True), "A11", id="kw7-inject"),
+    pytest.param(dict(health=True, inject=True), "inject", id="kw8-health"),
+    pytest.param(dict(obs=True, trace=True), "trace", id="kw9-obs"),
 ])
 def test_unported_engine_knobs_raise(f32_system, kw, match):
     mesh = make_mesh((1, 1, 1), AXES)
@@ -516,7 +519,11 @@ def test_unported_engine_knobs_raise(f32_system, kw, match):
         with pytest.raises(ValueError, match="unknown wire_dtype"):
             MDEngine(f32_system, mesh, device="cpu", **kw("nope"))
         return
-    with pytest.raises(NotImplementedError, match=match):
+    if kw.get("obs") is True:
+        from repro_torch.obs import MetricsRegistry
+        kw = dict(kw, obs=MetricsRegistry())
+    exc = ValueError if "static_ladder" in kw else NotImplementedError
+    with pytest.raises(exc, match=match):
         MDEngine(f32_system, mesh, device="cpu", **kw)
 
 
@@ -528,12 +535,18 @@ def test_unported_engine_knobs_raise(f32_system, kw, match):
 ])
 def test_ported_engine_knobs_build(f32_system, kw):
     """The knobs this slice ports build and run (two steps), and the run
-    equals the default engine's bitwise."""
+    equals the default engine's bitwise; the signal backend's equals the
+    serialized one's (the fused default returns forces summed in another
+    association, so its last bits differ from both: equal metrics
+    against it were luck)."""
+    ref = {"spec": HaloSpec(AXES, (1, 1, 1), backend="serialized")} \
+        if "spec" in kw else {}
     runs = [MDEngine(f32_system, make_mesh((1, 1, 1), AXES), device="cpu",
-                     **k).simulate(2)[1] for k in (kw, {})]
+                     **k).simulate(2) for k in (kw, ref)]
+    assert torch.equal(runs[0][0][0], runs[1][0][0])
     for k in ("pe", "ke", "mom"):
-        assert runs[0][k].shape[0] == 2
-        assert np.array_equal(runs[0][k], runs[1][k]), k
+        assert runs[0][1][k].shape[0] == 2
+        assert np.array_equal(runs[0][1][k], runs[1][1][k]), k
 
 
 def test_engine_gate_matches_jax(f32_system):
