@@ -12,6 +12,8 @@
         # same-call comparison of commits); prints no result lines
     python3 chip_smoke.py --serve              # phases 1, 2 and 17 alone;
         # prints no result lines
+    python3 chip_smoke.py --drill              # phases 1, 2 and 18 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -63,7 +65,11 @@ Phases, each asserting (any failure exits non-zero with no result line):
    per launch (torch.profiler) and its share of the bound, and the device
    operations per launch from a CUDA graph capture (must be its one
    kernel); per kernel one f32 step's events and device ms beside the
-   bound;
+   bound; then every tier again with the received halo slab NaN'd (the
+   ``halo_corrupt`` fault): ``pair_forces``' non-finite entries exactly
+   where its plain form's are and its finite ones within 5e-6 of the
+   scale, ``scatter_accum`` carrying the NaNs where its plain form does
+   with its finite sums bitwise;
 8. the pruned main path: grappa-45k, 2x2x2, ``HaloSpec(backend="pallas")``,
    ``force_backend="pallas"``, ``simulate(40)`` with all four kernels'
    counters zeroed just before and read just after; the first force pass
@@ -170,6 +176,31 @@ Phases, each asserting (any failure exits non-zero with no result line):
     solo block's; the 4-lane batch's host and device ms per step beside
     the 4 solo runs', in turns.  Every drive runs with the kernel
     counters zeroed just before and read just after.
+18. the self-healing MD runtime (``ResilientMDRunner``): grappa-45k f32 on
+    2x2x2, ``HaloSpec(backend="signal")``, ``double_buffer`` depth 3,
+    pruned ``pallas`` forces, ``nstprune=5``, 60 steps (three nstlist-20
+    blocks), ``inject=True, health=True`` on the captured path, every
+    drive with the kernel counters zeroed just before and read just
+    after: (a) the disarmed runner bitwise equal to ``simulate(60)``
+    (``cell_f``, ``cell_i``, ``pe``, ``ke``), health all zero, checkpoints
+    [0, 20, 40, 60], the same launches and the same kernel nodes in
+    every cached step graph as the plain engine's; host ms a step in
+    turns (simulate, runner, runner, simulate) and each part of a
+    checkpoint save (export, D2H, npz, fsync, sha256) with its bytes;
+    (b) one-shot ``halo_corrupt`` at 27, ``force_nan`` at 43 and
+    ``signal_drop`` at 7, each detected in its block with the
+    reference's kind, one rollback, bitwise on (a), with its restore and
+    run ms; (c) the same plan twice, the same report; (d) sticky
+    ``signal_drop``: rollback, rollback, degrade ``serialized_halo``,
+    bitwise on (a); sticky ``force_nan``: rollback, rollback, degrade
+    ``dense_forces``, finite, atoms conserved, NVE spread < 5e-3 per
+    atom; (e) ``inner_overflow`` at 0 and 20: two engine fallbacks, one
+    warning, ``inner_disabled`` [False, True, True]; (f) ``proc_kill`` at
+    40 and a fresh runner resuming bitwise; (g) ``device_loss`` at 40
+    resharded onto (2, 2, 1) within 1e-4 (positions; velocities of their
+    scale), ``DeviceLost`` without a spare; ``memory_reserved`` after (d)
+    and (g); (h) ``trace=True`` bitwise with replayed step graphs, its
+    ``obs/*`` counters equal to a host recount of the ledger.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -863,14 +894,23 @@ def pruned_engine(system, backend="pallas", nstprune=0):
                     force_backend="pallas", nstprune=nstprune)
 
 
-def tier_cases(eng, rs):
+def tier_cases(eng, rs, poison_halo=False):
     """Every tier of the first pruned block on its post-rebin state, with
-    the inputs exactly as the force pass hands them to the kernels."""
+    the inputs exactly as the force pass hands them to the kernels; with
+    ``poison_halo`` the received halo slab of the last dim NaN'd first, as
+    the ``halo_corrupt`` fault does."""
     from repro_torch.core.md import pair_schedule as ps
     from repro_torch.core.md.schedule_opt import tier_rows
 
     sel, tiers, _inner = rs.sched
-    ext_f = eng._trim_ext(eng.plan.fwd(rs.cell_f[..., :4].contiguous()))
+    payload = rs.cell_f[..., :4].contiguous()
+    ext_f = eng.plan.fwd(payload)
+    if poison_halo:
+        ax = eng.plan.n_lead + 2
+        ext_f = ext_f.clone()
+        ext_f[(slice(None),) * ax + (slice(payload.shape[ax], None),)] = \
+            float("nan")
+    ext_f = eng._trim_ext(ext_f)
     ext_i = eng._trim_ext(eng.plan.fwd(rs.cell_i, wrap_shift=None))
     batches = ps.prepare_tiers(eng.pair_schedule, ext_i,
                                sel[..., :tier_rows(tiers)], tiers)
@@ -1018,7 +1058,57 @@ def nb_kernel_phase(system):
                 if v is not None:
                     a_[key] += v
     step_device_lines(acc, "one f32 step")
+    nb_nan_case(eng, rs, ff)
     return acc
+
+
+def nb_nan_case(eng, rs, ff):
+    """Every tier with the received halo slab NaN'd (the ``halo_corrupt``
+    fault): B5's non-finite entries exactly where its plain form's are,
+    its finite ones within the phase's 5e-6 of the force scale; B6 carries
+    the NaNs where its plain form does and its finite sums bitwise."""
+    import torch
+    from repro_torch.kernels import nonbonded as nb
+
+    total = 0
+    for t, a, b, n_cells in tier_cases(eng, rs, poison_halo=True):
+        tag = f"k={t.k} N={a.shape[0]} f32, halo NaN"
+        args = (a, b, t.ta, t.tb, t.same, ff)
+        kw = dict(cnt_a=t.cnt_a, cnt_b=t.cnt_b)
+        got = nb.pair_forces(*args, **kw)
+        want = nb.pair_forces_plain(*args, **kw)
+        torch.cuda.synchronize()
+        bad = [~torch.isfinite(x) for x in want]
+        for name, g, w, m in zip(("fa", "fb", "pe"), got, want, bad):
+            check(torch.equal(~torch.isfinite(g), m),
+                  f"pair_forces {tag}: {name} non-finite at "
+                  f"{int((~torch.isfinite(g)).sum())} entries, its plain "
+                  f"form at {int(m.sum())}")
+        fin = [x[~m] for x, m in zip(want[:2], bad[:2])]
+        scale = max(float(x.abs().max()) if x.numel() else 0.0 for x in fin)
+        ferr = max(float((g[~m] - w[~m]).abs().max()) if (~m).any() else 0.0
+                   for g, w, m in zip(got[:2], want[:2], bad[:2]))
+        check(ferr <= 5e-6 * max(scale, 1e-30),
+              f"pair_forces {tag}: finite entries off by {ferr} of {scale}")
+        sgot = nb.scatter_accum(t.cell_a, t.cell_b, want[0], want[1],
+                                n_cells, index=t.index)
+        swant = nb.scatter_accum_plain(t.cell_a, t.cell_b, want[0], want[1],
+                                       n_cells, index=t.index)
+        torch.cuda.synchronize()
+        snan = torch.isnan(swant)
+        check(torch.equal(torch.isnan(sgot), snan) and torch.equal(
+            torch.where(snan, 0.0, sgot), torch.where(snan, 0.0, swant)),
+            f"scatter_accum {tag}: NaNs or finite sums differ from its "
+            "plain form")
+        n_bad = int(bad[0].sum() + bad[1].sum())
+        total += n_bad
+        print(f"  pair_forces   {tag:30s} non-finite fa / fb entries "
+              f"{int(bad[0].sum())} / {int(bad[1].sum())} as its plain "
+              f"form, pe finite {bool(torch.isfinite(got[2]).all())}, "
+              f"finite entries within {ferr / max(scale, 1e-30):.3e} of "
+              f"the scale; scatter_accum NaN cells {int(snan.any(-1).any(-1).sum())}"
+              f" as its plain form, finite sums bitwise")
+    check(total > 0, "pruned kernel phase: the NaN'd halo reached no force")
 
 
 # ---- phase 8: the pruned main path ---------------------------------------------
@@ -2900,14 +2990,338 @@ def serve_md_phase():
     return served
 
 
+# ---- phase 18: the self-healing MD runtime at full width -----------------------
+
+DRILL_STEPS = 60             # three nstlist=20 blocks
+
+
+def drill_engine(system, mesh=None, **kw):
+    """The drill's configuration: grappa-45k on 2x2x2, the signal halo
+    under the depth-3 double buffer, pruned pallas forces with nstprune 5,
+    on the default (captured) path."""
+    from repro_torch import HaloSpec, MDEngine, make_md_mesh
+    return MDEngine(system, mesh or make_md_mesh(8),
+                    HaloSpec(AXES, (1, 1, 1), backend="signal"),
+                    pipeline="double_buffer", pipeline_depth=3,
+                    force_backend="pallas", nstprune=5, **kw)
+
+
+def drill_run(eng, ckpt_dir, specs=(), state=None, **kw):
+    """One ``ResilientMDRunner.run(60)`` with the kernel counters zeroed
+    just before and read just after: ``(state, metrics, report, runner,
+    launches, wall s, restore ms list)``."""
+    import torch
+    from repro_torch.resilience import FaultPlan, FaultSpec, ResilientMDRunner
+
+    runner = ResilientMDRunner(
+        eng, ckpt_dir, plan=FaultPlan([FaultSpec(*x) for x in specs]), **kw)
+    restores, restore = [], runner._restore
+
+    def timed_restore(e):
+        t0 = time.perf_counter()
+        rs = restore(e)
+        torch.cuda.synchronize()
+        restores.append((time.perf_counter() - t0) * 1e3)
+        return rs
+    runner._restore = timed_restore
+    t0 = time.perf_counter()
+    (state, m, report), launches = serve_counted(
+        lambda: runner.run(DRILL_STEPS, state=state))
+    wall = time.perf_counter() - t0
+    return state, m, report, runner, launches, wall, restores
+
+
+def graph_nodes_by_key(eng) -> dict:
+    """Each cached step graph's MD kernel nodes, by its key."""
+    return {k: {f"{o.__name__}.{a}": n for (o, a), n in b.launches.items()}
+            for k, b in eng.block_graphs.graphs()}
+
+
+def ledger_recount(eng, n_steps: int) -> dict:
+    """The per-step ``obs/*`` counters recounted on the host: the
+    reference's release / acquire order of each pipeline invocation
+    (nstprune-step sub-blocks), replayed on a fresh ledger."""
+    import numpy as np
+    from repro_torch.core.pipeline.ledger import SignalLedger
+
+    lg = SignalLedger(eng.pipeline.depth, eng.pipeline.ledger.n_pulses)
+    depth, out = lg.depth, []
+
+    def rec(st):
+        out.append((lg.in_flight(st), int(st.released.sum()),
+                    int(st.acquired.sum()), int(st.clobbers.sum())))
+    nst, sub = eng.system.params.nstlist, eng.nstprune or eng.system.params.nstlist
+    for b0 in range(0, n_steps, nst):
+        blk = min(nst, n_steps - b0)
+        for s0 in range(0, blk, sub):
+            n = min(sub, blk - s0)
+            st = lg.release(lg.init(), "fwd", 0)
+            st = lg.acquire(st, "fwd", 0)
+            st = lg.release(st, "rev", 0)
+            for k in range(1, n):
+                st = lg.acquire(st, "rev", (k - 1) % depth)
+                st = lg.release(st, "fwd", k % depth)
+                st = lg.acquire(st, "fwd", k % depth)
+                st = lg.release(st, "rev", k % depth)
+                rec(st)
+            st = lg.acquire(st, "rev", (n - 1) % depth)
+            rec(st)
+    keys = ("obs/in_flight", "obs/released", "obs/acquired", "obs/clobbers")
+    return {k: np.array([r[i] for r in out], np.int32)
+            for i, k in enumerate(keys)}
+
+
+def drill_phase(system):
+    """Phase 18: ``ResilientMDRunner`` on grappa-45k, bars (a)-(h)."""
+    import shutil
+    import statistics
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import make_mesh
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.convert import domains_to_cells
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.resilience import DeviceLost, ProcessKilled, RecoveryPolicy
+
+    t18 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="drill_"))
+    dirs = iter(tmp / f"run{i}" for i in itertools.count())
+    print(f"drill phase: grappa-45k f32, 2x2x2, signal halo, double_buffer "
+          f"depth 3, pruned pallas, nstprune 5, {DRILL_STEPS} steps; "
+          "ResilientMDRunner(inject=True, health=True); kernel counters "
+          "zeroed before each drive")
+
+    # (a) disarmed: the runner against simulate, in turns P R R P
+    plain = drill_engine(system)
+    inj = drill_engine(system, inject=True, health=True)
+    state0 = plain.init_state()
+    turns, ref = [], None
+    for who in "PRRP":
+        torch.cuda.synchronize()
+        if who == "P":
+            t0 = time.perf_counter()
+            ((cf, ci), m, _), launches = serve_counted(
+                lambda: plain.simulate(DRILL_STEPS, state=state0))
+            wall = time.perf_counter() - t0
+            if ref is None:
+                ref = {"cell_f": cf, "cell_i": ci, "m": m,
+                       "atoms": plain.export_atoms((cf, ci)),
+                       "launches": launches}
+        else:
+            (cf, ci), m, rep, _r, launches, wall, _ = drill_run(
+                inj, next(dirs), state=state0)
+            check(torch.equal(cf, ref["cell_f"]) and
+                  torch.equal(ci, ref["cell_i"]) and
+                  np.array_equal(m["pe"], ref["m"]["pe"]) and
+                  np.array_equal(m["ke"], ref["m"]["ke"]),
+                  "drill (a): the disarmed runner differs from simulate")
+            check(not m["health/nonfinite"].any() and
+                  not m["health/led_violation"].any() and
+                  rep["events"] == [] and rep["recoveries"] == [],
+                  f"drill (a): health tripped disarmed: {rep['events']}")
+            check(rep["checkpoint_steps"] == [0, 20, 40, 60],
+                  f"drill (a): checkpoints {rep['checkpoint_steps']}")
+            check(launches == ref["launches"], f"drill (a): runner "
+                  f"launches {launches} against simulate's {ref['launches']}")
+        turns.append((who, wall * 1e3 / DRILL_STEPS))
+    check(ref["launches"]["pair_forces"] > 0 and
+          ref["launches"]["scatter_accum"] > 0 and
+          ref["launches"]["put_signal"] > 0,
+          f"drill (a): a kernel of the path never launched: "
+          f"{ref['launches']}")
+    g_plain, g_inj = graph_nodes_by_key(plain), graph_nodes_by_key(inj)
+    check(g_plain == g_inj and g_plain, "drill (a): the inject engine's step "
+          "graphs differ from the plain engine's in kernel nodes")
+    print(f"  (a) disarmed runner == simulate bitwise (cell_f, cell_i, pe, "
+          f"ke), health all zero, checkpoints [0, 20, 40, 60], "
+          f"{len(g_plain)} cached step graphs with the same kernel nodes; "
+          f"launches a run {ref['launches']}; host ms/step in turns "
+          + " / ".join(f"{w} {v:.4f}" for w, v in turns))
+
+    # checkpoint saves: the runner's tree, each part timed
+    cf, ci = domains_to_cells(ref["cell_f"], ref["cell_i"])
+    mgr = CheckpointManager(next(dirs), keep=2)
+    parts = []
+    for step in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atoms = plain.export_atoms((ref["cell_f"], ref["cell_i"]))
+        t_exp = time.perf_counter() - t0
+        mgr.save(step, {"cell_f": cf, "cell_i": ci, "atoms": atoms})
+        parts.append(dict(mgr.last_save, export_s=t_exp,
+                          total_s=time.perf_counter() - t0))
+    med = {k: statistics.median(p[k] for p in parts) * 1e3
+           for k in ("export_s", "d2h_s", "npz_s", "fsync_s", "hash_s",
+                     "total_s")}
+    print(f"  checkpoint save ({parts[0]['bytes']} B; median of 5, ms): "
+          + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in med.items()))
+
+    # (b) one-shot faults, each one rollback landing bitwise on (a)
+    base_wall = min(v for w, v in turns if w == "R") * DRILL_STEPS / 1e3
+    for site, step, kind in (("halo_corrupt", 27, "nonfinite"),
+                             ("force_nan", 43, "nonfinite"),
+                             ("signal_drop", 7, "ledger")):
+        (cf, ci), m, rep, _r, launches, wall, rest = drill_run(
+            inj, next(dirs), [(site, step)], state=state0)
+        rec = rep["recoveries"]
+        check(len(rec) == 1 and rec[0]["action"] == "rollback" and
+              kind in rec[0]["kinds"] and
+              rec[0]["block_step"] == step // 20 * 20 and
+              0 < rec[0]["detection_latency_steps"] <= 20,
+              f"drill (b) {site}@{step}: recoveries {rec}")
+        check(torch.equal(cf, ref["cell_f"]) and
+              torch.equal(ci, ref["cell_i"]),
+              f"drill (b) {site}@{step}: the rollback did not land bitwise")
+        print(f"  (b) {site}@{step}: {kind} at step "
+              f"{rep['events'][0]['step']} (value "
+              f"{rep['events'][0]['value']:.0f}), one rollback, bitwise on "
+              f"(a); restore {rest[0]:.3f} ms, run {wall * 1e3:.1f} ms "
+              f"({(wall - base_wall) * 1e3:+.1f} against the disarmed run)")
+        if site == "force_nan":
+            first = rep
+    # (c) determinism
+    rep2 = drill_run(inj, next(dirs), [("force_nan", 43)], state=state0)[2]
+    check(rep2["recoveries"] == first["recoveries"] and
+          rep2["events"] == first["events"],
+          "drill (c): the same plan gave another report")
+    print("  (c) force_nan@43 twice: the same recoveries and events")
+
+    # (d) sticky faults walk the ladder
+    pol = RecoveryPolicy(max_retries=2, backoff_base_s=0.0)
+    (cf, ci), m, rep, run, launches, wall, _ = drill_run(
+        inj, next(dirs), [("signal_drop", 7, True)], state=state0, policy=pol)
+    acts = [r["action"] for r in rep["recoveries"]]
+    check(acts == ["rollback", "rollback", "degrade"] and
+          rep["recoveries"][-1]["detail"] == "serialized_halo" and
+          set(rep["fault_plan"]["disabled_sites"]) ==
+          {"halo_corrupt", "signal_drop"} and
+          run.engine.spec.backend == "serialized",
+          f"drill (d) sticky signal_drop: {rep['recoveries']}")
+    check(torch.equal(cf, ref["cell_f"]) and torch.equal(ci, ref["cell_i"]),
+          "drill (d): the serialized_halo rung is not bitwise on (a)")
+    del run
+    pol = RecoveryPolicy(max_retries=2, backoff_base_s=0.0)
+    (cf, ci), m, rep, run, launches, wall, _ = drill_run(
+        inj, next(dirs), [("force_nan", 43, True)], state=state0, policy=pol)
+    acts = [r["action"] for r in rep["recoveries"]]
+    check(acts == ["rollback", "rollback", "degrade"] and
+          rep["recoveries"][-1]["detail"] == "dense_forces" and
+          run.engine.force_backend == "dense",
+          f"drill (d) sticky force_nan: {rep['recoveries']}")
+    E = m["pe"] + m["ke"]
+    n = system.n_atoms
+    spread = float((E.max() - E.min()) / n)
+    check(bool(torch.isfinite(cf).all()) and
+          int((ci[..., 0] >= 0).sum()) == n and spread < 5e-3 and
+          E.shape == (DRILL_STEPS,),
+          f"drill (d) sticky force_nan: finite / atoms / NVE {spread}")
+    diff = float((cf - ref["cell_f"]).abs().max())
+    del run
+    torch.cuda.synchronize()
+    print(f"  (d) sticky signal_drop@7: rollback, rollback, degrade "
+          f"serialized_halo, sites {{halo_corrupt, signal_drop}} retired, "
+          f"bitwise on (a); sticky force_nan@43: rollback, rollback, degrade "
+          f"dense_forces, finite, {n} atoms, NVE spread {spread:.3e} per "
+          f"atom, largest cell_f difference from (a) {diff:.3e}; "
+          f"memory_reserved {torch.cuda.memory_reserved()} B")
+
+    # (e) forced inner-ladder overflow at steps 0 and 20
+    reg = MetricsRegistry()
+    ovf_eng = drill_engine(system, inject=True, health=True, obs=reg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _s, _m, rep, _r, launches, wall, _ = drill_run(
+            ovf_eng, next(dirs), [("inner_overflow", 0),
+                                  ("inner_overflow", 20)], state=state0)
+    warned = [w for w in caught if "rolling inner prune" in str(w.message)]
+    sched = [r["inner_disabled"] for r in reg.records
+             if r.get("kind") == "sched_update"]
+    falls = [r for r in rep["recoveries"] if r["action"] == "engine_fallback"]
+    check(len(falls) == 2 and len(warned) == 1 and
+          reg.counter("md/inner_overflow_blocks").value == 2 and
+          sched == [False, True, True] and rep["wasted_steps"] == 0,
+          f"drill (e): fallbacks {falls}, warnings {len(warned)}, "
+          f"inner_disabled {sched}")
+    print("  (e) inner_overflow@0, @20: two engine_fallback recoveries, one "
+          "warning, md/inner_overflow_blocks 2, inner_disabled [False, True, "
+          "True]")
+    ovf_eng.release_graphs()
+    del ovf_eng, _s, _m, _r
+
+    # (f) process kill at 40, then a fresh runner resumes
+    d = next(dirs)
+    try:
+        drill_run(inj, d, [("proc_kill", 40)], state=state0)
+        fail("drill (f): proc_kill did not raise")
+    except ProcessKilled:
+        pass
+    (cf, ci), m, rep, _r, launches, wall, _ = drill_run(inj, d)
+    check(rep["resumed_from"] == 40 and torch.equal(cf, ref["cell_f"]) and
+          torch.equal(ci, ref["cell_i"]),
+          f"drill (f): resumed from {rep['resumed_from']}, not bitwise")
+    print(f"  (f) proc_kill@40 raised ProcessKilled; a fresh runner resumed "
+          f"from 40 bitwise on (a) ({wall * 1e3:.1f} ms)")
+
+    # (g) device loss at 40: reshard onto (2, 2, 1)
+    spare = make_mesh((2, 2, 1), AXES)
+    (cf, ci), m, rep, run, launches, wall, _ = drill_run(
+        inj, next(dirs), [("device_loss", 40)], state=state0,
+        spare_mesh=spare)
+    atoms = run.engine.export_atoms((cf, ci))
+    vscale = float(np.abs(ref["atoms"]["vel"]).max())
+    dpos = float(np.abs(atoms["pos"] - ref["atoms"]["pos"]).max())
+    dvel = float(np.abs(atoms["vel"] - ref["atoms"]["vel"]).max()) / vscale
+    check(rep["resharded"] and run.engine.axis_sizes == (2, 2, 1) and
+          int((ci[..., 0] >= 0).sum()) == system.n_atoms and
+          dpos < 1e-4 and dvel < 1e-4,
+          f"drill (g): resharded {rep['resharded']}, positions {dpos}, "
+          f"velocities {dvel}")
+    run.engine.release_graphs()
+    del run
+    try:
+        drill_run(inj, next(dirs), [("device_loss", 40)], state=state0)
+        fail("drill (g): device loss without a spare mesh did not raise")
+    except DeviceLost:
+        pass
+    torch.cuda.synchronize()
+    print(f"  (g) device_loss@40: resharded onto (2, 2, 1), "
+          f"{system.n_atoms} atoms, largest position difference {dpos:.3e}, "
+          f"velocity {dvel:.3e} of the scale; without a spare mesh "
+          f"DeviceLost; memory_reserved {torch.cuda.memory_reserved()} B")
+
+    # (h) trace=True: bitwise neutral, replays, obs/* as a host recount
+    trc = drill_engine(system, trace=True, inject=True, health=True)
+    ((cf, ci), m, _), launches = serve_counted(
+        lambda: trc.simulate(DRILL_STEPS, state=state0))
+    st = trc.block_graphs.stats()
+    recount = ledger_recount(trc, DRILL_STEPS)
+    check(torch.equal(cf, ref["cell_f"]) and
+          np.array_equal(m["pe"], ref["m"]["pe"]) and
+          launches == ref["launches"] and st["replays"] > 0 and
+          all(np.array_equal(m[k], v) for k, v in recount.items()),
+          f"drill (h): trace not neutral / no replays ({st}) / obs counters "
+          "differ from the host recount")
+    print(f"  (h) trace=True bitwise on (a), {st['replays']} replays, "
+          f"obs/* ({len(recount)} counters x {DRILL_STEPS} steps) equal the "
+          "host recount")
+    trc.release_graphs()
+    plain.release_graphs()
+    inj.release_graphs()
+    shutil.rmtree(tmp)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s")
+
+
 def main():
     args = sys.argv[1:]
-    if args == ["--serve"]:
+    if args in (["--serve"], ["--drill"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve]")
+             "| --serve | --drill]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -2930,6 +3344,13 @@ def main():
         from repro_torch.kernels import _build
         _build.build(["halo_pack", "halo_signal", "nonbonded"])
         serve_md_phase()
+        print(card)
+        return
+    if args == ["--drill"]:
+        from repro_torch import make_grappa_like
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded"])
+        drill_phase(make_grappa_like(45_000, seed=0))
         print(card)
         return
     if args and args[0] == "--steps":
@@ -3030,6 +3451,9 @@ def main():
 
     # 17. MD serving: replica lanes, one launch per kernel for all lanes
     served = serve_md_phase()
+
+    # 18. the self-healing runtime: faults injected, detected, recovered
+    drill_phase(make_grappa_like(45_000, seed=0))
 
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",

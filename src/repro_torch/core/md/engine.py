@@ -65,9 +65,17 @@ the engine publishes its records, gauges, counters and spans to, and
 neutral.  :meth:`MDEngine.lane_programs` gives the block, rebin and prune
 bodies over ``R`` replica lanes, block tensors ``(R, Dz, Dy, Dx, cz, cy,
 cx, K, F)``, one launch of each kernel serving every lane: the Hopper
-form of the reference's ``jax.vmap(local_programs[...])``.  Tracing's
-per-step counters (``trace``) and fault injection (``inject``) come with
-later slices of the port and raise ``NotImplementedError``.
+form of the reference's ``jax.vmap(local_programs[...])``.
+
+``trace`` adds the reference's per-step ``obs/*`` ledger counters to the
+metrics (host values: the step graphs do not see them).  ``inject`` arms
+the fault sites of :mod:`repro_torch.resilience` through
+``run_block(fault_vec=, force_overflow=)``: the host decides which sites
+fire at each step, so a disarmed step runs (and replays) exactly an
+``inject=False`` step.  :meth:`MDEngine.export_atoms`,
+:meth:`MDEngine.rebuild` and :meth:`MDEngine.reshard` are the
+self-healing runner's elasticity: on one card a lost device becomes a
+smaller virtual mesh.
 """
 from __future__ import annotations
 
@@ -106,7 +114,11 @@ from repro_torch.core.md.schedule_opt import (
 )
 from repro_torch.core.md.system import MDSystem
 from repro_torch.core.pipeline.block_graph import BlockGraphs
-from repro_torch.core.pipeline.ledger import LedgerState
+from repro_torch.core.pipeline.ledger import (
+    DISARMED,
+    SCAN_FAULT_SITES,
+    LedgerState,
+)
 from repro_torch.core.pipeline.step_pipeline import (
     PIPELINE_MODES,
     StepFns,
@@ -116,6 +128,7 @@ from repro_torch.device import const, resolve_device
 from repro_torch.launch.mesh import DomainMesh
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
+from repro_torch.obs.tracing import PhaseTracer
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -138,12 +151,6 @@ class RunState:
     step: int                 # steps completed so far
     diags: list               # per-rebin migration diagnostics (ints)
     ledger: LedgerState | None = None   # the last block's final ledger
-
-
-def _not_ported(knob: str, value, slice_name: str):
-    raise NotImplementedError(
-        f"MDEngine({knob}={value!r}) is not ported yet: it comes with "
-        f"{slice_name}")
 
 
 class MDEngine:
@@ -213,15 +220,31 @@ class MDEngine:
         if int(nstprune) < 0:
             raise ValueError("nstprune must be >= 0 (0 disables the "
                              "rolling inner prune)")
-        if trace:
-            _not_ported("trace", trace, "ROADMAP A10b (per-step obs/* "
-                        "ledger counters)")
-        if inject:
-            _not_ported("inject", inject, "ROADMAP A11 (fault injection, "
-                        "resilience and checkpoints)")
+        if inject and overlap_rebin:
+            raise ValueError(
+                "inject=True is incompatible with overlap_rebin: fault "
+                "epochs are block-aligned and the fused path would commit "
+                "a poisoned block's rebin/migration before the health "
+                "scalars are read at the boundary")
         if system.pos.dtype not in _TORCH_DTYPE:
             raise TypeError(f"system dtype {system.pos.dtype} not "
                             "supported: float32 or float64")
+        # fault injection (repro_torch.resilience): the host arms a block's
+        # sites per step; inject=False runs the exact same steps
+        self.inject = bool(inject)
+        # rebuild() / reshard() recreate the engine from these; captured
+        # before the one-global-cell degrade below, so a rebuilt engine
+        # derives its own fallbacks for its (possibly other) layout
+        self._init_kwargs = dict(
+            spec=spec, r_list_factor=r_list_factor, mig_frac=mig_frac,
+            pipeline=pipeline, pipeline_depth=pipeline_depth,
+            overlap_rebin=overlap_rebin, force_backend=force_backend,
+            capacity_safety=capacity_safety, nstprune=nstprune,
+            inner_radius=inner_radius, inner_safety=inner_safety,
+            pair_bucket=pair_bucket, wire_dtype=wire_dtype, verify=verify,
+            obs=obs, trace=trace, inject=inject, health=health,
+            layout_atoms=layout_atoms, static_ladder=static_ladder,
+            device=self.device, capture=capture)
         self.system = system
         self.mesh = mesh
         self.pipeline_mode = pipeline
@@ -337,6 +360,7 @@ class MDEngine:
         # observability: the stats surfaces also publish records and
         # instruments here (host bookkeeping: the steps are unchanged)
         self.obs = obs if obs is not None else default_registry()
+        self.tracer = PhaseTracer(enabled=bool(trace))
         self.obs.emit(
             "engine_build", backend=self.backend,
             pipeline=self.pipeline_mode, pipeline_depth=self.pipeline_depth,
@@ -360,7 +384,9 @@ class MDEngine:
                                            depth=self.pipeline_depth,
                                            verify="off",
                                            graphs=self.block_graphs,
-                                           graph_key=self._graph_key)
+                                           graph_key=self._graph_key,
+                                           tracer=self.tracer,
+                                           inject=self.inject)
 
     @property
     def spec(self) -> HaloSpec:
@@ -567,15 +593,23 @@ class MDEngine:
             self.pair_schedule, ctx["ext_i_trim"],
             sel[..., :tier_rows(tiers)], tiers)}
 
-    def _run_pipe(self, cell_f, force, n_steps: int, ctx):
-        """The step pipeline over ``n_steps``, plus with ``health`` the
-        ledger monitor of the invocation: ``health/led_violation`` is 1
-        iff a put-with-signal bookkeeping law broke (a deposit left in
+    def _run_pipe(self, cell_f, force, n_steps: int, ctx, fv=None):
+        """The step pipeline over ``n_steps`` (``fv``: the fault vector of
+        an ``inject`` engine, relative to this call), plus with ``health``
+        the ledger monitor of the invocation: ``health/led_violation`` is
+        1 iff a put-with-signal bookkeeping law broke (a deposit left in
         flight, an acquire before its release, a slot clobbered).  The
-        ledger is host bookkeeping, so the flag is computed on the host
-        (a CPU tensor, one per lane) and reads nothing from the device."""
+        ledger is host bookkeeping, so the flag and the tracer's ``obs/*``
+        counters are computed on the host (CPU tensors, one per lane) and
+        read nothing from the device."""
         cell_f, f_last, metrics, led = self.pipeline.run_local(
-            cell_f, force, n_steps, ctx)
+            cell_f, force, n_steps, ctx, fault_vec=fv)
+        if self.lead:
+            # the host counters are the same for every lane, as under the
+            # reference's vmap
+            metrics = {k: (v[:, None].expand((n_steps,) + self._lane_shape())
+                           .contiguous() if k.startswith("obs/") else v)
+                       for k, v in metrics.items()}
         if self.health:
             lg = self.pipeline.ledger
             bad = int(lg.in_flight(led) != 0 or not lg.consistent(led)
@@ -587,15 +621,15 @@ class MDEngine:
     def _lane_shape(self) -> tuple:
         return (self.lanes,) if self.lead else ()
 
-    def block_dense(self, cell_f, cell_i, force, n_steps: int):
+    def block_dense(self, cell_f, cell_i, force, n_steps: int, fv=None):
         """Dense-backend block; returns ``(cell_f, force, metrics, None,
         ledger)``."""
         cell_f, f_last, metrics, led = self._run_pipe(
-            cell_f, force, n_steps, self._block_ctx(cell_i))
+            cell_f, force, n_steps, self._block_ctx(cell_i), fv)
         return cell_f, f_last, metrics, None, led
 
     def block_sched(self, cell_f, cell_i, force, sel, n_steps: int, tiers,
-                    tiers_inner):
+                    tiers_inner, fv=None):
         """Pruned-backend block; returns ``(cell_f, force, metrics,
         overflow, ledger)``, the overflow an int32 scalar on the device,
         the ledger that of the last sub-block.
@@ -612,22 +646,27 @@ class MDEngine:
                            device=self.device)
         if not tiers_inner:
             cell_f, f_last, metrics, led = self._run_pipe(
-                cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers))
+                cell_f, force, n_steps, self._sched_ctx(ctx, sel, tiers), fv)
             return cell_f, f_last, metrics, zero, led
         sel_exec = sel[..., :tier_rows(tiers)]
         overflow, f_cur, chunks, done = zero, force, [], 0
         while done < n_steps:
             take = min(self.nstprune, n_steps - done)
+            # rebase the block-relative fault steps onto this sub-block's;
+            # a site outside it stays disarmed here and fires in its own
+            fv_s = None if fv is None else tuple(
+                v - done if done <= v < done + take else DISARMED
+                for v in fv)
             cell_f, f_cur, m, overflow, sel_exec, led = self.sub_block(
                 cell_f, cell_i, ctx["ext_i_trim"], f_cur, sel_exec,
-                overflow, take, tiers_inner)
+                overflow, take, tiers_inner, fv_s)
             chunks.append(m)
             done += take
         metrics = {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
         return cell_f, f_cur, metrics, overflow, led
 
     def sub_block(self, cell_f, cell_i, ext_i_trim, force, sel_exec,
-                  overflow, n_steps: int, tiers_inner):
+                  overflow, n_steps: int, tiers_inner, fv=None):
         """One rolling-prune sub-block; returns ``(cell_f, force, metrics,
         overflow, sel_exec, ledger)``.  The first sub-block's refresh
         re-derives the partition the boundary prune already saw (same
@@ -647,7 +686,7 @@ class MDEngine:
         ctx = {"cell_i": cell_i, "ext_i_trim": ext_i_trim}
         cell_f, force, m, led = self._run_pipe(
             cell_f, force, n_steps, self._sched_ctx(ctx, sel_exec,
-                                                    tiers_inner))
+                                                    tiers_inner), fv)
         return cell_f, force, m, overflow, sel_exec, led
 
     def do_prune(self, cell_f, cell_i):
@@ -713,7 +752,8 @@ class MDEngine:
         lane.pipeline = StepPipeline.build(
             lane.plan, lane._make_step_fns(), mode=self.pipeline_mode,
             depth=self.pipeline_depth, verify="off",
-            graphs=lane.block_graphs, graph_key=lane._graph_key)
+            graphs=lane.block_graphs, graph_key=lane._graph_key,
+            tracer=self.tracer, inject=self.inject)
 
         def lanes_first(m):
             return {k: v.movedim(1, 0) for k, v in m.items()}
@@ -883,36 +923,64 @@ class MDEngine:
         return RunState(cell_f, cell_i, force, sched, bool(disable_inner), 0,
                         [self._host_diag(diag)])
 
-    def run_block(self, rs: RunState, take: int, fuse: bool = False):
+    def _fault_operand(self, fault_vec):
+        """A fault vector as the step pipeline takes it: a tuple of one
+        block-relative step per site of ``ledger.SCAN_FAULT_SITES`` (None:
+        every site disarmed), or None on an ``inject=False`` engine."""
+        if not self.inject:
+            return None
+        if fault_vec is None:
+            return (DISARMED,) * len(SCAN_FAULT_SITES)
+        fv = np.asarray(fault_vec)
+        if fv.shape != (len(SCAN_FAULT_SITES),):
+            raise ValueError(
+                f"fault_vec must have shape ({len(SCAN_FAULT_SITES)},) "
+                f"— one block-relative step per site in "
+                f"{SCAN_FAULT_SITES} — got {fv.shape}")
+        return tuple(int(v) for v in fv)
+
+    def run_block(self, rs: RunState, take: int, fuse: bool = False,
+                  fault_vec=None, force_overflow: bool = False):
         """Advance one ``take``-step block on a live :class:`RunState`
         (mutated in place); returns the block's metrics on the device.
         ``fuse=True`` also runs the between-block rebin (and, pruned, the
         prune) after the steps: the ``overlap_rebin`` path.  The
-        ``block_dispatch`` span synchronizes the device before it stops."""
+        ``block_dispatch`` span synchronizes the device before it stops.
+
+        ``fault_vec`` arms the scan fault sites of an ``inject=True``
+        engine for this block (``ledger.SCAN_FAULT_SITES`` layout,
+        block-relative steps, -1 disarmed); ``force_overflow`` feeds the
+        overflow monitor a synthetic trip (the forced inner-ladder
+        overflow site: only the ``nstprune`` path has a monitor)."""
+        if (fault_vec is not None or force_overflow) and not self.inject:
+            raise ValueError("fault arming requires an inject=True engine")
+        fv = self._fault_operand(fault_vec)
         with obs_span("block_dispatch", self.obs, steps=take,
                       fused_rebin=fuse) as sp:
-            m = self._run_block(rs, take, fuse)
+            m = self._run_block(rs, take, fuse, fv, force_overflow)
             sp.sync(rs.force)
         self.obs.counter("md/blocks").inc()
         self.obs.counter("md/steps").inc(take)
         return m
 
-    def _run_block(self, rs: RunState, take: int, fuse: bool):
+    def _run_block(self, rs: RunState, take: int, fuse: bool, fv=None,
+                   force_overflow: bool = False):
         if rs.sched is None:
             cell_f, force, m, ovf, rs.ledger = self.block_dense(
-                rs.cell_f, rs.cell_i, rs.force, take)
+                rs.cell_f, rs.cell_i, rs.force, take, fv)
         else:
             sel, tiers, tiers_inner = rs.sched
             cell_f, force, m, ovf, rs.ledger = self.block_sched(
                 rs.cell_f, rs.cell_i, rs.force, sel, take, tiers,
-                tiers_inner)
+                tiers_inner, fv)
         rs.step += take
         if not fuse:
             rs.cell_f, rs.force = cell_f, force
             if ovf is not None:
                 # read the overflow now, not at the next boundary, so a
                 # final block's overflow is still counted and warned
-                rs.disable = self._note_overflow(ovf)
+                rs.disable = self._note_overflow(
+                    1 if force_overflow else ovf)
             return m
         # overlap_rebin: the block's rebin / migration and, pruned, the
         # next block's prune follow its steps
@@ -981,6 +1049,12 @@ class MDEngine:
         if blocks:
             metrics = {k: torch.cat([b[k] for b in blocks]).cpu().numpy()
                        for k in blocks[0]}
+            obs_keys = [k for k in metrics if k.startswith("obs/")]
+            if obs_keys:
+                # the traced per-step ledger counters, as one record the
+                # Perfetto exporter turns into predicted-lane counters
+                self.obs.emit("step_counters",
+                              data={k: metrics[k] for k in obs_keys})
         self.obs.snapshot(label="md/simulate", n_steps=n_steps,
                           backend=self.backend,
                           pipeline=self.pipeline_mode)
@@ -999,6 +1073,66 @@ class MDEngine:
             dest[ids[valid]] = flat[valid]
             out.append(dest)
         return out
+
+    # ---- elasticity (rebuild / reshard) -----------------------------------
+
+    def export_atoms(self, state) -> dict:
+        """Mesh-independent snapshot of a cell state: per-atom positions
+        and velocities in global-id order, numpy on the host (the portable
+        half of a checkpoint, restorable onto any mesh or layout)."""
+        cell_f, cell_i = state
+        pos, vel = self.gather_by_id(
+            [cell_f[..., :3], cell_f[..., 4:7]], cell_i)
+        return {"pos": pos, "vel": vel}
+
+    def rebuild(self, mesh: DomainMesh = None, system: MDSystem = None,
+                **overrides) -> "MDEngine":
+        """A fresh engine with this engine's construction parameters,
+        selectively overridden.
+
+        Any ``__init__`` keyword can be overridden; ``backend="..."``
+        rewrites the halo spec's backend (the degrade ladder's signal ->
+        serialized rung).  The new engine has its own step graphs; the
+        caller re-enters through :meth:`begin_run` / :meth:`init_state`
+        and releases this engine's graphs (:meth:`release_graphs`) when
+        it drops it.
+        """
+        kw = dict(self._init_kwargs)
+        backend = overrides.pop("backend", None)
+        kw.update(overrides)
+        if backend is not None:
+            base = kw["spec"] if kw["spec"] is not None else \
+                HaloSpec(axis_names=AXES, widths=(1, 1, 1))
+            kw["spec"] = dataclasses.replace(base, backend=backend)
+        return MDEngine(system if system is not None else self.system,
+                        mesh if mesh is not None else self.mesh, **kw)
+
+    def reshard(self, mesh: DomainMesh, state=None, atoms=None,
+                **overrides) -> "MDEngine":
+        """Elastic reshard: rebuild this engine on another (virtual) mesh
+        and carry the atoms over, the device-loss shrink path.
+
+        Pass either the live cell ``state`` (exported here) or an exported
+        ``atoms`` dict (the checkpointed form a lost device's state is
+        recovered from).  Returns the new engine; :meth:`init_state` bins
+        the carried atoms under its layout.
+        """
+        if atoms is None:
+            if state is None:
+                raise ValueError("reshard needs `state` or `atoms`")
+            atoms = self.export_atoms(state)
+        dt = self.system.pos.dtype
+        system = dataclasses.replace(
+            self.system,
+            pos=np.asarray(atoms["pos"], dt),
+            vel=np.asarray(atoms["vel"], dt))
+        return self.rebuild(mesh=mesh, system=system, **overrides)
+
+    def release_graphs(self):
+        """Drop this engine's captured step graphs and their memory (an
+        engine another replaces); raises while a capture is open."""
+        if self.block_graphs is not None:
+            self.block_graphs.clear()
 
     def __repr__(self):
         return (f"MDEngine(n_atoms={self.system.n_atoms}, "

@@ -310,6 +310,18 @@ class BlockGraphs:
         a key's first element is its kind."""
         return list(self._graphs.items())
 
+    def clear(self):
+        """Drop every cached graph (their pool memory returns to the
+        allocator) and the warm-up counts; later captures go to a new
+        pool, as the allocator retires a pool whose graphs are all gone.
+        Refused while a capture is open on the current stream: destroying
+        a graph then invalidates that capture."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("BlockGraphs.clear() during a capture")
+        self._graphs.clear()
+        self._warm.clear()
+        self.pool = torch.cuda.graph_pool_handle()
+
     def run(self, kind: str, key: tuple, fn: Callable, inputs: Sequence,
             consts: Sequence = ()):
         in_leaves, c_leaves = [], []

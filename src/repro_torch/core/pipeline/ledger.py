@@ -28,6 +28,17 @@ import numpy as np
 
 KINDS = ("fwd", "rev")   # coordinate halo signals / force-return signals
 
+# Deterministic fault injection (:mod:`repro_torch.resilience`): the sites
+# an ``inject=True`` engine can arm inside a block, in the reference's
+# fault-vector layout.  Entry ``s`` of a fault vector holds the
+# block-relative step at which site ``s`` fires (``DISARMED``: it stays
+# healthy).  The layout lives here, beside the bookkeeping that
+# ``signal_drop`` perturbs, so the pipeline and ``resilience.faults``
+# share one definition.
+SCAN_FAULT_SITES = ("halo_corrupt", "force_nan", "signal_drop")
+FAULT_HALO, FAULT_FORCE, FAULT_DROP = range(len(SCAN_FAULT_SITES))
+DISARMED = -1
+
 
 class LedgerState(NamedTuple):
     """Counters per ledger slot (host ``int64`` arrays)."""
@@ -84,6 +95,18 @@ class SignalLedger:
         released = st.released.copy()
         released[idx] += 1
         return LedgerState(released, st.acquired, clobbers)
+
+    def release_dropped(self, st: LedgerState, kind: str, buf: int,
+                        dropped: bool) -> LedgerState:
+        """Injection hook: a put-with-signal whose signal may never land.
+
+        When ``dropped`` the host ledger *skips* the release, so the
+        matching acquire drives :meth:`consistent` False and the block's
+        health flag trips.  The data transfer still happens, and on the
+        card the kernel's own arrival word is still written: a withheld
+        word would leave its consumer waiting with no error.  Otherwise
+        this is :meth:`release`."""
+        return st if dropped else self.release(st, kind, buf)
 
     def acquire(self, st: LedgerState, kind: str, buf: int) -> LedgerState:
         """All of (kind, buf)'s pulse signals are consumed (acquire_wait)."""

@@ -46,7 +46,27 @@
 //     multiply-add) as three products and two adds in order, so the cutoff
 //     test sees the same bits as the plain PyTorch form.  The rest of the
 //     arithmetic may contract into fused multiply-adds (the build has no
-//     --use_fast_math: divisions and square roots stay IEEE).
+//     --use_fast_math: divisions and square roots stay IEEE);
+//   * non-finite inputs poison what the reference's do.  The reference
+//     forms every slot pair's force as fac * d with fac = 0 on a masked
+//     pair, so a NaN or Inf coordinate of either cell, or a difference
+//     a - b that overflows, gives NaN wherever 0 * d reaches: fa[i][c] for
+//     every i when cell B holds a non-finite component c, fb[j][c] for
+//     every j when cell A does, and the slot's own rows.  The masked pairs
+//     stay off the divergent loop.  A lane flags a slot ("odd") when a
+//     coordinate is NaN, Inf or at least half the largest finite value:
+//     two slots that are not odd take part in no non-finite difference.
+//     After the loop the lanes flag both cells' K slots; one vote.  Only
+//     a warp that saw an odd slot forms, one component at a time, each
+//     cell's range over its finite values and a non-finite flag by
+//     shuffles over the group (fl(a - b) is monotone in b, so the range's
+//     ends decide which differences overflow) and writes NaN into the fa
+//     and fb entries they reach.
+//     Finite inputs of sane size take none of this, and the loop carries
+//     nothing of it (a flag inside the loop cost the f64 kernel 10
+//     registers a lane): their bits are unchanged.  The f32 kernel keeps
+//     its time; the f64 one pays ~10 % (kPairMinBlocks).  The energy
+//     keeps the reference's where(mask, e, 0).
 // Why not the tile: a block per pair with lanes over A and a shared K x K
 // tile for fb runs one warp a block (half an SM's warps at most), pays a
 // barrier and a second serial pass per pair, and its row stride of 3K words
@@ -74,6 +94,7 @@
 // synchronise.  Each C entry point returns cudaGetLastError().
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -141,6 +162,109 @@ __device__ __forceinline__ void load_slot(const double* p, double (&s)[4]) {
   s[3] = v.y;
 }
 
+// The range of component c over the finite values of a cell's K slots
+// (p), and whether one of them is non-finite, over the W lanes of a group,
+// in every lane of the group.  One component at a time keeps the rare
+// path's live registers few: it must not raise the kernel's count.
+template <typename T, int W>
+__device__ __forceinline__ void group_range(const T* p, int K, int lg,
+                                            bool live, int c, T& lo, T& hi,
+                                            int& bad) {
+  lo = T(INFINITY);
+  hi = -T(INFINITY);
+  bad = 0;
+  if (live) {
+    for (int i = lg; i < K; i += W) {
+      const T x = p[4 * i + c];
+      if (isfinite(x)) {
+        lo = x < lo ? x : lo;
+        hi = x > hi ? x : hi;
+      } else {
+        bad = 1;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = W / 2; off > 0; off >>= 1) {
+    const T l = __shfl_xor_sync(kFull, lo, off);
+    const T h = __shfl_xor_sync(kFull, hi, off);
+    lo = l < lo ? l : lo;
+    hi = h > hi ? h : hi;
+    bad |= __shfl_xor_sync(kFull, bad, off);
+  }
+}
+
+// Half the largest finite value (2^127, 2^1023): |x - y| of two values
+// below it is at most the largest finite value.
+__device__ __forceinline__ float half_max(float) {
+  return __int_as_float(0x7f000000);
+}
+__device__ __forceinline__ double half_max(double) {
+  return __longlong_as_double(0x7fe0000000000000LL);
+}
+
+// A slot whose coordinates may take part in a non-finite difference: one
+// of them NaN, Inf or at least half the largest finite value.
+template <typename T>
+__device__ __forceinline__ bool odd_slot(const T (&s)[4]) {
+  const T h = half_max(s[0]);
+  return !(fabs(s[0]) < h && fabs(s[1]) < h && fabs(s[2]) < h);
+}
+
+// Does 0 * (x - y) reach x's entry for some y of the other cell, whose
+// values of this component span [lo, hi] (bad: one is non-finite): x or a
+// y non-finite, or x - y overflowing at an end of the range (fl(x - y) is
+// monotone in y).
+template <typename T>
+__device__ __forceinline__ bool poisoned(T x, T lo, T hi, int bad) {
+  return bad || !isfinite(x) || !isfinite(x - lo) || !isfinite(x - hi);
+}
+
+__device__ __forceinline__ float quiet_nan(float) {
+  return __int_as_float(0x7fc00000);
+}
+__device__ __forceinline__ double quiet_nan(double) {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// The non-finite pass of a group's cell pair, after its sums are stored:
+// flag the odd slots of both cells; a warp that flagged one forms both
+// cells' ranges, component by component, and writes NaN into the fa and
+// fb entries they reach.  Called by every lane of the warp.  Not inlined:
+// held to 96 registers (kPairMinBlocks), the f64 kernel spilled twice as
+// much with the pass inlined and ran 2 % slower (H100, k = 28).
+template <typename T, int W>
+__device__ __noinline__ void nonfinite_pass(const T* an, const T* bn,
+                                            T* fan, T* fbn, int K, int lg,
+                                            bool live) {
+  bool odd = false;
+  if (live) {
+    for (int i = lg; i < K; i += W) {
+      T s[4];
+      load_slot(an + 4 * i, s);
+      odd |= odd_slot(s);
+      load_slot(bn + 4 * i, s);
+      odd |= odd_slot(s);
+    }
+  }
+  if (!__any_sync(kFull, live && odd)) return;
+  __syncwarp();   // the kernel's stores, by other lanes of the group
+  const T nan = quiet_nan(T(0));
+#pragma unroll 1
+  for (int c = 0; c < 3; ++c) {
+    T alo, ahi, blo, bhi;
+    int abad, bbad;
+    group_range<T, W>(an, K, lg, live, c, alo, ahi, abad);
+    group_range<T, W>(bn, K, lg, live, c, blo, bhi, bbad);
+    if (live) {
+      for (int i = lg; i < K; i += W)
+        if (poisoned(an[4 * i + c], blo, bhi, bbad)) fan[3 * i + c] = nan;
+      for (int j = lg; j < K; j += W)
+        if (poisoned(bn[4 * j + c], alo, ahi, abad)) fbn[3 * j + c] = nan;
+    }
+  }
+}
+
 // fa of a batch's kBatch = 4 slots, summed over the W lanes of a group:
 // g holds (x, y, z) of slots 0..3.  Two halving steps leave each quarter
 // of the group one slot's three partial sums, a butterfly finishes them;
@@ -171,8 +295,16 @@ __device__ __forceinline__ void reduce_batch(const T (&g)[3 * kBatch], int lg,
   }
 }
 
+// Blocks an SM must hold: f64 at five, the occupancy the kernel had before
+// its non-finite pass (96 registers a lane).  Unbounded, the pass takes it
+// to 98 registers, which round up to 104: a fifth of the warps, 23 % of its
+// time at k = 28 on an H100; bounded, it spills 8 bytes and pays 10 %.
+template <typename T>
+constexpr int kPairMinBlocks = sizeof(T) == 8 ? 5 : 1;
+
 template <typename T, int W>
-__global__ void __launch_bounds__(32 * kPairWarps) pair_forces_kernel(
+__global__ void __launch_bounds__(32 * kPairWarps, kPairMinBlocks<T>)
+    pair_forces_kernel(
     const T* __restrict__ a, const T* __restrict__ b,
     const int32_t* __restrict__ ta, const int32_t* __restrict__ tb,
     const int32_t* __restrict__ same, const int32_t* __restrict__ cnt_a,
@@ -305,6 +437,8 @@ __global__ void __launch_bounds__(32 * kPairWarps) pair_forces_kernel(
   if (live) {
     for (int s = 3 * i_cov + lg; s < 3 * K; s += W) fan[s] = zero;
   }
+  // non-finite inputs (see the header)
+  nonfinite_pass<T, W>(an, bn, fan, fbn, K, lg, live);
 #pragma unroll
   for (int off = W / 2; off > 0; off >>= 1)
     pe_acc += __shfl_xor_sync(kFull, pe_acc, off);

@@ -10,10 +10,12 @@ The port of the JAX package's ``obs/tracing.py`` in PyTorch's idiom:
   (:mod:`repro_torch.core.pipeline.block_graph`) is recorded only while
   the unit runs eagerly: a replay launches the graph, so the profiler
   then names the graph's kernels, not the scopes.
-* :meth:`PhaseTracer.step_metrics`, the reference's per-step ``obs/*``
-  ledger counters, is not ported: an enabled tracer raises
-  ``NotImplementedError`` there (ROADMAP A10b).  The disabled
-  :data:`NULL_TRACER` adds nothing.
+* :meth:`PhaseTracer.step_metrics`: the reference's per-step ``obs/*``
+  ledger counters.  The port's ledger is host bookkeeping, so they are
+  host values (``numpy.int32``), read from the ledger after each step's
+  transitions and never made into device tensors on the step path: the
+  step graphs do not see them, and a traced run replays the same graphs
+  with the same bits.  The disabled :data:`NULL_TRACER` adds nothing.
 * :func:`span` / :func:`time_fn` time host regions on ``perf_counter``.
   ``span``'s ``sync()`` registers tensors whose CUDA devices are
   synchronized before the clock stops, so work issued asynchronously is
@@ -28,6 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 # the phase vocabulary (the paper's Fig. 6 lanes); scopes are free-form
@@ -50,9 +53,8 @@ PHASES = (
 class PhaseTracer:
     """Per-engine tracing switch.
 
-    ``scope`` is always active (metadata only).  ``step_metrics`` would
-    grow a step's outputs, so it is gated on ``enabled``; enabling it
-    raises, as the per-step counters are not ported yet.
+    ``scope`` is always active (metadata only).  ``step_metrics`` grows
+    a step's outputs, so it is gated on ``enabled``.
     """
 
     enabled: bool = False
@@ -62,13 +64,16 @@ class PhaseTracer:
         return torch.profiler.record_function(f"obs.{name}")
 
     def step_metrics(self, ledger, led) -> Dict[str, Any]:
-        """Per-step ledger counters as extra ``obs/*`` metrics: none
-        when disabled."""
+        """Per-step ledger counters as extra ``obs/*`` metrics (host
+        ``numpy.int32`` values): none when disabled."""
         if not self.enabled:
             return {}
-        raise NotImplementedError(
-            "PhaseTracer.step_metrics (per-step obs/* ledger counters, "
-            "MDEngine(trace=True)) is not ported yet: ROADMAP A10b")
+        return {
+            "obs/in_flight": np.int32(ledger.in_flight(led)),
+            "obs/released": np.int32(led.released.sum()),
+            "obs/acquired": np.int32(led.acquired.sum()),
+            "obs/clobbers": np.int32(led.clobbers.sum()),
+        }
 
 
 NULL_TRACER = PhaseTracer(enabled=False)

@@ -498,17 +498,21 @@ def _wire_spec(wire_dtype):
 @pytest.mark.parametrize("kw,match", [
     # static_ladder, health and obs are ported (the serving slice): their
     # cases pin the guards that remain, the reference's static_ladder +
-    # nstprune refusal and the unported trace / inject beside them
+    # nstprune refusal beside them
     pytest.param(dict(force_backend="pallas", static_ladder=True,
                       nstprune=2), "nstprune", id="kw2-static_ladder"),
     # wire compression is ported: through spec= and through the knob, the
     # drift gate rejects "int8" and an unknown name raises, as in JAX
     pytest.param(_wire_spec, "wire", id="kw3-wire"),
     pytest.param(lambda wd: dict(wire_dtype=wd), "wire", id="kw5-wire"),
-    pytest.param(dict(trace=True), "A10b", id="kw6-trace"),
-    pytest.param(dict(inject=True), "A11", id="kw7-inject"),
-    pytest.param(dict(health=True, inject=True), "inject", id="kw8-health"),
-    pytest.param(dict(obs=True, trace=True), "trace", id="kw9-obs"),
+    # trace and inject are ported (the resilience slice): they build and
+    # leave a run's bits alone (match None), and the reference's one
+    # refusal that remains, inject with overlap_rebin, raises as there
+    pytest.param(dict(trace=True), None, id="kw6-trace"),
+    pytest.param(dict(inject=True), None, id="kw7-inject"),
+    pytest.param(dict(health=True, inject=True, overlap_rebin=True),
+                 "overlap_rebin", id="kw8-health"),
+    pytest.param(dict(obs=True, trace=True), None, id="kw9-obs"),
 ])
 def test_unported_engine_knobs_raise(f32_system, kw, match):
     mesh = make_mesh((1, 1, 1), AXES)
@@ -522,8 +526,15 @@ def test_unported_engine_knobs_raise(f32_system, kw, match):
     if kw.get("obs") is True:
         from repro_torch.obs import MetricsRegistry
         kw = dict(kw, obs=MetricsRegistry())
-    exc = ValueError if "static_ladder" in kw else NotImplementedError
-    with pytest.raises(exc, match=match):
+    if match is None:
+        runs = [MDEngine(f32_system, mesh, device="cpu", **k).simulate(2)
+                for k in (kw, {})]
+        assert torch.equal(runs[0][0][0], runs[1][0][0])
+        for k in ("pe", "ke", "mom"):
+            assert np.array_equal(runs[0][1][k], runs[1][1][k]), k
+        assert ("obs/released" in runs[0][1]) == bool(kw.get("trace"))
+        return
+    with pytest.raises(ValueError, match=match):
         MDEngine(f32_system, mesh, device="cpu", **kw)
 
 

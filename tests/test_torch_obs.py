@@ -295,8 +295,19 @@ def test_tracer_scopes_and_obs_metrics_match_reference(ref):
     assert [is_obs_metric(k) for k in m] == \
         [robs.is_obs_metric(k) for k in m]
     assert NULL_TRACER.step_metrics(None, None) == {}
-    with pytest.raises(NotImplementedError, match="A10b"):
-        PhaseTracer(enabled=True).step_metrics(None, None)
+    # an enabled tracer's per-step counters: the reference's on the same
+    # ledger state (host values here)
+    from repro.core.pipeline.ledger import SignalLedger as RefLedger
+    lg, rlg = SignalLedger(2, 2), RefLedger(2, 2)
+    st, rst = lg.init(), rlg.init()
+    for kind, buf in (("fwd", 0), ("rev", 0), ("fwd", 1), ("rev", 0)):
+        st, rst = lg.release(st, kind, buf), rlg.release(rst, kind, buf)
+    st, rst = lg.acquire(st, "fwd", 0), rlg.acquire(rst, "fwd", 0)
+    got = PhaseTracer(enabled=True).step_metrics(lg, st)
+    want = robs.PhaseTracer(enabled=True).step_metrics(rlg, rst)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == np.int32 and int(got[k]) == int(want[k]), k
     # a scope is a profiler range around the operations issued in it
     with torch.profiler.profile() as prof:
         with NULL_TRACER.scope("force"):

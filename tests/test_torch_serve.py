@@ -424,10 +424,21 @@ def test_health_and_obs_are_bitwise_neutral(fb, pipe):
 
 
 def test_trace_and_inject_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="A10b"):
-        MDEngine(_sys(*R0), _mesh(), trace=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        MDEngine(_sys(*R0), _mesh(), inject=True, device="cpu")
+    """trace and inject are ported: at the serve shapes they build and a
+    run keeps its bits; what still raises is the reference's: inject with
+    overlap_rebin, and static_ladder with nstprune."""
+    kw = dict(layout_atoms=BUCKET, device="cpu")
+    (cf, ci), m, _ = MDEngine(_sys(*R0), _mesh(), **kw).simulate(10)
+    for knob in ("trace", "inject"):
+        (cf2, ci2), m2, _ = MDEngine(_sys(*R0), _mesh(), **{knob: True},
+                                     **kw).simulate(10)
+        assert torch.equal(cf, cf2) and torch.equal(ci, ci2)
+        for k in m:
+            assert np.array_equal(m[k], m2[k]), k
+        assert ("obs/in_flight" in m2) == (knob == "trace")
+    with pytest.raises(ValueError, match="overlap_rebin"):
+        MDEngine(_sys(*R0), _mesh(), inject=True, overlap_rebin=True,
+                 device="cpu")
     with pytest.raises(ValueError, match="nstprune"):
         MDEngine(_sys(*R0), _mesh(), force_backend="sparse",
                  static_ladder=True, nstprune=2, device="cpu")
