@@ -14,6 +14,8 @@
         # prints no result lines
     python3 chip_smoke.py --drill              # phases 1, 2 and 18 alone;
         # prints no result lines
+    python3 chip_smoke.py --train              # phases 1, 2 and 19 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -201,6 +203,25 @@ Phases, each asserting (any failure exits non-zero with no result line):
     scale), ``DeviceLost`` without a spare; ``memory_reserved`` after (d)
     and (g); (h) ``trace=True`` bitwise with replayed step graphs, its
     ``obs/*`` counters equal to a host recount of the ledger.
+19. training: (a) B7b (``flash_attention_backward``) against its plain
+    form (autograd through ``flash_attention_plain``) and the float64
+    oracle at the training shape (BH = 4 x 8, L = S = 1024, G = 2, hd =
+    128) in bf16 and f32, non-causal, ragged L = S = 1000, hd 64 and hd
+    16 (L != S), each error a share of the oracle's max |grad| (2e-2 /
+    2e-5 against the plain form, 0.06 / 2e-5 against the oracle); two
+    launches bitwise equal; the forward's ``_lse`` entry's out bitwise
+    equal to the serving entry's; timed beside the plain form, SDPA's
+    backward and the bound; (b) qwen3-1.7b at full width and depth
+    trained through ``launch.train.main`` (batch 4 x seq 1024, AdamW as
+    the launcher sets it, 6 steps): two fresh runs bitwise equal (losses,
+    grad norms, a digest of every parameter), a run with a checkpoint
+    every 3 steps killed after step 4 by ``--fail-at-step`` and resumed,
+    equal to them; ``flash_attention`` / B7b launches = 28 layers x
+    (forward + remat recompute) / 28 x microbatches x steps; (c) a 2-layer
+    full-width f32 model's loss and every gradient on the card (kernels)
+    against the CPU (plain forms), 1e-4 of each leaf's max, TF32 off;
+    (d) ms a step, tokens/s, peak memory, a profiled step, B7b's device us
+    a launch beside SDPA's backward.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -3314,14 +3335,369 @@ def drill_phase(system):
     print(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
 
+# ---- phase 19: train qwen3-1.7b at full width through the kernels and B7b ----
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY, TRAIN_KILL = 4, 1024, 6, 3, 4
+BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}      # of max |grad|, vs plain
+BWD_ORACLE_TOL = {"bfloat16": 0.06, "float32": 2e-5}  # of max |grad|, vs f64
+GRAD_TOL = 1e-4            # 2-layer f32 card vs CPU, of each leaf's max
+
+
+def flash_bwd_work(BH, L, S, G, hd, causal, elem):
+    """(bytes, operations) one backward needs: q, k, v, out, dout and the
+    f32 lse read once, dq, dk, dv written once; five products (q.k, dO.v,
+    P^T dO, dS^T q, dS k), 2 operations each per (row, key, dim) that the
+    causal mask keeps."""
+    pairs = sum(min(p + 1, S) for p in range(L)) if causal else L * S
+    nbytes = (4 * BH * L * G * hd + 4 * BH * S * hd) * elem + 4 * BH * L * G
+    return nbytes, 10 * BH * G * hd * pairs
+
+
+def b7b_phase():
+    """B7b against its plain form (autograd through flash_attention_plain)
+    and the float64 oracle, at the training shape (BH = 4 x 8, L = S =
+    1024, G = 2, hd = 128) in bf16 and f32, non-causal, ragged L = S =
+    1000, hd 64 and hd 16 (L != S): errors as a share of the oracle's
+    max |grad| per output; two launches bitwise equal; the _lse entry's
+    out bitwise equal to the serving entry's; the training shape in bf16
+    timed beside the plain form, SDPA's backward and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cases = [("train", 32, 1024, 1024, 2, 128, True),
+             ("full", 32, 1024, 1024, 2, 128, False),
+             ("ragged", 32, 1000, 1000, 2, 128, True),
+             ("hd64", 16, 512, 512, 4, 64, True),
+             ("hd16 full", 8, 256, 300, 2, 16, False)]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs = {"bfloat16": 0.0, "float32": 0.0}
+    abs_err = 0.0
+    print("B7b phase: flash_attention_backward against its plain form and "
+          f"the f64 oracle (max abs err / max |oracle grad|; tolerance "
+          f"{BWD_TOL}; oracle {BWD_ORACLE_TOL})")
+    out = None
+    for tag, BH, L, S, G, hd, causal in cases:
+        base = [torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd),
+                              (BH, L, G, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            q, k, v, dout = (x.to(dtype) for x in base)
+            served = fa.flash_attention(q, k, v, causal=causal)
+            o, lse = fa._forward(q, k, v, causal, with_lse=True)
+            check(torch.equal(o, served), f"B7b {tag} {name}: the _lse "
+                  "entry's out differs from the serving entry's")
+            got = fa.flash_attention_backward(q, k, v, o, dout, lse,
+                                              causal=causal)
+            again = fa.flash_attention_backward(q, k, v, o, dout, lse,
+                                                causal=causal)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"B7b {tag} {name}: two launches differ")
+            want = fa.flash_attention_backward_plain(q, k, v, dout,
+                                                     causal=causal)
+            oracle = ref.flash_attention_backward_ref(q, k, v, dout,
+                                                      causal=causal)
+            torch.cuda.synchronize()
+            line = []
+            for label, a, b, c in zip("qkv", got, want, oracle):
+                check(a.dtype == dtype and a.shape == b.shape and
+                      bool(torch.isfinite(a).all()),
+                      f"B7b {tag} {name}: d{label} dtype / shape / finite")
+                scale = float(c.abs().max())
+                e = float((a.double() - b.double()).abs().max())
+                eo = float((a.double() - c).abs().max())
+                line.append(f"d{label} {e / scale:.3e} / {eo / scale:.3e} "
+                            f"(max {scale:.3f})")
+                check(e <= BWD_TOL[name] * scale, f"B7b {tag} {name}: "
+                      f"d{label} {e} from its plain form (scale {scale})")
+                check(eo <= BWD_ORACLE_TOL[name] * scale, f"B7b {tag} "
+                      f"{name}: d{label} {eo} from the f64 oracle")
+                errs[name] = max(errs[name], e / scale)
+                if dtype == torch.bfloat16:
+                    abs_err = max(abs_err, e)
+            print(f"  {tag:9s} {name:8s} BH={BH} L={L} S={S} G={G} hd={hd} "
+                  f"causal={causal}: vs plain / vs oracle {'; '.join(line)};"
+                  " bitwise on repeat, out == serving out")
+            if tag != "train" or dtype != torch.bfloat16:
+                del oracle, want
+                continue
+            nbytes, ops = flash_bwd_work(BH, L, S, G, hd, causal,
+                                         q.element_size())
+            bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+            t_k = cuda_ms(lambda: fa.flash_attention_backward(
+                q, k, v, o, dout, lse, causal=causal), n=10, warmup=2)
+            t_p = cuda_ms(lambda: fa.flash_attention_backward_plain(
+                q, k, v, dout, causal=causal), n=3, warmup=1)
+            # yardstick: SDPA's backward on the same values in its layout
+            # (kv heads repeated G times), the forward outside the timing
+            qt = q.transpose(1, 2).contiguous().requires_grad_()
+            kt = k[:, None].expand(BH, G, S, hd).contiguous() \
+                .requires_grad_()
+            vt = v[:, None].expand(BH, G, S, hd).contiguous() \
+                .requires_grad_()
+            lib = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)
+            dt_ = dout.transpose(1, 2).contiguous()
+            ldq = torch.autograd.grad(lib, (qt,), dt_, retain_graph=True)[0]
+            lerr = float((ldq.transpose(1, 2).double() -
+                          want[0].double()).abs().max())
+            check(lerr <= 2 * BWD_TOL[name] * float(oracle[0].abs().max()),
+                  f"SDPA backward yardstick: {lerr} from the plain form")
+            t_l = cuda_ms(lambda: torch.autograd.grad(
+                lib, (qt, kt, vt), dt_, retain_graph=True), n=10, warmup=2)
+            print(f"  train bf16: B7b {t_k:.6f} ms ({t_k * 1e3:.1f} device "
+                  f"us a launch), plain backward {t_p:.6f} ms, SDPA "
+                  f"backward {t_l:.6f} ms, bound {bound:.6f} ms "
+                  f"({nbytes} bytes, {ops} operations at 989 TFLOP/s), "
+                  f"B7b at {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s "
+                  f"({bound / t_k:.4f} of the bound)")
+            out = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                   "bound_ms": bound, "bytes": nbytes, "ops": ops,
+                   "peak": BF16_FLOPS}
+            del qt, kt, vt, lib, ldq, oracle, want
+    out["max_abs_err"] = abs_err
+    print(f"B7b max err against the plain form, of max |grad|: bf16 "
+          f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}; max abs "
+          f"err bf16 {abs_err:.3e}")
+    return {"flash_attention_backward": out}
+
+
+def param_digest(params) -> str:
+    """A digest of every parameter's bits: per leaf, the int64 sum of its
+    float32 words weighted by their position (on the card), hashed."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for name in sorted(params):
+        bits = params[name].detach().view(torch.int32).reshape(-1) \
+            .to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device)
+        h.update(f"{name}:{int((bits * w).sum())};".encode())
+        del bits, w
+    return h.hexdigest()[:16]
+
+
+def train_phase(b7b):
+    """qwen3-1.7b at full width and depth through ``launch.train.main``:
+    batch 4 x seq 1024, AdamW as the launcher sets it, 6 steps, every
+    drive with the kernel counters zeroed just before and read just after;
+    two fresh runs bitwise equal (losses, grad norms, a digest of every
+    parameter); a run with a checkpoint every 3 steps killed after step 4
+    and resumed from its step-3 checkpoint, equal to them; launch counts
+    against layers x (forward + remat recompute) x microbatches x steps;
+    then a 2-layer full-width f32 model's loss and every gradient on the
+    card against the CPU; ms a step, tokens/s, peak memory and a profiled
+    step.  One checkpoint is 24.4 GB (f32 parameters and both moments) and
+    the card's machine takes at most 45 GiB of disk writes a call, so only
+    the killed run writes one (step 3); the fresh runs and the resumed
+    part run with ``--ckpt-every 0`` (no checkpoints), which changes no
+    number of a step."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    from repro_torch.launch import train as train_launch
+
+    t19 = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    check(cfg.remat and cfg.remat_policy == "nothing" and
+          cfg.compute_dtype == "bfloat16", f"qwen3-1.7b config changed: {cfg}")
+    counters = {**kernel_counters(), "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
+    work = ROOT / "build" / "phase19"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def drive(tag, every=0, extra=()):
+        argv = ["--arch", "qwen3-1.7b", "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--ckpt-every", str(every), "--ckpt-dir", str(work / tag),
+                *extra]
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = train_launch.main(argv)
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"train {tag}: {e}")
+            res = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        return res, launches, wall
+
+    def expect(launches, steps, tag):
+        mb = 1
+        fwd = cfg.n_layers * 2 * mb * steps      # forward + remat recompute
+        bwd = cfg.n_layers * mb * steps
+        check(launches["flash_attention"] == fwd and
+              launches["flash_attention_backward"] == bwd,
+              f"train {tag}: launches {launches}, expected flash_attention "
+              f"{fwd}, flash_attention_backward {bwd}")
+        check(all(n == 0 for k, n in launches.items()
+                  if not k.startswith("flash")), f"train {tag}: an MD "
+              "kernel ran while training")
+
+    def summary(res):
+        prog, params, opt, hist = res
+        return ([(h["step"], h["loss"], h["grad_norm"]) for h in hist],
+                param_digest(params), int(opt["step"]))
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    res_a, launches_a, wall_a = drive("a")
+    peak = torch.cuda.max_memory_allocated()
+    expect(launches_a, TRAIN_STEPS, "a")
+    hist_a, digest_a, opt_step = summary(res_a)
+    prog = res_a[0]
+    check(prog.microbatches == 1 and
+          sum(p.numel() for p in prog.params.values()) == 2_031_739_904,
+          "train: the program is not qwen3-1.7b at one microbatch")
+    check(all(math.isfinite(l) and math.isfinite(g) for _, l, g in hist_a),
+          f"train a: non-finite loss / grad norm {hist_a}")
+    dts_a = [h["dt"] for h in res_a[3]]
+    print(f"train phase: qwen3-1.7b, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{TRAIN_STEPS} steps; run a "
+          f"{wall_a:.2f} s (steps {sum(dts_a):.2f} s), launches "
+          f"{launches_a}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    for step, loss, gn in hist_a:
+        print(f"  step {step}: loss {loss:.6f} grad_norm {gn:.6f}")
+    check(opt_step == TRAIN_STEPS, f"train a: AdamW step {opt_step}")
+    # a profiled step of run a's program (after its 6 steps)
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)).cuda()}
+    _, params, opt, _ = res_a
+    prof = _profile(lambda: prog.step_fn(params, opt, batch), 1)
+    if prof is None:
+        print("  train profile: device time not measured (no CUDA events)")
+    else:
+        wall, device, n_kern, busy, by_name = prof
+        for label, key in (("B7b", "flash_bwd"), ("flash forward",
+                                                  "flash_kernel")):
+            sel = [(t, k) for name, (t, k) in by_name.items() if key in name]
+            tt, kk = sum(x[0] for x in sel), sum(x[1] for x in sel)
+            print(f"  train profile: {label} {kk:.0f} kernels, "
+                  f"{tt / 1e3:.4f} ms, {tt / device:.4f} of device time")
+        print(f"  train profile (torch.profiler, one step): host wall "
+              f"{wall / 1e3:.4f} ms, device kernel time {device / 1e3:.4f} "
+              f"ms, {n_kern:.0f} kernels, device busy {busy:.4f} of the host "
+              f"wall")
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+            print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms "
+                  f"{k:7.0f}x {name[:90]}")
+    del prog, params, opt, batch, res_a
+    release()
+    shutil.rmtree(work / "a", ignore_errors=True)
+
+    res_b, launches_b, wall_b = drive("b")
+    expect(launches_b, TRAIN_STEPS, "b")
+    hist_b, digest_b, _ = summary(res_b)
+    dts_b = [h["dt"] for h in res_b[3]]
+    del res_b
+    release()
+    shutil.rmtree(work / "b", ignore_errors=True)
+    print(f"  run b: {wall_b:.2f} s; losses, grad norms and parameter "
+          f"digest {digest_b} {'==' if hist_b == hist_a else '!='} run a's "
+          f"{digest_a}")
+    check(hist_b == hist_a and digest_b == digest_a,
+          f"train: two fresh runs differ: {hist_a} vs {hist_b}, "
+          f"{digest_a} vs {digest_b}")
+
+    res_k, launches_k, wall_k = drive("c", TRAIN_EVERY,
+                                      ["--fail-at-step", str(TRAIN_KILL)])
+    check(res_k is None, "train c: the run was not killed")
+    release()
+    expect(launches_k, TRAIN_KILL, "c killed")
+    res_r, launches_r, wall_r = drive("c")
+    expect(launches_r, TRAIN_STEPS - TRAIN_EVERY, "c resumed")
+    hist_r, digest_r, _ = summary(res_r)
+    del res_r
+    release()
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  run c, a checkpoint every {TRAIN_EVERY}, killed after step "
+          f"{TRAIN_KILL} ({wall_k:.2f} s: 4 steps and one 24.4 GB save) and "
+          f"resumed from step {TRAIN_EVERY} ({wall_r:.2f} s: restore and 3 "
+          f"steps): steps "
+          f"{[h[0] for h in hist_r]}, digest {digest_r}")
+    check(hist_r == hist_a[TRAIN_EVERY:] and digest_r == digest_a,
+          f"train: the resumed run differs: {hist_r} vs "
+          f"{hist_a[TRAIN_EVERY:]}, {digest_r} vs {digest_a}")
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3)
+    print(f"  train speed: median {step_ms:.4f} ms a step over steps 1-5 of "
+          f"runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), {tok_s:.3f} "
+          f"tokens/s; B7b {b7b['ms'] * 1e3:.1f} device us a launch, SDPA's "
+          f"backward {b7b['library_ms'] * 1e3:.1f} us, "
+          f"{cfg.n_layers} launches a step: "
+          f"{cfg.n_layers * b7b['ms']:.3f} ms of the step")
+
+    # a 2-layer full-width model in f32: loss and every gradient on the
+    # card (kernels) against the CPU (plain forms), TF32 off
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = build_model(cfg2).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (2, 257)).astype(np.int32))
+    for fn in counters.values():
+        fn.launches = 0
+    loss_c, _ = small.loss_fn({"tokens": toks.cuda()})
+    loss_c.backward()
+    check(flash_attention.launches == 4 and
+          flash_attention_backward.launches == 2,
+          f"the f32 card loss launched flash_attention "
+          f"{flash_attention.launches} / backward "
+          f"{flash_attention_backward.launches} times, not 4 / 2")
+    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
+    loss_c = float(loss_c.detach())
+    small.zero_grad(set_to_none=True)
+    small.to("cpu")
+    loss_h, _ = small.loss_fn({"tokens": toks})
+    loss_h.backward()
+    worst, worst_name = 0.0, ""
+    for n, p in small.named_parameters():
+        scale = float(p.grad.abs().max())
+        e = float((grads_c[n] - p.grad).abs().max()) / max(scale, 1e-30)
+        check(math.isfinite(e) and scale > 0, f"f32 grad {n}: {e}, {scale}")
+        if e > worst:
+            worst, worst_name = e, n
+    lrel = abs(loss_c - float(loss_h)) / abs(float(loss_h))
+    print(f"  2-layer full-width f32 loss and gradients (2 x 256 tokens), "
+          f"card vs CPU: loss {loss_c:.7f} vs {float(loss_h):.7f} (rel "
+          f"{lrel:.3e}), worst leaf {worst_name} {worst:.3e} of its max "
+          f"|grad| (tolerance {GRAD_TOL}, TF32 off)")
+    check(lrel <= GRAD_TOL and worst <= GRAD_TOL,
+          f"f32 card gradients {worst} ({worst_name}) / loss {lrel} from "
+          "the CPU's")
+    del small, grads_c
+    gc.collect()
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    return {"flash_attention": launches_a["flash_attention"],
+            "flash_attention_backward":
+                launches_a["flash_attention_backward"]}
+
+
 def main():
     args = sys.argv[1:]
-    if args in (["--serve"], ["--drill"]):
+    if args in (["--serve"], ["--drill"], ["--train"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve | --drill]")
+             "| --serve | --drill | --train]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -3351,6 +3727,13 @@ def main():
         from repro_torch.kernels import _build
         _build.build(["halo_pack", "halo_signal", "nonbonded"])
         drill_phase(make_grappa_like(45_000, seed=0))
+        print(card)
+        return
+    if args == ["--train"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        train_phase(b7b_phase()["flash_attention_backward"])
         print(card)
         return
     if args and args[0] == "--steps":
@@ -3455,6 +3838,12 @@ def main():
     # 18. the self-healing runtime: faults injected, detected, recovered
     drill_phase(make_grappa_like(45_000, seed=0))
 
+    # 19. training: B7b at the training shapes, then qwen3-1.7b trained at
+    # full width (determinism, kill / resume), a 2-layer f32 card-vs-CPU
+    # gradient check
+    b7b_kernel = b7b_phase()
+    train_launches = train_phase(b7b_kernel["flash_attention_backward"])
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -3463,7 +3852,9 @@ def main():
                 "put_signal_wire": "src/repro/kernels/halo_pack.py:165",
                 "pair_forces": "src/repro/kernels/nonbonded.py:92",
                 "scatter_accum": "src/repro/kernels/nonbonded.py:171",
-                "flash_attention": "src/repro/kernels/flash_attention.py:76"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:76",
+                "flash_attention_backward":
+                    "src/repro/models/attention.py:89"}
     sources = {"pack": "src/repro_torch/csrc/halo_pack.cu",
                "unpack_add": "src/repro_torch/csrc/halo_pack.cu",
                "put_signal": "src/repro_torch/csrc/halo_signal.cu",
@@ -3472,16 +3863,21 @@ def main():
                "put_signal_wire": "src/repro_torch/csrc/halo_signal.cu",
                "pair_forces": "src/repro_torch/csrc/nonbonded.cu",
                "scatter_accum": "src/repro_torch/csrc/nonbonded.cu",
-               "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+               "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+               "flash_attention_backward":
+                   "src/repro_torch/csrc/flash_attention.cu"}
     modules = {"pack": "halo_pack", "unpack_add": "halo_pack",
                "put_signal": "halo_pack", "fused_pulses": "halo_pack",
                "pack_wire": "halo_pack", "put_signal_wire": "halo_pack",
                "pair_forces": "nonbonded", "scatter_accum": "nonbonded",
-               "flash_attention": "flash_attention"}
+               "flash_attention": "flash_attention",
+               "flash_attention_backward": "flash_attention"}
     main_launches = {**launches, **{k: pruned_launches[k] for k in nb_kernel},
                      "put_signal": sig_launches["put_signal"],
                      "fused_pulses": w2_launches["fused_pulses"],
                      "flash_attention": serve_launches["flash_attention"],
+                     "flash_attention_backward":
+                         train_launches["flash_attention_backward"],
                      "pack_wire": wire_runs["float32"]["pallas/off"][
                          "pack_wire"],
                      "put_signal_wire": wire_runs["float32"]["signal/db2"][
@@ -3499,10 +3895,15 @@ def main():
                                "only for forwarded words, the last arriver "
                                "releases each (destination, pulse)",
                "pack_wire": "a flat grid, N elements a thread into one "
-                            "16-byte wire word"}
+                            "16-byte wire word",
+               "flash_attention_backward":
+                   "B7b, no TPU kernel: the reference trains through "
+                   "autodiff of blocked_attention; D = rowsum(dO * O), a "
+                   "dK / dV block per (bh, 32 keys), a dQ block per (bh, 32 "
+                   "rows), f32 FMAs on the CUDA cores, no atomics"}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
-                      **flash_kernel,
+                      **flash_kernel, **b7b_kernel,
                       **{f"{k}_wire": a for k, a in wire_kernel.items()}
                       }.items():
         bound_by = "bytes" if acc["bytes"] / HBM_BPS >= \
@@ -3517,6 +3918,8 @@ def main():
             **({"device_us_per_launch": acc["device_us_per_launch"]}
                if "device_us_per_launch" in acc else {}),
             **({"serve_launches": served[name]} if name in served else {}),
+            **({"train_launches": train_launches[name]}
+               if name in train_launches else {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
@@ -3528,7 +3931,13 @@ def main():
           "the two-pulse signal run; flash_attention: one bf16 launch at "
           "the qwen3-1.7b serve shape (BH 32, L = S = 1024, G 2, hd 128), "
           "its launches over the two served waves, its bound at 989 "
-          "TFLOP/s bf16, its yardstick SDPA; pack_wire / put_signal_wire "
+          "TFLOP/s bf16, its yardstick SDPA, train_launches its launches "
+          "over qwen3-1.7b's 6 training steps (28 layers x (forward + "
+          "remat recompute)); flash_attention_backward (B7b): one bf16 "
+          "backward at the training shape (the same shape), its launches "
+          "over the 6 steps, its bound at 989 TFLOP/s bf16 over five "
+          "products, its yardstick SDPA's backward; pack_wire / "
+          "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "
           "f64 rows to f32, launches on the grappa-45k f64 float32-wire "
           "pallas / off and signal / double_buffer runs, yardsticks "

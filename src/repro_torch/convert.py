@@ -11,7 +11,14 @@ Both layout functions take numpy arrays or torch tensors.
 
 * :func:`lm_params_from_jax` — a reference LM's parameter tree (leaves as
   numpy arrays, or anything ``numpy.asarray`` takes) as the port's
-  ``LM`` state dict.
+  ``LM`` state dict; :func:`lm_params_to_jax` the reverse, the reference's
+  stacked tree of host tensors.
+* :func:`adamw_state_to_jax` / :func:`adamw_state_from_jax` — the port's
+  AdamW state (moments keyed by parameter name) against the reference's
+  ``{"step", "m", "v"}`` of stacked trees.
+
+The training checkpoints hold the reference's trees, so each package
+resumes the other's runs.
 """
 from __future__ import annotations
 
@@ -101,3 +108,49 @@ def lm_params_from_jax(params) -> dict:
                             if k != "units"}, ()):
         out[".".join(path)] = torch.from_numpy(np.array(leaf))
     return out
+
+
+def lm_params_to_jax(state: dict, layers_per_unit: int) -> dict:
+    """The port's LM state (``name -> tensor``, e.g. ``named_parameters``)
+    as the reference's parameter tree of host tensors: layer
+    ``u * layers_per_unit + i``'s leaves stacked along dim 0 of
+    ``units/layer{i}``, every other leaf under its dotted path."""
+    P = layers_per_unit
+    layers: dict = {}
+    out: dict = {}
+    for name, t in state.items():
+        t = t.detach().cpu()
+        path = name.split(".")
+        if path[0] == "layers":
+            n = int(path[1])
+            layers.setdefault((n % P,) + tuple(path[2:]), {})[n // P] = t
+            continue
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    units = out.setdefault("units", {})
+    for (i, *rest), by_unit in sorted(layers.items()):
+        node = units.setdefault(f"layer{i}", {})
+        for k in rest[:-1]:
+            node = node.setdefault(k, {})
+        node[rest[-1]] = torch.stack([by_unit[u] for u in range(len(by_unit))])
+    return out
+
+
+def adamw_state_to_jax(opt_state: dict, layers_per_unit: int) -> dict:
+    """The port's AdamW state as the reference's: ``step`` (int32 0-dim)
+    and the moments as stacked trees, all host tensors."""
+    return {"step": opt_state["step"].detach().cpu(),
+            "m": lm_params_to_jax(opt_state["m"], layers_per_unit),
+            "v": lm_params_to_jax(opt_state["v"], layers_per_unit)}
+
+
+def adamw_state_from_jax(tree, device=None) -> dict:
+    """The reference's AdamW state as the port's, on ``device``."""
+    def on(t):
+        return t.to(device) if device is not None else t
+    return {"step": on(torch.as_tensor(np.asarray(tree["step"]),
+                                       dtype=torch.int32)),
+            "m": {k: on(v) for k, v in lm_params_from_jax(tree["m"]).items()},
+            "v": {k: on(v) for k, v in lm_params_from_jax(tree["v"]).items()}}

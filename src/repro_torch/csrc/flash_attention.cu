@@ -5,6 +5,12 @@
 // Replaces the TPU kernel of the JAX package:
 //   flash_attention_*  <- src/repro/kernels/flash_attention.py:76
 //                         flash_attention (_flash_kernel, l.25)
+// The flash_attention_lse_* entries run the same kernels and also write
+// each row's float32 log-sum-exp, for training.  flash_attention_bwd_*
+// (B7b, the backward, at the end of the file) replaces no TPU kernel: the
+// reference trains through autodiff of its pure-JAX blocked_attention
+// (src/repro/models/attention.py:89), and its Pallas kernel has no
+// backward.
 //
 // Layout as the reference: q (BH, L, G, hd), k and v (BH, S, hd), output
 // (BH, L, G, hd) in q's dtype; BH = batch * kv heads, G = q heads per kv
@@ -146,8 +152,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int64_t L, int64_t G, int64_t S, int causal,
-                     float scale) {
+                     float* __restrict__ lse, int64_t L, int64_t G, int64_t S,
+                     int causal, float scale) {
   constexpr int KS = HD + 4;                    // padded k row
   constexpr int DPL = HD >= 32 ? HD / 32 : 1;   // output columns per lane
   extern __shared__ float4 smem4[];
@@ -313,6 +319,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t row = w0 + r;
     if (row >= LG) break;
     const float den = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0) lse[bh * LG + row] = m[r] + logf(den);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) o[row * HD + lane + 32 * i] = acc[r][i] / den;
   }
@@ -655,8 +662,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     flash_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      __nv_bfloat16* __restrict__ o, int LG, int G, int S,
-                      int causal, float scale) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int LG, int G, int S, int causal, float scale) {
   using P = Plan<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -823,6 +830,11 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     }
 
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    if (lse != nullptr && qd == 0) {
+      float* lb = lse + static_cast<int64_t>(bh) * LG;
+      if (row0 < LG) lb[row0] = m0 + logf(den0);
+      if (row1 < LG) lb[row1] = m1 + logf(den1);
+    }
     __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * LG * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -838,12 +850,327 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   }
 }
 
+// ---- backward (B7b): CUDA cores, float32 sums --------------------------------
+//
+// Three kernels on the forward's layout, launched in order by one entry
+// point: flash_bwd_delta (D = rowsum(dO * O), a warp a row), flash_bwd_dkdv
+// (a block per (bh, tile of kBKb keys): walks every query row that can see
+// the tile, dV += P^T dO and dK += dS^T qs) and flash_bwd_dq (a block per
+// (bh, tile of kBR query rows): walks the kv tiles the rows can see,
+// dQ += dS k, times the scale at the end).  Each recomputes the logits
+// s = qs . k from qs = q * scale rounded to the input type (the forward's
+// rounding point), P = exp(s - lse) with the forward's float32 log-sum-exp,
+// dP = dO . v^T and dS = P * (dP - D); masked keys (causal, past S) have
+// P = 0.  Every dot is one float32 FMA chain in a fixed order, every dK /
+// dV / dQ element has one writer and sums its terms in row (key) order: no
+// atomics, so two launches give the same bits.  Tiles are staged in shared
+// memory as float32 (rows padded by 4 floats: the 16-byte reads of eight
+// neighbouring rows fall on distinct banks).
+//
+// What bounds it.  At the training shape of qwen3-1.7b (BH 32, L = S =
+// 1024, G = 2, hd = 128, bf16, causal) the backward's five products (q.k,
+// dO.v, P^T dO, dS^T q, dS k) are 4.30e10 operations and its tensors
+// 100.9 MB: 43.5 us at the tensor cores' 989 TFLOP/s against 30.1 us at
+// 3.35 TB/s, so bound by operations.  This first form runs them as
+// float32 FMAs on the CUDA cores (and the two kernels each recompute q.k
+// and dO.v: seven products), a right and deterministic form before a fast
+// one: measured by chip_smoke.py phase 19 on an NVIDIA H100 80GB HBM3 at a
+// 700.00 W power limit, 4.82 ms a launch (0.9 % of the bound), 8.9
+// TFLOP/s, against SDPA's backward at 0.20-0.36 ms in the same runs.
+// Its tensor-core form (wgmma, as the forward) is ROADMAP queue D.
+constexpr int kBR = 32;                  // query rows per tile
+constexpr int kBKb = 32;                 // keys per tile
+constexpr int kBwdThreads = 256;         // thread t: row / key t / 8
+constexpr int kPS = kBKb + 8;            // padded row of the P and dS tiles
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// VW consecutive floats of shared memory (16- or 8-byte aligned)
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (VW == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x, out[1] = x.y;
+  }
+}
+
+template <int HD>
+struct BwdPlan {
+  static constexpr int KS = HD + 4;                 // padded tile row
+  static constexpr int VW = HD >= 32 ? 4 : 2;       // floats a vector read
+  static constexpr int NG = HD / (8 * VW);          // vector groups a thread
+  // floats: k, v tiles (kBKb rows), qs, dO tiles (kBR rows), P and dS,
+  // lse and D of the row tile
+  static constexpr size_t SMEM =
+      sizeof(float) * (static_cast<size_t>(2 * kBKb + 2 * kBR) * KS +
+                       2 * kBR * kPS + 2 * kBR);
+};
+
+// `n` rows of HD values from src[first..] into dst (stride KS) as float32,
+// zeros past `limit`; `scale` > 0 scales and rounds to T (the forward's qs).
+template <typename T, int HD>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      int64_t first, int64_t limit, int n,
+                                      float scale) {
+  for (int e = threadIdx.x; e < n * HD; e += kBwdThreads) {
+    const int r = e / HD, c = e % HD;
+    float x = 0.f;
+    if (first + r < limit) {
+      x = to_f(src[(first + r) * HD + c]);
+      if (scale > 0.f) x = to_f(from_f<T>(__fmul_rn(x, scale)));
+    }
+    dst[r * BwdPlan<HD>::KS + c] = x;
+  }
+}
+
+// P and dS of the (kBR rows from r0) x (kBKb keys from j0) tile into shared
+// memory: thread t takes row t / 8 and keys t % 8 + 8c.
+template <int HD>
+__device__ __forceinline__ void tile_scores(
+    const float* qs, const float* dos, const float* ks, const float* vs,
+    const float* lse_s, const float* del_s, float* ps, float* dss, int64_t r0,
+    int64_t j0, int64_t LG, int64_t G, int64_t S, int causal) {
+  constexpr int KS = BwdPlan<HD>::KS;
+  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 qq = *reinterpret_cast<const float4*>(qs + i * KS + d);
+    const float4 oo = *reinterpret_cast<const float4*>(dos + i * KS + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = jl + 8 * c;
+      const float4 kk = *reinterpret_cast<const float4*>(ks + j * KS + d);
+      const float4 vv = *reinterpret_cast<const float4*>(vs + j * KS + d);
+      s[c] = fmaf(qq.x, kk.x, s[c]);
+      s[c] = fmaf(qq.y, kk.y, s[c]);
+      s[c] = fmaf(qq.z, kk.z, s[c]);
+      s[c] = fmaf(qq.w, kk.w, s[c]);
+      dp[c] = fmaf(oo.x, vv.x, dp[c]);
+      dp[c] = fmaf(oo.y, vv.y, dp[c]);
+      dp[c] = fmaf(oo.z, vv.z, dp[c]);
+      dp[c] = fmaf(oo.w, vv.w, dp[c]);
+    }
+  }
+  const int64_t row = r0 + i;
+  const int64_t pos = row / G;
+  const float l = lse_s[i], dl = del_s[i];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = jl + 8 * c;
+    const int64_t key = j0 + j;
+    const bool seen = row < LG && key < S && (!causal || key <= pos);
+    const float p = seen ? expf(s[c] - l) : 0.f;
+    ps[i * kPS + j] = p;
+    dss[i * kPS + j] = p * (dp[c] - dl);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, int64_t rows) {
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;   // whole warps
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f(o[row * HD + d]), to_f(dout[row * HD + d]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int64_t L, int64_t G, int64_t S,
+                   int causal, float scale) {
+  using B = BwdPlan<HD>;
+  constexpr int KS = B::KS, VW = B::VW, NG = B::NG;
+  extern __shared__ float4 smem_b4[];
+  float* ks = reinterpret_cast<float*>(smem_b4);
+  float* vs = ks + kBKb * KS;
+  float* qs = vs + kBKb * KS;
+  float* dos = qs + kBR * KS;
+  float* ps = dos + kBR * KS;
+  float* dss = ps + kBR * kPS;
+  float* lse_s = dss + kBR * kPS;
+  float* del_s = lse_s + kBR;
+
+  const int64_t LG = L * G;
+  const int64_t bh = blockIdx.x;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kBKb;
+  q += bh * LG * HD;
+  dout += bh * LG * HD;
+  k += bh * S * HD;
+  v += bh * S * HD;
+  dk += bh * S * HD;
+  dv += bh * S * HD;
+  lse += bh * LG;
+  delta += bh * LG;
+
+  stage<T, HD>(ks, k, j0, S, kBKb, 0.f);
+  stage<T, HD>(vs, v, j0, S, kBKb, 0.f);
+
+  // accumulators: key j = t / 8, columns (t % 8) * VW + 8 * VW * g + x
+  const int j = threadIdx.x >> 3, cl = (threadIdx.x & 7) * VW;
+  float akk[NG][VW], avv[NG][VW];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int x = 0; x < VW; ++x) akk[g][x] = avv[g][x] = 0.f;
+
+  // the rows that can see a key of the tile: position >= j0 when causal
+  const int64_t first = causal ? j0 * G : 0;
+  for (int64_t r0 = first; r0 < LG; r0 += kBR) {
+    __syncthreads();   // the previous row tile is done with
+    stage<T, HD>(qs, q, r0, LG, kBR, scale);
+    stage<T, HD>(dos, dout, r0, LG, kBR, 0.f);
+    if (threadIdx.x < kBR) {
+      const bool in = r0 + threadIdx.x < LG;
+      lse_s[threadIdx.x] = in ? lse[r0 + threadIdx.x] : 0.f;
+      del_s[threadIdx.x] = in ? delta[r0 + threadIdx.x] : 0.f;
+    }
+    __syncthreads();
+    tile_scores<HD>(qs, dos, ks, vs, lse_s, del_s, ps, dss, r0, j0, LG, G, S,
+                    causal);
+    __syncthreads();
+    for (int i = 0; i < kBR; ++i) {
+      const float p = ps[i * kPS + j], ds = dss[i * kPS + j];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float o4[VW], q4[VW];
+        load_vec<VW>(dos + i * KS + cl + 8 * VW * g, o4);
+        load_vec<VW>(qs + i * KS + cl + 8 * VW * g, q4);
+#pragma unroll
+        for (int x = 0; x < VW; ++x) {
+          avv[g][x] = fmaf(p, o4[x], avv[g][x]);
+          akk[g][x] = fmaf(ds, q4[x], akk[g][x]);
+        }
+      }
+    }
+  }
+
+  if (j0 + j >= S) return;
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int x = 0; x < VW; ++x) {
+      const int64_t e = (j0 + j) * HD + cl + 8 * VW * g + x;
+      dk[e] = from_f<T>(akk[g][x]);
+      dv[e] = from_f<T>(avv[g][x]);
+    }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 int64_t L, int64_t G, int64_t S, int causal, float scale) {
+  using B = BwdPlan<HD>;
+  constexpr int KS = B::KS, VW = B::VW, NG = B::NG;
+  extern __shared__ float4 smem_b4[];
+  float* ks = reinterpret_cast<float*>(smem_b4);
+  float* vs = ks + kBKb * KS;
+  float* qs = vs + kBKb * KS;
+  float* dos = qs + kBR * KS;
+  float* ps = dos + kBR * KS;
+  float* dss = ps + kBR * kPS;
+  float* lse_s = dss + kBR * kPS;
+  float* del_s = lse_s + kBR;
+
+  const int64_t LG = L * G;
+  const int64_t bh = blockIdx.x;
+  // the last row tile (most keys under the causal mask) first
+  const int64_t r0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBR;
+  q += bh * LG * HD;
+  dout += bh * LG * HD;
+  dq += bh * LG * HD;
+  k += bh * S * HD;
+  v += bh * S * HD;
+  lse += bh * LG;
+  delta += bh * LG;
+
+  stage<T, HD>(qs, q, r0, LG, kBR, scale);
+  stage<T, HD>(dos, dout, r0, LG, kBR, 0.f);
+  if (threadIdx.x < kBR) {
+    const bool in = r0 + threadIdx.x < LG;
+    lse_s[threadIdx.x] = in ? lse[r0 + threadIdx.x] : 0.f;
+    del_s[threadIdx.x] = in ? delta[r0 + threadIdx.x] : 0.f;
+  }
+  const int64_t last_row = (r0 + kBR < LG ? r0 + kBR : LG) - 1;
+  int64_t n_keys = S;
+  if (causal && last_row / G + 1 < n_keys) n_keys = last_row / G + 1;
+
+  // accumulators: row i = t / 8, columns (t % 8) * VW + 8 * VW * g + x
+  const int i = threadIdx.x >> 3, cl = (threadIdx.x & 7) * VW;
+  float acc[NG][VW];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int x = 0; x < VW; ++x) acc[g][x] = 0.f;
+
+  for (int64_t j0 = 0; j0 < n_keys; j0 += kBKb) {
+    __syncthreads();   // the previous kv tile is done with
+    stage<T, HD>(ks, k, j0, S, kBKb, 0.f);
+    stage<T, HD>(vs, v, j0, S, kBKb, 0.f);
+    __syncthreads();
+    tile_scores<HD>(qs, dos, ks, vs, lse_s, del_s, ps, dss, r0, j0, LG, G, S,
+                    causal);
+    __syncthreads();
+    for (int j = 0; j < kBKb; ++j) {
+      const float ds = dss[i * kPS + j];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float k4[VW];
+        load_vec<VW>(ks + j * KS + cl + 8 * VW * g, k4);
+#pragma unroll
+        for (int x = 0; x < VW; ++x) acc[g][x] = fmaf(ds, k4[x], acc[g][x]);
+      }
+    }
+  }
+
+  if (r0 + i >= LG) return;
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int x = 0; x < VW; ++x)
+      dq[(r0 + i) * HD + cl + 8 * VW * g + x] =
+          from_f<T>(__fmul_rn(acc[g][x], scale));
+}
+
+
 // ---- launchers --------------------------------------------------------------
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int64_t BH, int64_t L, int64_t G, int64_t S, int causal,
-               float scale, void* stream) {
+               void* lse, int64_t BH, int64_t L, int64_t G, int64_t S,
+               int causal, float scale, void* stream) {
   constexpr size_t smem = smem_bytes_f32<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -854,8 +1181,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_kernel_f32<HD><<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), L, G, S, causal,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), L, G, S, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -910,8 +1237,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t BH,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int64_t BH, int64_t L, int64_t G, int64_t S, int causal,
-                float scale, void* stream) {
+                void* lse, int64_t BH, int64_t L, int64_t G, int64_t S,
+                int causal, float scale, void* stream) {
   constexpr size_t smem = Plan<HD>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_kernel_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -926,8 +1253,56 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                   static_cast<unsigned>((L * G + kBlockRows - 1) / kBlockRows));
   flash_kernel_bf16<HD><<<grid, kThreadsBf16, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<int>(L * G),
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      static_cast<int>(L * G),
       static_cast<int>(G), static_cast<int>(S), causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D, then dK / dV, then dQ, on the caller's stream; `delta` is (BH, L*G)
+// float32 scratch the wrapper allocates.
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* dq,
+               void* dk, void* dv, int64_t BH, int64_t L, int64_t G,
+               int64_t S, int causal, float scale, void* stream) {
+  constexpr size_t smem = BwdPlan<HD>::SMEM;
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t LG = L * G;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const float* fl = static_cast<const float*>(lse);
+  float* fd = static_cast<float*>(delta);
+  constexpr int kRowsPerBlock = kBwdThreads / 32;
+  flash_bwd_delta<T, HD><<<static_cast<unsigned>(
+                               (BH * LG + kRowsPerBlock - 1) / kRowsPerBlock),
+                           kBwdThreads, 0, st>>>(static_cast<const T*>(o),
+                                                 tdo, fd, BH * LG);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv<T, HD><<<dim3(static_cast<unsigned>(BH),
+                               static_cast<unsigned>((S + kBKb - 1) / kBKb)),
+                          kBwdThreads, smem, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<T*>(dk), static_cast<T*>(dv), L, G,
+      S, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq<T, HD><<<dim3(static_cast<unsigned>(BH),
+                             static_cast<unsigned>((LG + kBR - 1) / kBR)),
+                        kBwdThreads, smem, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<T*>(dq), L, G, S, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -952,14 +1327,17 @@ int by_head_dim(int64_t hd, Launch&& launch) {
 }  // namespace
 
 
+// The serving entries write no log-sum-exp; the _lse entries also write
+// each row's float32 lse (BH, L, G), with the same kernels, so `out` is the
+// same bits.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int64_t BH,
                                    int64_t L, int64_t G, int64_t S,
                                    int64_t hd, int causal, float scale,
                                    void* stream) {
   return by_head_dim(hd, [&](auto HD) {
-    return launch_f32<decltype(HD)::value>(q, k, v, o, BH, L, G, S, causal,
-                                           scale, stream);
+    return launch_f32<decltype(HD)::value>(q, k, v, o, nullptr, BH, L, G, S,
+                                           causal, scale, stream);
   });
 }
 
@@ -969,7 +1347,55 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t hd, int causal, float scale,
                                     void* stream) {
   return by_head_dim(hd, [&](auto HD) {
-    return launch_bf16<decltype(HD)::value>(q, k, v, o, BH, L, G, S, causal,
-                                            scale, stream);
+    return launch_bf16<decltype(HD)::value>(q, k, v, o, nullptr, BH, L, G, S,
+                                            causal, scale, stream);
+  });
+}
+
+extern "C" int flash_attention_lse_f32(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int64_t BH, int64_t L, int64_t G,
+                                       int64_t S, int64_t hd, int causal,
+                                       float scale, void* stream) {
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_f32<decltype(HD)::value>(q, k, v, o, lse, BH, L, G, S,
+                                           causal, scale, stream);
+  });
+}
+
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int64_t BH, int64_t L, int64_t G,
+                                        int64_t S, int64_t hd, int causal,
+                                        float scale, void* stream) {
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_bf16<decltype(HD)::value>(q, k, v, o, lse, BH, L, G, S,
+                                            causal, scale, stream);
+  });
+}
+
+// B7b: dq, dk, dv (in the input type) of out = attention(q, k, v) given
+// dout, the forward's out and lse; `delta` is (BH, L*G) float32 scratch.
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
+    int causal, float scale, void* stream) {
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_bwd<float, decltype(HD)::value>(
+        q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
+        stream);
+  });
+}
+
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
+    int causal, float scale, void* stream) {
+  return by_head_dim(hd, [&](auto HD) {
+    return launch_bwd<__nv_bfloat16, decltype(HD)::value>(
+        q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
+        stream);
   });
 }

@@ -18,6 +18,17 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 wrapper counts its launches in ``flash_attention.launches``, raised only
 where the kernel is launched, through the shared launch path
 (:mod:`repro_torch.kernels._launch`).
+
+Training: with grad enabled and an input that requires grad, a CUDA call
+goes through :class:`FlashAttentionFunction`, whose forward launches the
+same kernels through their ``_lse`` entries (the same ``out`` bits, plus
+each row's float32 log-sum-exp) and whose backward launches B7b,
+:func:`flash_attention_backward` (counted in
+``flash_attention_backward.launches``).  B7b replaces no TPU kernel: the
+reference trains through autodiff of its pure-JAX ``blocked_attention``
+(``src/repro/models/attention.py:89``) and its Pallas kernel has no
+backward.  Its plain form, :func:`flash_attention_backward_plain`, is
+autograd through :func:`flash_attention_plain`.
 """
 from __future__ import annotations
 
@@ -39,6 +50,14 @@ KERNEL_BK = 128
 
 _FLASH = _launch.Entries("flash_attention", {
     dt: (f"flash_attention_{sfx}", [PTR] * 4 + [I64] * 5 + [I32, F32, PTR])
+    for dt, sfx in _SUFFIX.items()})
+_FLASH_LSE = _launch.Entries("flash_attention", {
+    dt: (f"flash_attention_lse_{sfx}",
+         [PTR] * 5 + [I64] * 5 + [I32, F32, PTR])
+    for dt, sfx in _SUFFIX.items()})
+_FLASH_BWD = _launch.Entries("flash_attention", {
+    dt: (f"flash_attention_bwd_{sfx}",
+         [PTR] * 10 + [I64] * 5 + [I32, F32, PTR])
     for dt, sfx in _SUFFIX.items()})
 
 
@@ -131,36 +150,148 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _launch_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   name: str) -> None:
+    BH, L, G, _ = q.shape
+    S = k.shape[1]
+    if BH > 65535 or (L * G + 127) // 128 > 65535 or S > 2 ** 31 - 1:
+        raise ValueError(f"{name}: grid too large for BH={BH}, "
+                         f"L*G={L * G}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError(f"{name}: bf16 q, k, v must start on a 16-byte "
+                         "boundary (the kernel reads them by TMA)")
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """Launch the forward kernel: ``out``, and with ``with_lse`` the
+    float32 log-sum-exp ``(BH, L, G)`` of every row (else None)."""
+    _launch_checks(q, k, v, "flash_attention")
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    out = torch.empty_like(q)
+    dev = q.get_device()
+    if with_lse:
+        lse = torch.empty((BH, L, G), dtype=torch.float32, device=q.device)
+        fn = _FLASH_LSE[q.dtype]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), BH, L, G, S, hd, int(bool(causal)),
+                hd ** -0.5, stream(dev))
+    else:
+        lse = None
+        fn = _FLASH[q.dtype]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                L, G, S, hd, int(bool(causal)), hd ** -0.5, stream(dev))
+    if rc:
+        raise refused(fn, rc)
+    flash_attention.launches += 1
+    return out, lse
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` on CUDA tensors with its gradient: the
+    forward saves q, k, v, out and the log-sum-exp, the backward launches
+    B7b (:func:`flash_attention_backward`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out,
+                                              dout.contiguous(), lse,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 128,
                     bk: int = 256) -> torch.Tensor:
     """Grouped-query attention, causal (positions from 0 on both sides:
     query l sees keys <= l) or full.  ``bq`` / ``bk`` set the plain
     form's blocking (the reference's defaults); the CUDA kernel picks its
-    own tiles."""
+    own tiles.  On CUDA, with grad enabled and an input that requires
+    grad, the call is differentiable (:class:`FlashAttentionFunction`)."""
     _check(q, k, v)
     if not q.is_cuda:
         if q.is_cpu:
             return flash_attention_plain(q, k, v, causal=causal, bq=bq,
                                          bk=bk)
         raise unsupported("flash_attention", q)
-    BH, L, G, hd = q.shape
-    S = k.shape[1]
-    if BH > 65535 or (L * G + 127) // 128 > 65535 or S > 2 ** 31 - 1:
-        raise ValueError(f"flash_attention: grid too large for BH={BH}, "
-                         f"L*G={L * G}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k, v must start on a "
-                         "16-byte boundary (the kernel reads them by TMA)")
-    out = torch.empty_like(q)
-    fn = _FLASH[q.dtype]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, L,
-            G, S, hd, int(bool(causal)), hd ** -0.5, stream(q.get_device()))
-    if rc:
-        raise refused(fn, rc)
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, bool(causal))
+    return _forward(q, k, v, causal, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def _check_backward(q, k, v, out, dout, lse) -> None:
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be {tuple(q.shape[:3])} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dev = q.get_device()
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if t.get_device() != dev:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (pass "
+                             ".contiguous())")
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, dout: torch.Tensor, *,
+                                   causal: bool = True, bq: int = 128,
+                                   bk: int = 256):
+    """Plain form of :func:`flash_attention_backward`: ``(dq, dk, dv)`` by
+    autograd through :func:`flash_attention_plain` (which it runs again)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal, bq=bq, bk=bk)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True):
+    """B7b: ``(dq, dk, dv)`` of ``out = flash_attention(q, k, v)`` given
+    ``dout``, in q's dtype and layout.  ``out`` and ``lse`` are the
+    forward's (the ``_lse`` entry's).  A CUDA tensor launches the three
+    kernels of ``csrc/flash_attention.cu`` (D = rowsum(dout * out), dK /
+    dV, dQ), counted once a call in ``flash_attention_backward.launches``;
+    a CPU tensor takes :func:`flash_attention_backward_plain`."""
+    _check_backward(q, k, v, out, dout, lse)
+    if not q.is_cuda:
+        if q.is_cpu:
+            return flash_attention_backward_plain(q, k, v, dout,
+                                                  causal=causal)
+        raise unsupported("flash_attention_backward", q)
+    _launch_checks(q, k, v, "flash_attention_backward")
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    delta = torch.empty((BH, L, G), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    fn = _FLASH_BWD[q.dtype]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), BH, L, G, S, hd, int(bool(causal)),
+            hd ** -0.5, stream(q.get_device()))
+    if rc:
+        raise refused(fn, rc)
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0

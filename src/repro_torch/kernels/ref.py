@@ -90,3 +90,13 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
         logits = torch.where(mask[None, :, None, :].to(logits.device),
                              logits, -1e30)
     return torch.einsum("blgs,bsd->blgd", torch.softmax(logits, dim=-1), vf)
+
+
+def flash_attention_backward_ref(q, k, v, dout, causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention_ref` in float64 by autograd."""
+    with torch.enable_grad():
+        qf, kf, vf = (torch.as_tensor(t).detach().double().requires_grad_()
+                      for t in (q, k, v))
+        out = flash_attention_ref(qf, kf, vf, causal=causal)
+        return torch.autograd.grad(out, (qf, kf, vf),
+                                   torch.as_tensor(dout).double())

@@ -13,7 +13,10 @@ contraction", separately; the port runs that kernel
 self-attention with ``q_offset == 0``, no ``kv_len_mask``, and L == S when
 causal, which is what prefill and the no-cache stack pass.  Any other case
 on a CUDA tensor raises ``NotImplementedError``; CPU tensors take the
-reference's chunked online softmax in plain PyTorch.
+reference's chunked online softmax in plain PyTorch.  With grad enabled
+the kernel call is differentiable (``FlashAttentionFunction``: the
+forward's log-sum-exp saved, the backward the hand-written B7b); the CPU
+form is differentiated by autograd, as the reference's by JAX.
 ``decode_attention`` is a plain einsum on either device, as the reference
 leaves it to XLA.
 """

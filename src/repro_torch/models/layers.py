@@ -12,8 +12,8 @@ the declaration order; the numbers differ from JAX's, the scales do not.
 The numerics keep the reference's rounding points: normalisation and RoPE
 in float32, cast back to the input dtype; divisions by a constant divide
 by a 0-dim tensor, because PyTorch on CUDA multiplies by the reciprocal of
-a Python-float divisor.  ``cross_entropy``, ``param_specs`` and
-``abstract_params`` come with training and the dry-run.
+a Python-float divisor.  ``cross_entropy`` is the training loss;
+``param_specs`` and ``abstract_params`` come with the dry-run.
 """
 from __future__ import annotations
 
@@ -176,3 +176,21 @@ def mlp_fwd(p, x, mlp_type: str):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(linear(x, p["w_up"], p.get("b_up")), approximate="tanh")
     return linear(h, p["w_down"], p.get("b_down"))
+
+
+# ---- losses -----------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Token-mean CE with z-loss, in f32; labels < 0 are ignored (the
+    reference's ``cross_entropy``; the divisor is a 0-dim f32 tensor)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask
+    w = valid.float()
+    return (nll * w).sum() / torch.maximum(w.sum(), _const(1.0, w))

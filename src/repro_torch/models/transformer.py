@@ -10,11 +10,21 @@ weight gets the reference's scale ``1 / sqrt(n_units)``.
 Mixed precision follows the reference: the unit parameters, norm scales
 included, are cast to ``compute_dtype`` for the stack, the embedding is
 cast after the gather, ``lm_head`` is cast and ``final_norm`` is not.
-Serving changes no weight, so the cast copies are made once and kept
-(``compute_dtype`` bfloat16 over float32 parameters: 2 bytes a unit and
-head parameter beside their 4; none when the two dtypes agree).  They are
-dropped by ``init``, ``load_state_dict`` and ``.to()``; after editing a
-weight in place, call :meth:`LM.drop_cast`.
+Serving (no grad) changes no weight, so its cast copies are made once and
+kept (``compute_dtype`` bfloat16 over float32 parameters: 2 bytes a unit
+and head parameter beside their 4; none when the two dtypes agree).  They
+are dropped by ``init``, ``load_state_dict`` and ``.to()``; after editing
+a weight in place (an optimizer step), call :meth:`LM.drop_cast`.  With
+grad enabled nothing is cached: every call casts afresh, so gradients
+reach the float32 parameters.
+
+Training: :meth:`LM.loss_fn` (the reference's ``loss_fn``) runs the stack
+unit by unit, each unit under ``torch.utils.checkpoint`` when
+``cfg.remat`` (policy ``"nothing"``: only the unit's input is kept) with
+the cast of its weights inside the checkpointed function, as the
+reference's ``unit_fn``.  The embedding gather's gradient sums each
+token's rows in a fixed order (:class:`_GatherRows`), so a training step
+gives the same bits on every run.
 
 Caches mirror the reference's per-unit stacks ``{"layer{i}": {"attn":
 {"k", "v"}}}`` of shape ``(n_units, batch, max_len, n_kv_heads, hd)``; on
@@ -30,6 +40,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
@@ -40,6 +51,7 @@ from repro_torch.models.layers import (
     _flatten,
     _init_one,
     cast_floats,
+    cross_entropy,
     mlp_defs,
     mlp_fwd,
     norm_defs,
@@ -59,6 +71,45 @@ def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> ParamDefs:
 def unit_defs(cfg: ArchConfig) -> ParamDefs:
     return {f"layer{i}": _layer_defs(cfg, s)
             for i, s in enumerate(cfg.pattern_unit)}
+
+
+def model_defs(cfg: ArchConfig) -> ParamDefs:
+    """The reference's stacked declaration of every parameter."""
+    V, d = cfg.padded_vocab, cfg.d_model
+    defs: ParamDefs = {
+        "embed": ParamDef((V, d), "small_normal"),
+        "units": stack_defs(unit_defs(cfg), cfg.n_units),
+        "final_norm": norm_defs(d, cfg.use_bias),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, V), "small_normal")
+    return defs
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` whose gradient sums each row's terms in a fixed
+    order.  ``index_select``'s own backward on CUDA is an atomic
+    ``index_add_``, whose float sums differ from run to run; here the CUDA
+    gradient is ``index_put_(accumulate=True)``, PyTorch's sort-based
+    segment sum (a stable radix sort of the ids, then each id's rows added
+    in that order by one warp), and the CPU gradient ``index_add_``, which
+    adds the rows in index order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows, grad.shape[1]))
+        if grad.is_cuda:
+            out.index_put_((idx,), grad, accumulate=True)
+        else:
+            out.index_add_(0, idx, grad)
+        return out, None
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
@@ -113,13 +164,7 @@ class LM(nn.Module):
         self.cdt = getattr(torch, cfg.compute_dtype)
         self.pdt = getattr(torch, cfg.param_dtype)
         V, d = cfg.padded_vocab, cfg.d_model
-        self.defs: ParamDefs = {
-            "embed": ParamDef((V, d), "small_normal"),
-            "units": stack_defs(unit_defs(cfg), cfg.n_units),
-            "final_norm": norm_defs(d, cfg.use_bias),
-        }
-        if not cfg.tie_embeddings:
-            self.defs["lm_head"] = ParamDef((d, V), "small_normal")
+        self.defs = model_defs(cfg)
         self.embed = nn.Parameter(torch.empty((V, d), dtype=self.pdt,
                                               device=dev))
         self.layers = nn.ModuleList(
@@ -169,12 +214,19 @@ class LM(nn.Module):
         self.drop_cast()
         return super()._apply(fn, *args, **kwargs)
 
+    def _cast_head(self):
+        head = self.lm_head if self.lm_head is not None else self.embed.T
+        return head.to(self.cdt)
+
     def _compute_params(self):
-        """(per-layer params in compute dtype, lm_head in compute dtype)."""
+        """(per-layer params in compute dtype, lm_head in compute dtype):
+        cast afresh while grad is enabled, else cast once and kept."""
+        if torch.is_grad_enabled():
+            return ([cast_floats(_tree(layer), self.cdt)
+                     for layer in self.layers], self._cast_head())
         if self._cast is None:
-            head = self.lm_head if self.lm_head is not None else self.embed.T
             self._cast = ([cast_floats(_tree(layer), self.cdt)
-                           for layer in self.layers], head.to(self.cdt))
+                           for layer in self.layers], self._cast_head())
         return self._cast
 
     # ---- layers ------------------------------------------------------------
@@ -203,14 +255,39 @@ class LM(nn.Module):
             x = self._layer(p, x, positions, c, cache_index)
         return x
 
+    def _train_stack(self, x, positions):
+        """The stack with grad: each unit casts its own weights, under
+        ``checkpoint`` when ``cfg.remat``."""
+        cfg = self.cfg
+        if cfg.remat and cfg.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} (the port remats with "
+                "policy 'nothing'; ROADMAP A14b)")
+        P = len(cfg.pattern_unit)
+
+        def unit_fn(x, *unit):
+            for layer in unit:
+                x = self._layer(cast_floats(_tree(layer), self.cdt), x,
+                                positions)
+            return x
+
+        for u in range(cfg.n_units):
+            unit = tuple(self.layers[u * P:(u + 1) * P])
+            if cfg.remat:
+                x = checkpoint(unit_fn, x, *unit, use_reentrant=False)
+            else:
+                x = unit_fn(x, *unit)
+        return x
+
     # ---- public entry points -------------------------------------------------
 
     def _embed(self, tokens):
-        flat = torch.index_select(self.embed, 0, tokens.reshape(-1))
+        flat = _GatherRows.apply(self.embed, tokens.reshape(-1).long())
         return flat.reshape(*tokens.shape, -1).to(self.cdt)
 
     def _logits(self, x):
-        _, head = self._compute_params()
+        head = self._cast_head() if torch.is_grad_enabled() \
+            else self._compute_params()[1]
         x = norm_fwd(self.final_norm, x, self.cfg.norm_eps)
         logits = x @ head
         V, Vp = self.cfg.vocab, self.cfg.padded_vocab
@@ -219,6 +296,26 @@ class LM(nn.Module):
                                0.0, -1e30)
             logits = logits + bias.to(logits.dtype)
         return logits
+
+    def loss_fn(self, batch):
+        """Token-mean cross entropy (z-loss 1e-4) of ``batch["tokens"]``
+        (B, L+1): inputs ``[:, :-1]``, labels ``[:, 1:]``.  Returns
+        ``(loss, {"ce": loss})``; differentiable while grad is enabled."""
+        if batch.get("prefix_embeds") is not None:
+            raise NotImplementedError("prefix embeddings (ROADMAP A14: VLM)")
+        if self.cfg.moe is not None:
+            raise NotImplementedError("the MoE aux loss (ROADMAP A14: MoE)")
+        tokens = batch["tokens"]
+        x = self._embed(tokens[:, :-1])
+        labels = tokens[:, 1:]
+        B, L, _ = x.shape
+        positions = torch.arange(L, device=x.device).expand(B, L)
+        if torch.is_grad_enabled():
+            x = self._train_stack(x, positions)
+        else:
+            x = self._run_stack(x, positions)
+        loss = cross_entropy(self._logits(x), labels)
+        return loss, {"ce": loss}
 
     @torch.no_grad()
     def prefill(self, batch, cache=None):
