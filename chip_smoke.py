@@ -2,10 +2,11 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels CHECKOUT   # phase 7, phase 10 and
-        # phase 15's kernel part alone, on the kernels of another checkout
-        # (a parent commit unpacked with git archive), measured as below;
-        # prints no result lines
+    python3 chip_smoke.py --kernels CHECKOUT   # phase 7, phase 10,
+        # phase 15's kernel part and B7b's time at the training shape
+        # (beside SDPA's backward) alone, on the kernels of another
+        # checkout (a parent commit unpacked with git archive), measured as
+        # below; prints no result lines
     python3 chip_smoke.py --steps CHECKOUT     # host and device ms per
         # steady step of every MD cell of phase 16, in its pipeline mode
         # and the other, through another checkout's default path (a
@@ -27,7 +28,8 @@ Phases, each asserting (any failure exits non-zero with no result line):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
-   sm_90a, printing the ptxas register / shared-memory lines;
+   sm_90a, printing the ptxas register / shared-memory / spill lines
+   and any warning (a wgmma serialization among them);
 3. kernels: ``halo_pack.pack`` and ``halo_pack.unpack_add`` against their
    plain PyTorch forms at the exact shapes of the grappa-45k main path
    (f32 payload, int32 index exchange, f32 force return; unpack_add with
@@ -203,7 +205,9 @@ Phases, each asserting (any failure exits non-zero with no result line):
     scale), ``DeviceLost`` without a spare; ``memory_reserved`` after (d)
     and (g); (h) ``trace=True`` bitwise with replayed step graphs, its
     ``obs/*`` counters equal to a host recount of the ledger.
-19. training: (a) B7b (``flash_attention_backward``) against its plain
+19. training: (a) ``cuobjdump -sass`` of B7b: HGMMA in every bf16 dK / dV
+    and dQ kernel at every head_dim, no atomic instruction in any
+    backward kernel; B7b (``flash_attention_backward``) against its plain
     form (autograd through ``flash_attention_plain``) and the float64
     oracle at the training shape (BH = 4 x 8, L = S = 1024, G = 2, hd =
     128) in bf16 and f32, non-causal, ragged L = S = 1000, hd 64 and hd
@@ -229,6 +233,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1823,25 +1828,36 @@ def flash_work(BH, L, S, G, hd, causal, elem):
 
 
 def flash_sass_counts(lib_path) -> dict:
-    """HGMMA / HMMA instructions in each bf16 flash kernel of the built
-    library (``cuobjdump -sass``), keyed by head_dim."""
+    """Tensor-core (HGMMA / HMMA) and atomic (ATOM* / RED*) instructions in
+    each flash kernel of the built library (``cuobjdump -sass``), keyed by
+    (kernel, head_dim): ``flash_kernel_bf16`` / ``_f32`` (B7),
+    ``flash_bwd_{prep,dkdv,dq}_bf16`` and ``flash_bwd_{delta,dkdv,dq}_f32``
+    (B7b)."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     proc = subprocess.run([str(tool), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300)
     check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
-    counts, fn = {}, None
+    counts, key = {}, None
+    ops = ("HGMMA", "HMMA", "atomic")
+    atomics = {"ATOM", "ATOMS", "ATOMG", "RED", "REDG"}
+    mnemonic = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
     for line in proc.stdout.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
-            fn = None
-            if "flash_kernel_bf16" in name:   # ..._bf16ILi<hd>EE...
-                fn = int(name.split("flash_kernel_bf16ILi")[1].split("E")[0])
-                counts[fn] = {"HGMMA": 0, "HMMA": 0}
-        elif fn is not None:
-            for op in counts[fn]:
-                if f" {op}." in line:
-                    counts[fn][op] += 1
+            key = None
+            for kern in ("flash_kernel_bf16", "flash_kernel_f32",
+                         "flash_bwd_prep_bf16", "flash_bwd_dkdv_bf16",
+                         "flash_bwd_dq_bf16", "flash_bwd_delta_f32",
+                         "flash_bwd_dkdv_f32", "flash_bwd_dq_f32"):
+                if f"{kern}ILi" in name:   # ..._bf16ILi<hd>EE...
+                    key = (kern, int(name.split(f"{kern}ILi")[1]
+                                     .split("E")[0]))
+                    counts[key] = dict.fromkeys(ops, 0)
+        elif key is not None and (m := mnemonic.search(line)):
+            op = "atomic" if m.group(1) in atomics else m.group(1)
+            if op in ops:
+                counts[key][op] += 1
     return counts
 
 
@@ -1860,7 +1876,9 @@ def flash_phase(lib_path):
                                                      flash_attention_plain,
                                                      kernel_tiling)
 
-    sass = flash_sass_counts(lib_path)
+    sass = {hd: {op: c[op] for op in ("HGMMA", "HMMA")} for (kern, hd), c
+            in flash_sass_counts(lib_path).items()
+            if kern == "flash_kernel_bf16"}
     print(f"flash_attention SASS (cuobjdump -sass): tensor-core "
           f"instructions per bf16 kernel, by head_dim: {sass}")
     check(sorted(sass) == sorted(HEAD_DIMS) and
@@ -3353,18 +3371,91 @@ def flash_bwd_work(BH, L, S, G, hd, causal, elem):
     return nbytes, 10 * BH * G * hd * pairs
 
 
-def b7b_phase():
-    """B7b against its plain form (autograd through flash_attention_plain)
-    and the float64 oracle, at the training shape (BH = 4 x 8, L = S =
-    1024, G = 2, hd = 128) in bf16 and f32, non-causal, ragged L = S =
-    1000, hd 64 and hd 16 (L != S): errors as a share of the oracle's
-    max |grad| per output; two launches bitwise equal; the _lse entry's
-    out bitwise equal to the serving entry's; the training shape in bf16
-    timed beside the plain form, SDPA's backward and the bound."""
+def sdpa_backward(q, k, v, dout, causal):
+    """SDPA's backward (the yardstick) on B7b's inputs in SDPA's layout,
+    kv heads repeated G times, its forward outside the timing: (ms a call
+    over 50 calls, its dq in B7b's layout)."""
+    import torch
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k[:, None].expand(BH, G, S, hd).contiguous().requires_grad_()
+    vt = v[:, None].expand(BH, G, S, hd).contiguous().requires_grad_()
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal)
+    dt_ = dout.transpose(1, 2).contiguous()
+    ldq = torch.autograd.grad(lib, (qt,), dt_, retain_graph=True)[0]
+    ms = cuda_ms(lambda: torch.autograd.grad(lib, (qt, kt, vt), dt_,
+                                             retain_graph=True),
+                 n=50, warmup=5)
+    return ms, ldq.transpose(1, 2)
+
+
+def b7b_speed(label):
+    """B7b and SDPA's backward at the training shape in bf16 (BH 32, L = S =
+    1024, G 2, hd 128, causal), CUDA events over 50 calls each: with
+    ``--kernels CHECKOUT`` the other checkout's B7b, for a same-call
+    comparison with this one's (phase 19)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    BH, L, S, G, hd = 32, 1024, 1024, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                     .to(torch.bfloat16)
+                     for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd),
+                                   (BH, L, G, hd)))
+    o, lse = fa._forward(q, k, v, True, with_lse=True)
+    t_k = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, o, dout, lse, causal=True), n=50, warmup=5)
+    t_l, _ = sdpa_backward(q, k, v, dout, True)
+    nbytes, ops = flash_bwd_work(BH, L, S, G, hd, True, 2)
+    bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+    print(f"B7b ({label}) at the training shape, bf16: {t_k:.6f} ms a "
+          f"launch ({bound / t_k:.4f} of the {bound:.6f} ms bound), SDPA's "
+          f"backward {t_l:.6f} ms")
+    return t_k, t_l
+
+
+def b7b_sass(lib_path):
+    """``cuobjdump -sass`` of B7b: HGMMA in every bf16 dK / dV and dQ
+    kernel at every head_dim, no atomic instruction in any backward
+    kernel (either dtype)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    sass = {key: c for key, c in flash_sass_counts(lib_path).items()
+            if key[0].startswith("flash_bwd")}
+    kerns = ("flash_bwd_prep_bf16", "flash_bwd_dkdv_bf16",
+             "flash_bwd_dq_bf16", "flash_bwd_delta_f32", "flash_bwd_dkdv_f32",
+             "flash_bwd_dq_f32")
+    print("B7b SASS (cuobjdump -sass): HGMMA / atomic instructions per "
+          "kernel, by head_dim: " + "; ".join(
+              f"{kern} " + ", ".join(
+                  f"{hd}: {sass[kern, hd]['HGMMA']} / "
+                  f"{sass[kern, hd]['atomic']}"
+                  for hd in HEAD_DIMS if (kern, hd) in sass)
+              for kern in kerns))
+    check(sorted(sass) == sorted((k, hd) for k in kerns for hd in HEAD_DIMS),
+          f"B7b SASS: kernels {sorted(sass)}")
+    check(all(sass[kern, hd]["HGMMA"] > 0 for hd in HEAD_DIMS
+              for kern in ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")),
+          "a bf16 B7b product kernel holds no HGMMA")
+    check(all(c["atomic"] == 0 for c in sass.values()),
+          "a B7b kernel holds an atomic instruction")
+
+
+def b7b_phase(lib_path):
+    """B7b's SASS (``b7b_sass``); B7b against its plain form (autograd
+    through flash_attention_plain) and the float64 oracle, at the training
+    shape (BH = 4 x 8, L = S = 1024, G = 2, hd = 128) in bf16 and f32,
+    non-causal, ragged L = S = 1000, hd 64 and hd 16 (L != S): errors as a
+    share of the oracle's max |grad| per output; two launches bitwise
+    equal; the _lse entry's out bitwise equal to the serving entry's; the
+    training shape in bf16 timed beside the plain form, SDPA's backward and
+    the bound."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    b7b_sass(lib_path)
     cases = [("train", 32, 1024, 1024, 2, 128, True),
              ("full", 32, 1024, 1024, 2, 128, False),
              ("ragged", 32, 1000, 1000, 2, 128, True),
@@ -3426,26 +3517,22 @@ def b7b_phase():
                                          q.element_size())
             bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
             t_k = cuda_ms(lambda: fa.flash_attention_backward(
-                q, k, v, o, dout, lse, causal=causal), n=10, warmup=2)
+                q, k, v, o, dout, lse, causal=causal), n=50, warmup=5)
             t_p = cuda_ms(lambda: fa.flash_attention_backward_plain(
                 q, k, v, dout, causal=causal), n=3, warmup=1)
-            # yardstick: SDPA's backward on the same values in its layout
-            # (kv heads repeated G times), the forward outside the timing
-            qt = q.transpose(1, 2).contiguous().requires_grad_()
-            kt = k[:, None].expand(BH, G, S, hd).contiguous() \
-                .requires_grad_()
-            vt = v[:, None].expand(BH, G, S, hd).contiguous() \
-                .requires_grad_()
-            lib = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal)
-            dt_ = dout.transpose(1, 2).contiguous()
-            ldq = torch.autograd.grad(lib, (qt,), dt_, retain_graph=True)[0]
-            lerr = float((ldq.transpose(1, 2).double() -
-                          want[0].double()).abs().max())
+            t_l, ldq = sdpa_backward(q, k, v, dout, causal)
+            lerr = float((ldq.double() - want[0].double()).abs().max())
             check(lerr <= 2 * BWD_TOL[name] * float(oracle[0].abs().max()),
                   f"SDPA backward yardstick: {lerr} from the plain form")
-            t_l = cuda_ms(lambda: torch.autograd.grad(
-                lib, (qt, kt, vt), dt_, retain_graph=True), n=10, warmup=2)
+            prof = _profile(lambda: fa.flash_attention_backward(
+                q, k, v, o, dout, lse, causal=causal), 20)
+            split = "not measured (no CUDA events)" if prof is None else \
+                ", ".join(f"{m.group(0)} {t:.2f}"
+                          for name, (t, _) in sorted(prof[4].items())
+                          if (m := re.search(r"flash_bwd_\w+<\d+>", name))
+                          ) + " device us a launch"
+            print(f"  train bf16: B7b's kernels (torch.profiler, 20 "
+                  f"launches): {split}")
             print(f"  train bf16: B7b {t_k:.6f} ms ({t_k * 1e3:.1f} device "
                   f"us a launch), plain backward {t_p:.6f} ms, SDPA "
                   f"backward {t_l:.6f} ms, bound {bound:.6f} ms "
@@ -3455,7 +3542,7 @@ def b7b_phase():
             out = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                    "bound_ms": bound, "bytes": nbytes, "ops": ops,
                    "peak": BF16_FLOPS}
-            del qt, kt, vt, lib, ldq, oracle, want
+            del ldq, oracle, want
     out["max_abs_err"] = abs_err
     print(f"B7b max err against the plain form, of max |grad|: bf16 "
           f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}; max abs "
@@ -3731,9 +3818,10 @@ def main():
         return
     if args == ["--train"]:
         from repro_torch.kernels import _build
-        _build.build(["halo_pack", "halo_signal", "nonbonded",
-                      "flash_attention"])
-        train_phase(b7b_phase()["flash_attention_backward"])
+        built = _build.build(["halo_pack", "halo_signal", "nonbonded",
+                              "flash_attention"])
+        train_phase(b7b_phase(built["flash_attention"].path)
+                    ["flash_attention_backward"])
         print(card)
         return
     if args and args[0] == "--steps":
@@ -3749,12 +3837,14 @@ def main():
         import numpy as np
         from repro_torch import make_grappa_like
         from repro_torch.kernels import _build
-        _build.build(["halo_pack", "halo_signal", "nonbonded"])
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
         system = make_grappa_like(45_000, seed=0)
         nb_kernel_phase(system)
         signal_kernel_phase(system)
         wire_kernel_phase(make_grappa_like(45_000, seed=0,
                                            dtype=np.float64))
+        b7b_speed(str(src.parent))
         print(card)
         return
 
@@ -3767,7 +3857,7 @@ def main():
     for res in built.values():
         for line in res.log.splitlines():
             if any(w in line for w in ("registers", "Compiling entry",
-                                       "smem", "spill")):
+                                       "smem", "spill", "arning")):
                 print(f"  ptxas {res.name}: {line.strip()}")
 
     # 3. kernels at the main path's shapes, on the main path's state
@@ -3841,7 +3931,7 @@ def main():
     # 19. training: B7b at the training shapes, then qwen3-1.7b trained at
     # full width (determinism, kill / resume), a 2-layer f32 card-vs-CPU
     # gradient check
-    b7b_kernel = b7b_phase()
+    b7b_kernel = b7b_phase(built["flash_attention"].path)
     train_launches = train_phase(b7b_kernel["flash_attention_backward"])
 
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
@@ -3898,9 +3988,11 @@ def main():
                             "16-byte wire word",
                "flash_attention_backward":
                    "B7b, no TPU kernel: the reference trains through "
-                   "autodiff of blocked_attention; D = rowsum(dO * O), a "
-                   "dK / dV block per (bh, 32 keys), a dQ block per (bh, 32 "
-                   "rows), f32 FMAs on the CUDA cores, no atomics"}
+                   "autodiff of blocked_attention; bf16 on the tensor "
+                   "cores: D and q * scale a 16-byte word a thread, a dK / "
+                   "dV block per (bh, 128 keys) and a dQ block per (bh, 128 "
+                   "rows), TMA-fed 64-row tiles, wgmma SS for S and dP, RS "
+                   "for dV, dK and dQ, no atomics"}
     kernels = []
     for name, acc in {**per_kernel, **nb_kernel, **sig_kernel,
                       **flash_kernel, **b7b_kernel,

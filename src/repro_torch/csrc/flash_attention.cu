@@ -459,6 +459,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
 }
 #undef FA_SS128
 
+#define FA_SS64                                                   \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                   \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14," \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27," \
+  "%28, %29, %30, %31}, " \
+  "%32, %33, p, 1, 1, 0, 0;\n}\n"
+
+template <bool kAcc>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(FA_SS64
+        : D8("+f", 0), D8("+f", 8), D8("+f", 16), D8("+f", 24)
+        : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile(FA_SS64
+        : D8("=f", 0), D8("=f", 8), D8("=f", 16), D8("=f", 24)
+        : "l"(da), "l"(db), "r"(0));
+}
+#undef FA_SS64
+
 #define FA_RS16                                                   \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                   \
   "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "          \
@@ -850,56 +872,87 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
   }
 }
 
-// ---- backward (B7b): CUDA cores, float32 sums --------------------------------
+// ---- backward (B7b) ---------------------------------------------------------
 //
-// Three kernels on the forward's layout, launched in order by one entry
-// point: flash_bwd_delta (D = rowsum(dO * O), a warp a row), flash_bwd_dkdv
-// (a block per (bh, tile of kBKb keys): walks every query row that can see
-// the tile, dV += P^T dO and dK += dS^T qs) and flash_bwd_dq (a block per
-// (bh, tile of kBR query rows): walks the kv tiles the rows can see,
-// dQ += dS k, times the scale at the end).  Each recomputes the logits
-// s = qs . k from qs = q * scale rounded to the input type (the forward's
-// rounding point), P = exp(s - lse) with the forward's float32 log-sum-exp,
-// dP = dO . v^T and dS = P * (dP - D); masked keys (causal, past S) have
-// P = 0.  Every dot is one float32 FMA chain in a fixed order, every dK /
-// dV / dQ element has one writer and sums its terms in row (key) order: no
-// atomics, so two launches give the same bits.  Tiles are staged in shared
-// memory as float32 (rows padded by 4 floats: the 16-byte reads of eight
-// neighbouring rows fall on distinct banks).
+// dq, dk, dv of out = attention(q, k, v) given dout, the forward's out and
+// its float32 log-sum-exp.  Both dtypes compute the same function at the
+// forward's rounding points: qs = q * scale rounded to the input type;
+// s = qs . k^T with float32 sums; P = exp(s - lse); dP = dO . v^T;
+// dS = P * (dP - D) with D = rowsum(dO * O); dV = P^T dO, dK = dS^T qs,
+// dQ = scale * (dS k).  Masked keys (causal: key > row / G; past S) have
+// P = 0 exactly.  Every dK / dV / dQ element has one writer that sums its
+// terms in row (key) order: no atomics, so two launches give the same bits
+// (the reference's bit-exact resume, runtime/train_loop.py).
 //
 // What bounds it.  At the training shape of qwen3-1.7b (BH 32, L = S =
-// 1024, G = 2, hd = 128, bf16, causal) the backward's five products (q.k,
-// dO.v, P^T dO, dS^T q, dS k) are 4.30e10 operations and its tensors
-// 100.9 MB: 43.5 us at the tensor cores' 989 TFLOP/s against 30.1 us at
-// 3.35 TB/s, so bound by operations.  This first form runs them as
-// float32 FMAs on the CUDA cores (and the two kernels each recompute q.k
-// and dO.v: seven products), a right and deterministic form before a fast
-// one: measured by chip_smoke.py phase 19 on an NVIDIA H100 80GB HBM3 at a
-// 700.00 W power limit, 4.82 ms a launch (0.9 % of the bound), 8.9
-// TFLOP/s, against SDPA's backward at 0.20-0.36 ms in the same runs.
-// Its tensor-core form (wgmma, as the forward) is ROADMAP queue D.
+// 1024, G = 2, hd = 128, bf16, causal) the five products (q.k, dO.v,
+// P^T dO, dS^T q, dS k) are 4.30e10 operations and the tensors 100.9 MB:
+// 43.5 us at the tensor cores' 989 TFLOP/s against 30.1 us at 3.35 TB/s
+// (NVIDIA H100 SXM, 700 W), so bound by operations.
+//
+// bfloat16: three kernels on the tensor cores' layout of the forward.
+//   * flash_bwd_prep_bf16: D and qs, a 16-byte word (8 values) a thread,
+//     HD / 8 threads a row; D sums each word's fmaf chain, then the row's
+//     words by a butterfly (a fixed order).  qs goes into dq's buffer,
+//     which both product kernels read by TMA and the dQ kernel overwrites,
+//     each block only the rows it has read.  (The two consumers of the
+//     dK / dV kernel share every streamed q tile, so scaling it in shared
+//     memory as the forward does would need a barrier between them per
+//     tile; this pass also reads dO and O for D anyway.)
+//   * flash_bwd_dkdv_bf16: a block per (bh, tile of 128 keys), key tile 0
+//     (the most rows under the causal mask) first.  A producer warpgroup
+//     loads k and v once by TMA and streams the (qs, dO) tiles of 64 rows
+//     that can see the keys through a ring of kBwdStages stages; its warp 1
+//     stages their lse and D.  Two consumer warpgroups own 64 keys each
+//     and, per row tile: S^T = k . qs^T and dP^T = v . dO^T (wgmma SS,
+//     m64n64k16, K-major); P^T and dS^T on the accumulator fragments, each
+//     rounded to bf16 pairs that map one to one onto the A fragments of a
+//     k16 step (as the forward's p); dV += P^T dO and dK += dS^T qs (wgmma
+//     RS, m64n{hd}k16, qs and dO MN-major, as the forward's v).  dK and dV
+//     stay in f32 registers across the row tiles: 2 x hd / 2 a thread.
+//   * flash_bwd_dq_bf16: a block per (bh, tile of 128 rows), the last row
+//     tile first.  The producer loads qs and dO once and streams k / v
+//     tiles of 64 keys through the ring; each consumer owns 64 rows: S =
+//     qs . k^T and dP = dO . v^T (SS), dS on the fragments, dQ += dS k
+//     (RS, k MN-major), times the scale (__fmul_rn) at the end.
+//   Seven products for the necessary five: the dQ kernel recomputes S and
+//   dP rather than adding into a global dQ from the dK / dV kernel, which
+//   would need atomics (or an ordering semaphore per tile).  Every tile is
+//   64 rows: m64 is wgmma's one height, and at hd 128 a dK / dV consumer
+//   holds 128 + 64 f32 accumulators a thread of its 240 registers; 64-key
+//   dQ tiles keep its S and dP at 32 registers each.  Tiles wholly above
+//   the diagonal are not loaded; the element mask runs only on tiles that
+//   cross the diagonal or run past L*G or S.  A consumer runs every tile
+//   of its block (a tile it cannot see gives P = 0) and never branches
+//   around a product (ptxas serializes wgmmas split by a branch).
+//   Measured by chip_smoke.py (phase 19, --kernels) on an NVIDIA H100
+//   80GB HBM3 at a 700.00 W power limit: 0.220-0.228 ms a launch at the
+//   training shape (19-20 % of the bound, 188-195 TFLOP/s over the five
+//   products), where the CUDA-core kernels it replaces took 4.838-4.861
+//   ms; SDPA's backward read 0.18-0.52 ms in the same calls.  Device time
+//   (torch.profiler): 219 us a launch inside a training step; 165 us over
+//   20 back-to-back launches (prep 16, dK / dV 78, dQ 71), the dK / dV
+//   and dQ kernels running 38.6 and 27.4 GFLOP (diagonal tiles whole).
+//   What bounds them is each consumer's chain per tile (products, wait,
+//   exp and mask, products, wait), which the other consumer's products
+//   overlap only in part: at hd 128 the 192 f32 accumulators a thread
+//   leave no registers to issue the next tile's products before this
+//   tile's dV / dK.  A third ring stage was tried and gained nothing.
+//
+// float32: flash_bwd_delta_f32 (a warp a row), flash_bwd_dkdv_f32 (a block
+// per (bh, tile of kBKb keys)) and flash_bwd_dq_f32 (a block per (bh, tile
+// of kBR rows)) on the CUDA cores, every dot one float32 FMA chain in a
+// fixed order, tiles staged in shared memory (rows padded by 4 floats: the
+// 16-byte reads of eight neighbouring rows fall on distinct banks).  TF32
+// would break the 2e-5 float32 bar (see the forward's note); the dtype
+// picks the entry, a dispatch and not a fallback.
+
+// ---- float32: CUDA cores
+
 constexpr int kBR = 32;                  // query rows per tile
 constexpr int kBKb = 32;                 // keys per tile
 constexpr int kBwdThreads = 256;         // thread t: row / key t / 8
 constexpr int kPS = kBKb + 8;            // padded row of the P and dS tiles
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // VW consecutive floats of shared memory (16- or 8-byte aligned)
 template <int VW>
@@ -925,18 +978,18 @@ struct BwdPlan {
                        2 * kBR * kPS + 2 * kBR);
 };
 
-// `n` rows of HD values from src[first..] into dst (stride KS) as float32,
-// zeros past `limit`; `scale` > 0 scales and rounds to T (the forward's qs).
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// `n` rows of HD values from src[first..] into dst (stride KS), zeros past
+// `limit`; `scale` > 0 scales them (the forward's qs).
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int64_t first, int64_t limit, int n,
                                       float scale) {
   for (int e = threadIdx.x; e < n * HD; e += kBwdThreads) {
     const int r = e / HD, c = e % HD;
     float x = 0.f;
     if (first + r < limit) {
-      x = to_f(src[(first + r) * HD + c]);
-      if (scale > 0.f) x = to_f(from_f<T>(__fmul_rn(x, scale)));
+      x = src[(first + r) * HD + c];
+      if (scale > 0.f) x = __fmul_rn(x, scale);
     }
     dst[r * BwdPlan<HD>::KS + c] = x;
   }
@@ -985,29 +1038,31 @@ __device__ __forceinline__ void tile_scores(
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ delta, int64_t rows) {
+    flash_bwd_delta_f32(const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        float* __restrict__ delta, int64_t rows) {
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * (kBwdThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;   // whole warps
   float acc = 0.f;
   for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f(o[row * HD + d]), to_f(dout[row * HD + d]), acc);
+    acc = fmaf(o[row * HD + d], dout[row * HD + d], acc);
   acc = warp_sum(acc);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int64_t L, int64_t G, int64_t S,
-                   int causal, float scale) {
+    flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dk,
+                       float* __restrict__ dv, int64_t L, int64_t G, int64_t S,
+                       int causal, float scale) {
   using B = BwdPlan<HD>;
   constexpr int KS = B::KS, VW = B::VW, NG = B::NG;
   extern __shared__ float4 smem_b4[];
@@ -1032,8 +1087,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   lse += bh * LG;
   delta += bh * LG;
 
-  stage<T, HD>(ks, k, j0, S, kBKb, 0.f);
-  stage<T, HD>(vs, v, j0, S, kBKb, 0.f);
+  stage<HD>(ks, k, j0, S, kBKb, 0.f);
+  stage<HD>(vs, v, j0, S, kBKb, 0.f);
 
   // accumulators: key j = t / 8, columns (t % 8) * VW + 8 * VW * g + x
   const int j = threadIdx.x >> 3, cl = (threadIdx.x & 7) * VW;
@@ -1047,8 +1102,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int64_t first = causal ? j0 * G : 0;
   for (int64_t r0 = first; r0 < LG; r0 += kBR) {
     __syncthreads();   // the previous row tile is done with
-    stage<T, HD>(qs, q, r0, LG, kBR, scale);
-    stage<T, HD>(dos, dout, r0, LG, kBR, 0.f);
+    stage<HD>(qs, q, r0, LG, kBR, scale);
+    stage<HD>(dos, dout, r0, LG, kBR, 0.f);
     if (threadIdx.x < kBR) {
       const bool in = r0 + threadIdx.x < LG;
       lse_s[threadIdx.x] = in ? lse[r0 + threadIdx.x] : 0.f;
@@ -1080,18 +1135,20 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
     for (int x = 0; x < VW; ++x) {
       const int64_t e = (j0 + j) * HD + cl + 8 * VW * g + x;
-      dk[e] = from_f<T>(akk[g][x]);
-      dv[e] = from_f<T>(avv[g][x]);
+      dk[e] = akk[g][x];
+      dv[e] = avv[g][x];
     }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq,
-                 int64_t L, int64_t G, int64_t S, int causal, float scale) {
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int64_t L, int64_t G, int64_t S, int causal,
+                     float scale) {
   using B = BwdPlan<HD>;
   constexpr int KS = B::KS, VW = B::VW, NG = B::NG;
   extern __shared__ float4 smem_b4[];
@@ -1116,8 +1173,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   lse += bh * LG;
   delta += bh * LG;
 
-  stage<T, HD>(qs, q, r0, LG, kBR, scale);
-  stage<T, HD>(dos, dout, r0, LG, kBR, 0.f);
+  stage<HD>(qs, q, r0, LG, kBR, scale);
+  stage<HD>(dos, dout, r0, LG, kBR, 0.f);
   if (threadIdx.x < kBR) {
     const bool in = r0 + threadIdx.x < LG;
     lse_s[threadIdx.x] = in ? lse[r0 + threadIdx.x] : 0.f;
@@ -1137,8 +1194,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 
   for (int64_t j0 = 0; j0 < n_keys; j0 += kBKb) {
     __syncthreads();   // the previous kv tile is done with
-    stage<T, HD>(ks, k, j0, S, kBKb, 0.f);
-    stage<T, HD>(vs, v, j0, S, kBKb, 0.f);
+    stage<HD>(ks, k, j0, S, kBKb, 0.f);
+    stage<HD>(vs, v, j0, S, kBKb, 0.f);
     __syncthreads();
     tile_scores<HD>(qs, dos, ks, vs, lse_s, del_s, ps, dss, r0, j0, LG, G, S,
                     causal);
@@ -1160,10 +1217,486 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int g = 0; g < NG; ++g)
 #pragma unroll
     for (int x = 0; x < VW; ++x)
-      dq[(r0 + i) * HD + cl + 8 * VW * g + x] =
-          from_f<T>(__fmul_rn(acc[g][x], scale));
+      dq[(r0 + i) * HD + cl + 8 * VW * g + x] = __fmul_rn(acc[g][x], scale);
 }
 
+// ---- bfloat16: tensor cores
+
+constexpr int kBT = 64;          // rows of every bf16 backward tile: a
+                                 // consumer's keys, a row tile, a key tile
+constexpr int kBwdStages = 2;    // depth of the streamed rings
+
+// Shared memory of the bf16 backward kernels at head dim HD (Plan<HD>'s
+// panels and swizzle; every tile is kBT rows, T bytes, 1024-aligned).
+template <int HD>
+struct BwdTC {
+  static constexpr uint32_t T = kBT * HD * 2;
+  // dK / dV: k and v of both consumers, the ring of (qs, dO) stages, each
+  // stage's lse and D (kBT floats each), then the mbarriers (k / v full,
+  // per stage full, per stage empty)
+  static constexpr uint32_t KV_K = 0;
+  static constexpr uint32_t KV_V = 2 * T;
+  static constexpr uint32_t KV_RING = 4 * T;
+  static constexpr uint32_t KV_LD = KV_RING + kBwdStages * 2 * T;
+  static constexpr uint32_t KV_BAR = KV_LD + kBwdStages * 2 * kBT * 4;
+  static constexpr size_t KV_SMEM = KV_BAR + 8 * (1 + 2 * kBwdStages) + 1024;
+  // dQ: qs and dO of both consumers, the ring of (k, v) stages, then the
+  // mbarriers (qs / dO full, per stage full, per stage empty)
+  static constexpr uint32_t Q_Q = 0;
+  static constexpr uint32_t Q_DO = 2 * T;
+  static constexpr uint32_t Q_RING = 4 * T;
+  static constexpr uint32_t Q_BAR = Q_RING + kBwdStages * 2 * T;
+  static constexpr size_t Q_SMEM = Q_BAR + 8 * (1 + 2 * kBwdStages) + 1024;
+};
+
+// Descriptor of the k16 step kk of a kBT-row tile at `tile` read K-major
+// (contracting over its HD columns) ...
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using P = Plan<HD>;
+  return smem_desc(tile + (kk * 16 / P::PW) * kBT * P::ROWB +
+                       (kk * 16 % P::PW) * 2,
+                   16, 8 * P::ROWB, P::MODE);
+}
+
+// ... and read MN-major as B (contracting over its rows 16kk..16kk+15).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  using P = Plan<HD>;
+  return smem_desc(tile + kk * 16 * P::ROWB, kBT * P::ROWB, 8 * P::ROWB,
+                   P::MODE);
+}
+
+// d (64 x 64, f32) = a . b^T over HD, a and b kBT-row tiles (SS).
+template <int HD>
+__device__ __forceinline__ void mma_tiles(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if (kk == 0)
+      wgmma_ss<false>(d, desc_kmajor<HD>(a, kk), desc_kmajor<HD>(b, kk));
+    else
+      wgmma_ss<true>(d, desc_kmajor<HD>(a, kk), desc_kmajor<HD>(b, kk));
+  }
+}
+
+// d (64 x HD, f32) += a . b, a the bf16 A fragments of a 64 x 64 operand
+// (four k16 steps), b a kBT-row tile (RS, b MN-major).
+template <int HD>
+__device__ __forceinline__ void mma_frags(float (&d)[HD / 2],
+                                          const uint32_t (&a)[4][4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<true>(d, a[kk], desc_mnmajor<HD>(b, kk));
+}
+
+// Fragment i of a 64 x 64 accumulator lies at row 16w + g + 8 * (i >> 1 & 1)
+// and column 8 * (i / 4) + 2 * qd + (i & 1) of the warpgroup's tile; the
+// pair (8kk + 2r, 8kk + 2r + 1) is the A fragment r of k16 step kk.
+__device__ __forceinline__ void pack_frags(const float (&x)[32], int kk,
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// dK / dV consumer: P^T and dS^T of a (64 keys x 64 rows) tile in place of
+// the S^T and dP^T fragments, rounded into the A fragments of dV += P^T dO
+// (pa) and dK += dS^T qs (dsa).  lse_s and d_s hold the tile's rows; the
+// thread's keys are key0 and key0 + 8; r is the tile's first row.
+__device__ __forceinline__ void scores_t(float (&st)[32], float (&dpt)[32],
+                                         uint32_t (&pa)[4][4],
+                                         uint32_t (&dsa)[4][4],
+                                         const float* lse_s, const float* d_s,
+                                         bool mask, int key0, int r, int LG,
+                                         int G, int S, int causal, int qd) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * kk + h;
+      const int col = 8 * j + 2 * qd;
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 dd = *reinterpret_cast<const float2*>(d_s + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        float p = expf(st[i] - ((e & 1) ? l.y : l.x));
+        float ds = p * (dpt[i] - ((e & 1) ? dd.y : dd.x));
+        if (mask) {
+          const int row = r + col + (e & 1);
+          const int key = key0 + ((e & 2) ? 8 : 0);
+          if (!(row < LG && key < S &&
+                (!causal || row >= static_cast<int64_t>(key) * G)))
+            p = ds = 0.f;
+        }
+        st[i] = p;
+        dpt[i] = ds;
+      }
+    }
+    pack_frags(st, kk, pa);
+    pack_frags(dpt, kk, dsa);
+  }
+}
+
+// dQ consumer: dS of a (64 rows x 64 keys from j0) tile in place of the dP
+// fragments, rounded into the A fragments of dQ += dS k (dsa).  The
+// thread's rows have lse l0 / l1 and D d0 / d1.
+__device__ __forceinline__ void scores(const float (&s)[32], float (&dp)[32],
+                                       uint32_t (&dsa)[4][4], float l0,
+                                       float l1, float d0, float d1,
+                                       bool mask, int j0, int row0, int G,
+                                       int S, int causal, int qd) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e8 = 0; e8 < 8; ++e8) {
+      const int i = 8 * kk + e8;
+      const bool hi = i & 2;
+      const float p = expf(s[i] - (hi ? l1 : l0));
+      float ds = p * (dp[i] - (hi ? d1 : d0));
+      if (mask) {
+        const int key = j0 + 8 * (i / 4) + 2 * qd + (i & 1);
+        const int row = row0 + (hi ? 8 : 0);
+        if (!(key < S && (!causal || row >= static_cast<int64_t>(key) * G)))
+          ds = 0.f;
+      }
+      dp[i] = ds;
+    }
+    pack_frags(dp, kk, dsa);
+  }
+}
+
+// D = rowsum(dO * O) and qs = q * scale rounded to bf16 (into dq's buffer):
+// thread t takes the 16-byte word t, HD / 8 threads a row.
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_prep_bf16(const uint4* __restrict__ q,
+                        const uint4* __restrict__ o,
+                        const uint4* __restrict__ dout,
+                        uint4* __restrict__ qs, float* __restrict__ delta,
+                        int64_t rows, float scale) {
+  constexpr int kWords = HD / 8;   // words a row: 2..16, within a warp
+  const int64_t wd = static_cast<int64_t>(blockIdx.x) * kBwdThreads +
+                     threadIdx.x;
+  const int64_t row = wd / kWords;
+  const bool in = row < rows;      // a row's words are all in or all out
+  float acc = 0.f;
+  if (in) {
+    const uint4 a = o[wd], b = dout[wd];
+    uint4 x = q[wd];
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+    __nv_bfloat162* hx = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 fa = __bfloat1622float2(ha[j]);
+      const float2 fb = __bfloat1622float2(hb[j]);
+      acc = fmaf(fa.x, fb.x, acc);
+      acc = fmaf(fa.y, fb.y, acc);
+      const float2 fx = __bfloat1622float2(hx[j]);
+      hx[j] = __floats2bfloat162_rn(__fmul_rn(fx.x, scale),
+                                    __fmul_rn(fx.y, scale));
+    }
+    qs[wd] = x;
+  }
+#pragma unroll
+  for (int m = kWords / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (in && wd % kWords == 0) delta[row] = acc;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int LG, int G, int S,
+                        int causal) {
+  using B = BwdTC<HD>;
+  using P = Plan<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + B::KV_BAR;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + kBwdStages + s); };
+
+  // key tile 0 (the most rows under the causal mask) first; the rows that
+  // can see a key of the tile start at position j0
+  const int bh = blockIdx.x;
+  const int j0 = blockIdx.y * kConsumers * kBT;
+  const int64_t first64 = causal ? static_cast<int64_t>(j0) * G : 0;
+  const int first = first64 < LG ? static_cast<int>(first64) : LG;
+  const int n_tiles = (LG - first + kBT - 1) / kBT;
+  const int wg = threadIdx.x / kWG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1 + 32);   // the copies' thread, warp 1's lanes
+      mbar_init(empty(s), kConsumers * 4);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: k and v once, then the (qs, dO) ring; warp 1 stages
+    // each row tile's lse and D (zeros past L*G)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 4 * B::T);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int p = 0; p < P::NP; ++p) {
+          tma_load(base + B::KV_K + c * B::T + p * kBT * P::ROWB, &tk,
+                   kv_full, p * P::PW, j0 + c * kBT, bh);
+          tma_load(base + B::KV_V + c * B::T + p * kBT * P::ROWB, &tv,
+                   kv_full, p * P::PW, j0 + c * kBT, bh);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdStages;
+        if (t >= kBwdStages) mbar_wait(empty(s), ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * B::T);
+        const uint32_t stage = base + B::KV_RING + s * 2 * B::T;
+        for (int p = 0; p < P::NP; ++p) {
+          tma_load(stage + p * kBT * P::ROWB, &tq, full(s), p * P::PW,
+                   first + t * kBT, bh);
+          tma_load(stage + B::T + p * kBT * P::ROWB, &tdo, full(s),
+                   p * P::PW, first + t * kBT, bh);
+        }
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x & 31;
+      const float* lb = lse + static_cast<int64_t>(bh) * LG;
+      const float* db = delta + static_cast<int64_t>(bh) * LG;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdStages;
+        if (t >= kBwdStages) mbar_wait(empty(s), ((t / kBwdStages) & 1) ^ 1);
+        float* ld = reinterpret_cast<float*>(smem + B::KV_LD + s * 2 * kBT * 4);
+        for (int h = 0; h < kBT; h += 32) {
+          const int row = first + t * kBT + lane + h;
+          ld[lane + h] = row < LG ? lb[row] : 0.f;
+          ld[kBT + lane + h] = row < LG ? db[row] : 0.f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each, every row tile of the block
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    constexpr int NO = HD / 2;    // dK or dV fragment floats a thread
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * kWG;
+    const int w = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int key_first = j0 + c * kBT;
+    const int key0 = key_first + 16 * w + g, key1 = key0 + 8;
+    const uint32_t k_tile = base + B::KV_K + c * B::T;
+    const uint32_t v_tile = base + B::KV_V + c * B::T;
+
+    float dk_acc[NO], dv_acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kBwdStages;
+      const int r = first + t * kBT;
+      const uint32_t q_tile = base + B::KV_RING + s * 2 * B::T;
+      const uint32_t do_tile = q_tile + B::T;
+      const float* ld =
+          reinterpret_cast<const float*>(smem + B::KV_LD + s * 2 * kBT * 4);
+      mbar_wait(full(s), (t / kBwdStages) & 1);
+
+      // S^T = k . qs^T and dP^T = v . dO^T
+      float st[32], dpt[32];
+      wgmma_fence();
+      mma_tiles<HD>(st, k_tile, q_tile);
+      mma_tiles<HD>(dpt, v_tile, do_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T; the mask only where the tile crosses the diagonal
+      // or runs past L*G or S
+      const bool mask =
+          r + kBT > LG || key_first + kBT > S ||
+          (causal && static_cast<int64_t>(key_first + kBT - 1) * G > r);
+      uint32_t pa[4][4], dsa[4][4];
+      scores_t(st, dpt, pa, dsa, ld, ld + kBT, mask, key0, r, LG, G, S,
+               causal, qd);
+
+      // dV += P^T dO and dK += dS^T qs
+      wgmma_fence();
+      mma_frags<HD>(dv_acc, pa, do_tile);
+      mma_frags<HD>(dk_acc, dsa, q_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // one arrival a warp
+    }
+
+    __nv_bfloat16* dkb = dk + static_cast<int64_t>(bh) * S * HD;
+    __nv_bfloat16* dvb = dv + static_cast<int64_t>(bh) * S * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (key0 < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + int64_t{key0} * HD + col) =
+            __floats2bfloat162_rn(dk_acc[4 * j], dk_acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + int64_t{key0} * HD + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j], dv_acc[4 * j + 1]);
+      }
+      if (key1 < S) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + int64_t{key1} * HD + col) =
+            __floats2bfloat162_rn(dk_acc[4 * j + 2], dk_acc[4 * j + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + int64_t{key1} * HD + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2], dv_acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int LG, int G, int S,
+                      int causal, float scale) {
+  using B = BwdTC<HD>;
+  using P = Plan<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_full = base + B::Q_BAR;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + kBwdStages + s); };
+
+  // the last row tile (most keys under the causal mask) first
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kConsumers * kBT;
+  const int last_row = min(r0 + kConsumers * kBT, LG) - 1;
+  const int n_keys = causal ? min(S, last_row / G + 1) : S;
+  const int n_tiles = (n_keys + kBT - 1) / kBT;
+  const int wg = threadIdx.x / kWG;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers * 4);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: qs and dO once (rows past L*G read as zeros), then
+    // the (k, v) ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 4 * B::T);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int p = 0; p < P::NP; ++p) {
+          tma_load(base + B::Q_Q + c * B::T + p * kBT * P::ROWB, &tq, q_full,
+                   p * P::PW, r0 + c * kBT, bh);
+          tma_load(base + B::Q_DO + c * B::T + p * kBT * P::ROWB, &tdo,
+                   q_full, p * P::PW, r0 + c * kBT, bh);
+        }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwdStages;
+        if (t >= kBwdStages) mbar_wait(empty(s), ((t / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * B::T);
+        const uint32_t stage = base + B::Q_RING + s * 2 * B::T;
+        for (int p = 0; p < P::NP; ++p) {
+          tma_load(stage + p * kBT * P::ROWB, &tk, full(s), p * P::PW,
+                   t * kBT, bh);
+          tma_load(stage + B::T + p * kBT * P::ROWB, &tv, full(s), p * P::PW,
+                   t * kBT, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows each, every key tile of the block
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    constexpr int NO = HD / 2;    // dQ fragment floats a thread
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * kWG;
+    const int w = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int rw = r0 + c * kBT;                          // first row
+    const int row0 = rw + 16 * w + g, row1 = row0 + 8;    // this thread's
+    const uint32_t q_tile = base + B::Q_Q + c * B::T;
+    const uint32_t do_tile = base + B::Q_DO + c * B::T;
+    const float* lb = lse + static_cast<int64_t>(bh) * LG;
+    const float* db = delta + static_cast<int64_t>(bh) * LG;
+    const float l0 = row0 < LG ? lb[row0] : 0.f;
+    const float l1 = row1 < LG ? lb[row1] : 0.f;
+    const float d0 = row0 < LG ? db[row0] : 0.f;
+    const float d1 = row1 < LG ? db[row1] : 0.f;
+
+    float dq_acc[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kBwdStages;
+      const int j0 = t * kBT;
+      const uint32_t k_tile = base + B::Q_RING + s * 2 * B::T;
+      const uint32_t v_tile = k_tile + B::T;
+      mbar_wait(full(s), (t / kBwdStages) & 1);
+
+      // S = qs . k^T and dP = dO . v^T
+      float sacc[32], dp[32];
+      wgmma_fence();
+      mma_tiles<HD>(sacc, q_tile, k_tile);
+      mma_tiles<HD>(dp, do_tile, v_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+      fence_regs(dp);
+
+      const bool mask = j0 + kBT > S ||
+                        (causal && static_cast<int64_t>(j0 + kBT - 1) * G > rw);
+      uint32_t dsa[4][4];
+      scores(sacc, dp, dsa, l0, l1, d0, d1, mask, j0, row0, G, S, causal, qd);
+
+      // dQ += dS k
+      wgmma_fence();
+      mma_frags<HD>(dq_acc, dsa, k_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // one arrival a warp
+    }
+
+    __nv_bfloat16* qb = dq + static_cast<int64_t>(bh) * LG * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      if (row0 < LG)
+        *reinterpret_cast<__nv_bfloat162*>(qb + int64_t{row0} * HD + col) =
+            __floats2bfloat162_rn(__fmul_rn(dq_acc[4 * j], scale),
+                                  __fmul_rn(dq_acc[4 * j + 1], scale));
+      if (row1 < LG)
+        *reinterpret_cast<__nv_bfloat162*>(qb + int64_t{row1} * HD + col) =
+            __floats2bfloat162_rn(__fmul_rn(dq_acc[4 * j + 2], scale),
+                                  __fmul_rn(dq_acc[4 * j + 3], scale));
+    }
+  }
+}
 
 // ---- launchers --------------------------------------------------------------
 
@@ -1259,50 +1792,110 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D, then dK / dV, then dQ, on the caller's stream; `delta` is (BH, L*G)
-// float32 scratch the wrapper allocates.
-template <typename T, int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int64_t BH, int64_t L, int64_t G,
-               int64_t S, int causal, float scale, void* stream) {
+// float32 backward: D, then dK / dV, then dQ, on the caller's stream;
+// `delta` is (BH, L*G) float32 scratch the wrapper allocates.
+template <int HD>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const void* lse, void* delta, void* dq,
+                   void* dk, void* dv, int64_t BH, int64_t L, int64_t G,
+                   int64_t S, int causal, float scale, void* stream) {
   constexpr size_t smem = BwdPlan<HD>::SMEM;
   static const cudaError_t attr = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dkdv_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+    return cudaFuncSetAttribute(flash_bwd_dq_f32<HD>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t LG = L * G;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const float* fl = static_cast<const float*>(lse);
   float* fd = static_cast<float*>(delta);
   constexpr int kRowsPerBlock = kBwdThreads / 32;
-  flash_bwd_delta<T, HD><<<static_cast<unsigned>(
-                               (BH * LG + kRowsPerBlock - 1) / kRowsPerBlock),
-                           kBwdThreads, 0, st>>>(static_cast<const T*>(o),
-                                                 tdo, fd, BH * LG);
+  flash_bwd_delta_f32<HD><<<static_cast<unsigned>(
+                                (BH * LG + kRowsPerBlock - 1) / kRowsPerBlock),
+                            kBwdThreads, 0, st>>>(
+      static_cast<const float*>(o), tdo, fd, BH * LG);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv<T, HD><<<dim3(static_cast<unsigned>(BH),
-                               static_cast<unsigned>((S + kBKb - 1) / kBKb)),
-                          kBwdThreads, smem, st>>>(
-      tq, tk, tv, tdo, fl, fd, static_cast<T*>(dk), static_cast<T*>(dv), L, G,
-      S, causal, scale);
+  flash_bwd_dkdv_f32<HD><<<dim3(static_cast<unsigned>(BH),
+                                static_cast<unsigned>((S + kBKb - 1) / kBKb)),
+                           kBwdThreads, smem, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<float*>(dk),
+      static_cast<float*>(dv), L, G, S, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq<T, HD><<<dim3(static_cast<unsigned>(BH),
-                             static_cast<unsigned>((LG + kBR - 1) / kBR)),
-                        kBwdThreads, smem, st>>>(
-      tq, tk, tv, tdo, fl, fd, static_cast<T*>(dq), L, G, S, causal, scale);
+  flash_bwd_dq_f32<HD><<<dim3(static_cast<unsigned>(BH),
+                              static_cast<unsigned>((LG + kBR - 1) / kBR)),
+                         kBwdThreads, smem, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<float*>(dq), L, G, S, causal,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bfloat16 backward: D and qs (into dq), then dK / dV, then dQ, on the
+// caller's stream; the tensor maps are built before anything launches.
+template <int HD>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, int64_t BH,
+                    int64_t L, int64_t G, int64_t S, int causal, float scale,
+                    void* stream) {
+  using B = BwdTC<HD>;
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(B::KV_SMEM));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_bwd_dq_bf16<HD>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(B::Q_SMEM));
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t LG = L * G;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map<HD>(&tq, dq, LG, BH, kBT) ||
+      !tensor_map<HD>(&tk, k, S, BH, kBT) ||
+      !tensor_map<HD>(&tv, v, S, BH, kBT) ||
+      !tensor_map<HD>(&tdo, dout, LG, BH, kBT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fl = static_cast<const float*>(lse);
+  float* fd = static_cast<float*>(delta);
+  const int64_t words = BH * LG * (HD / 8);
+  flash_bwd_prep_bf16<HD><<<static_cast<unsigned>(
+                                (words + kBwdThreads - 1) / kBwdThreads),
+                            kBwdThreads, 0, st>>>(
+      static_cast<const uint4*>(q), static_cast<const uint4*>(o),
+      static_cast<const uint4*>(dout), static_cast<uint4*>(dq), fd, BH * LG,
+      scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a dK / dV block's keys, a dQ block's rows
+  constexpr int kBlock = kConsumers * kBT;
+  flash_bwd_dkdv_bf16<HD><<<dim3(static_cast<unsigned>(BH),
+                                 static_cast<unsigned>((S + kBlock - 1) /
+                                                       kBlock)),
+                            kThreadsBf16, B::KV_SMEM, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), static_cast<int>(LG),
+      static_cast<int>(G), static_cast<int>(S), causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_bf16<HD><<<dim3(static_cast<unsigned>(BH),
+                               static_cast<unsigned>((LG + kBlock - 1) /
+                                                     kBlock)),
+                          kThreadsBf16, B::Q_SMEM, st>>>(
+      tq, tk, tv, tdo, fl, fd, static_cast<__nv_bfloat16*>(dq),
+      static_cast<int>(LG), static_cast<int>(G), static_cast<int>(S), causal,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1382,7 +1975,7 @@ extern "C" int flash_attention_bwd_f32(
     void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
     int causal, float scale, void* stream) {
   return by_head_dim(hd, [&](auto HD) {
-    return launch_bwd<float, decltype(HD)::value>(
+    return launch_bwd_f32<decltype(HD)::value>(
         q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
         stream);
   });
@@ -1394,7 +1987,7 @@ extern "C" int flash_attention_bwd_bf16(
     void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
     int causal, float scale, void* stream) {
   return by_head_dim(hd, [&](auto HD) {
-    return launch_bwd<__nv_bfloat16, decltype(HD)::value>(
+    return launch_bwd_bf16<decltype(HD)::value>(
         q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
         stream);
   });

@@ -24,7 +24,8 @@ goes through :class:`FlashAttentionFunction`, whose forward launches the
 same kernels through their ``_lse`` entries (the same ``out`` bits, plus
 each row's float32 log-sum-exp) and whose backward launches B7b,
 :func:`flash_attention_backward` (counted in
-``flash_attention_backward.launches``).  B7b replaces no TPU kernel: the
+``flash_attention_backward.launches``; bfloat16 on the tensor cores,
+float32 on the CUDA cores, no atomics).  B7b replaces no TPU kernel: the
 reference trains through autodiff of its pure-JAX ``blocked_attention``
 (``src/repro/models/attention.py:89``) and its Pallas kernel has no
 backward.  Its plain form, :func:`flash_attention_backward_plain`, is
@@ -150,23 +151,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _launch_checks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   name: str) -> None:
+def _launch_checks(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Grid limits, and the 16-byte start every bf16 tensor the kernels
+    read by TMA or in 16-byte words needs (q, k, v; the backward's out and
+    dout too)."""
     BH, L, G, _ = q.shape
     S = k.shape[1]
-    if BH > 65535 or (L * G + 127) // 128 > 65535 or S > 2 ** 31 - 1:
+    # a forward block takes 128 rows; the backward's f32 blocks 32 rows or
+    # 32 keys (its bf16 blocks 128)
+    tile = 32 if more else 128
+    too_long = (S + tile - 1) // tile > 65535 if more else S > 2 ** 31 - 1
+    if BH > 65535 or (L * G + tile - 1) // tile > 65535 or too_long:
         raise ValueError(f"{name}: grid too large for BH={BH}, "
-                         f"L*G={L * G}")
+                         f"L*G={L * G}, S={S}")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError(f"{name}: bf16 q, k, v must start on a 16-byte "
-                         "boundary (the kernel reads them by TMA)")
+                                         for t in (q, k, v, *more)):
+        names = "q, k, v" + ", out, dout" * bool(more)
+        raise ValueError(f"{name}: bf16 {names} must start on a 16-byte "
+                         "boundary (the kernels read them by TMA)")
 
 
 def _forward(q, k, v, causal: bool, with_lse: bool):
     """Launch the forward kernel: ``out``, and with ``with_lse`` the
     float32 log-sum-exp ``(BH, L, G)`` of every row (else None)."""
-    _launch_checks(q, k, v, "flash_attention")
+    _launch_checks("flash_attention", q, k, v)
     BH, L, G, hd = q.shape
     S = k.shape[1]
     out = torch.empty_like(q)
@@ -270,15 +279,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     ``dout``, in q's dtype and layout.  ``out`` and ``lse`` are the
     forward's (the ``_lse`` entry's).  A CUDA tensor launches the three
     kernels of ``csrc/flash_attention.cu`` (D = rowsum(dout * out), dK /
-    dV, dQ), counted once a call in ``flash_attention_backward.launches``;
-    a CPU tensor takes :func:`flash_attention_backward_plain`."""
+    dV, dQ; in bf16 the first also writes q * scale into ``dq``, which the
+    dQ kernel then overwrites, and the other two run on the tensor cores),
+    counted once a call in ``flash_attention_backward.launches``; a CPU
+    tensor takes :func:`flash_attention_backward_plain`."""
     _check_backward(q, k, v, out, dout, lse)
     if not q.is_cuda:
         if q.is_cpu:
             return flash_attention_backward_plain(q, k, v, dout,
                                                   causal=causal)
         raise unsupported("flash_attention_backward", q)
-    _launch_checks(q, k, v, "flash_attention_backward")
+    _launch_checks("flash_attention_backward", q, k, v, out, dout)
     BH, L, G, hd = q.shape
     S = k.shape[1]
     delta = torch.empty((BH, L, G), dtype=torch.float32, device=q.device)

@@ -33,7 +33,14 @@ counterpart in the port, on ``get_config("qwen3-1.7b").reduce()`` (f32,
   losses within 1e-5 of the resumer's uninterrupted run and the
   parameters as above;
 * the serving cache of cast weights never reaches a gradient (a loss after
-  ``prefill`` has the gradients of a fresh model).
+  ``prefill`` has the gradients of a fresh model);
+* 14 steps of ``launch.train``'s schedule (lr 3e-3, warmup 10) from the
+  same parameters: the losses within rtol 1e-6 of the reference's
+  (measured 1.52e-7, two float32 ulps);
+* the bf16 B7b kernels' rounding points (P and dS rounded to bf16 as
+  product operands, float32 sums) emulated in plain PyTorch at the card
+  cases' shapes: within 2e-2 of max |grad| of the plain backward and 0.06
+  of the float64 oracle's, phase 19's bars.
 
 JAX is imported only inside fixtures (``pytest.importorskip``); the
 ``cuda`` cases hold B7b (``flash_attention_backward``) against its plain
@@ -49,7 +56,7 @@ from repro_torch import build_model, get_config
 from repro_torch.configs import SHAPES
 from repro_torch.convert import (adamw_state_from_jax, adamw_state_to_jax,
                                  lm_params_from_jax, lm_params_to_jax)
-from repro_torch.data.synthetic import DataConfig, SyntheticStream
+from repro_torch.data.synthetic import DataConfig, SyntheticStream, _batch_at
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
                                                  flash_attention,
@@ -103,16 +110,18 @@ class Jax:
         model = self.build_model(self.cfg(**kw), self.ctx)
         return model, model.init(self.jax.random.PRNGKey(seed))
 
-    def program(self, mb):
-        if mb not in self._progs:
+    def program(self, mb, ocfg=None):
+        ocfg = ocfg or OCFG
+        key = (mb, tuple(sorted(ocfg.items())))
+        if key not in self._progs:
             cfg = self.cfg()
             shape = dataclasses.replace(self.shapes["train_4k"],
                                         seq_len=SEQ, global_batch=BATCH)
             ctx = self.steps.make_ctx(cfg, shape, self.ctx.mesh, fsdp=False)
-            self._progs[mb] = self.steps.make_train_step(
-                cfg, shape, ctx, ocfg=self.adamw.AdamWConfig(**OCFG),
+            self._progs[key] = self.steps.make_train_step(
+                cfg, shape, ctx, ocfg=self.adamw.AdamWConfig(**ocfg),
                 microbatches=mb, donate=False)
-        return self._progs[mb]
+        return self._progs[key]
 
 
 @pytest.fixture(scope="module")
@@ -136,11 +145,11 @@ def _port_model(jax_params, **kw):
     return model
 
 
-def _port_program(mb=1):
+def _port_program(mb=1, ocfg=None):
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=SEQ,
                                 global_batch=BATCH)
     return tsteps.make_train_step(_port_cfg(), shape,
-                                  ocfg=tadamw.AdamWConfig(**OCFG),
+                                  ocfg=tadamw.AdamWConfig(**(ocfg or OCFG)),
                                   microbatches=mb, device="cpu")
 
 
@@ -391,7 +400,6 @@ def test_train_step_matches_reference(jx, mb):
     jopt = jx.adamw.init_state(params)
     data = _data_cfg()
     for step in range(2):
-        from repro_torch.data.synthetic import _batch_at
         batch = _batch_at(data, step)
         params, jopt, jm = jprog.step_fn(params, jopt,
                                          {"tokens": jx.jnp.asarray(batch)})
@@ -456,6 +464,36 @@ def test_loss_decreases(jx, tmp_path):
     first = np.mean([h["loss"] for h in hist[:5]])
     last = np.mean([h["loss"] for h in hist[-5:]])
     assert last < first - 0.5, (first, last)
+
+
+# launch.train's optimizer (lr 3e-3, warmup 10; total_steps = --steps) run
+# past its warmup, and the launcher's stream (seed 0, copy period 4)
+LAUNCH_OCFG = dict(lr=3e-3, warmup_steps=10, total_steps=14)
+LOSS_HIST_RTOL = 1e-6      # measured: 1.52e-7 (two float32 ulps)
+
+
+def test_loss_history_past_warmup_matches_reference(jx):
+    """14 steps of launch.train's schedule from the same parameters: the
+    port's losses equal the reference's step by step within
+    LOSS_HIST_RTOL, so where the loss rises under this schedule it rises in
+    the reference too."""
+    jprog = jx.program(1, LAUNCH_OCFG)
+    _, params = jx.model(seed=0)
+    prog = _port_program(1, LAUNCH_OCFG)
+    prog.model.load_state_dict(lm_params_from_jax(_np(params)))
+    tparams = prog.params
+    topt, jopt = tadamw.init_state(tparams), jx.adamw.init_state(params)
+    data = _data_cfg(seed=0, copy_period=4)
+    jloss, tloss = [], []
+    for step in range(LAUNCH_OCFG["total_steps"]):
+        batch = _batch_at(data, step)
+        params, jopt, jm = jprog.step_fn(params, jopt,
+                                         {"tokens": jx.jnp.asarray(batch)})
+        tparams, topt, tm = prog.step_fn(tparams, topt,
+                                         {"tokens": torch.from_numpy(batch)})
+        jloss.append(float(jm["loss"]))
+        tloss.append(float(tm["loss"]))
+    np.testing.assert_allclose(tloss, jloss, rtol=LOSS_HIST_RTOL)
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
@@ -565,9 +603,64 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the last three at the bf16 kernels' tile edges (64-row tiles, 128-key
+# dK / dV blocks): L*G = 260 not a multiple of 64; S = 200 not a multiple
+# of 64 or 128; G = 3 at hd 128
 CUDA_BWD = [(4, 128, 128, 2, 128, True), (3, 100, 100, 2, 64, True),
             (2, 70, 70, 4, 32, False), (2, 33, 90, 1, 16, False),
-            (2, 65, 65, 3, 16, True), (1, 200, 200, 1, 128, True)]
+            (2, 65, 65, 3, 16, True), (1, 200, 200, 1, 128, True),
+            (2, 130, 130, 2, 128, True), (2, 96, 200, 2, 64, False),
+            (2, 90, 90, 3, 128, True)]
+
+
+def _b7b_tensor_core_form(q, k, v, out, dout, causal):
+    """The bf16 B7b kernels' arithmetic at their rounding points, in plain
+    PyTorch: qs = q * scale rounded to bf16; s = qs . k^T and dP = dO . v^T
+    with float32 sums; P = exp(s - lse) (0 where masked) with the rows'
+    float32 log-sum-exp; D = rowsum(dO * O) in float32; dS = P * (dP - D);
+    P and dS rounded to bf16 where they enter dV = P^T dO, dK = dS^T qs and
+    dQ = dS k (float32 sums), dQ times the scale at the end; the results
+    rounded to bf16."""
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    scale = hd ** -0.5
+    bf = torch.bfloat16
+    qs = (q.float() * scale).to(bf).float().reshape(BH, L * G, hd)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(BH, L * G, hd)
+    s = qs @ kf.transpose(1, 2)
+    seen = torch.ones(L * G, S, dtype=torch.bool)
+    if causal:
+        seen = (torch.arange(L * G) // G)[:, None] >= torch.arange(S)[None]
+    lse = torch.logsumexp(torch.where(seen, s, -torch.inf), -1, keepdim=True)
+    p = torch.where(seen, torch.exp(s - lse), 0.0)
+    d = (do * out.float().reshape(BH, L * G, hd)).sum(-1, keepdim=True)
+    ds = p * (do @ vf.transpose(1, 2) - d)
+    pb, dsb = p.to(bf).float(), ds.to(bf).float()
+    dq = (dsb @ kf) * scale
+    dk = dsb.transpose(1, 2) @ qs
+    dv = pb.transpose(1, 2) @ do
+    return dq.reshape(q.shape).to(bf), dk.to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("bh,l,s,g,hd,causal", CUDA_BWD)
+def test_b7b_tensor_core_rounding_fits_the_bars(bh, l, s, g, hd, causal):
+    """The bf16 kernels' rounding points (above) on the CPU at the card's
+    shapes: within 2e-2 of max |grad| of the plain backward and 0.06 of the
+    float64 oracle's, phase 19's bars."""
+    rng = np.random.RandomState(l + s + hd)
+    q, k, v, dout = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                     .to(torch.bfloat16)
+                     for shape in ((bh, l, g, hd), (bh, s, hd), (bh, s, hd),
+                                   (bh, l, g, hd)))
+    out = flash_attention(q, k, v, causal=causal)
+    got = _b7b_tensor_core_form(q, k, v, out, dout, causal)
+    want = flash_attention_backward_plain(q, k, v, dout, causal=causal)
+    oracle = ref.flash_attention_backward_ref(q, k, v, dout, causal=causal)
+    for a, b, c in zip(got, want, oracle):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _close(a.float(), b.double().numpy(), 0, 2e-2)
+        _close(a.float(), c.numpy(), 0, 0.06)
 
 
 @pytest.mark.cuda
@@ -600,6 +693,26 @@ def test_b7b_matches_plain_backward_and_repeats_bitwise(cuda_device, dtype,
     grads = torch.autograd.grad(again, (qq, kk, vv), dout)
     for a, b in zip(grads, (qq.grad, kk.grad, vv.grad)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_b7b_refuses_bf16_out_or_dout_off_16_bytes(cuda_device):
+    """The bf16 kernels read out and dout in 16-byte words and by TMA: a
+    view that starts off a 16-byte boundary raises before any launch."""
+    q, dout = (torch.randn(1, 64, 2, 64, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, 64, 64, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v), torch.zeros(1, 64, 2, device="cuda")
+    before = flash_attention_backward.launches
+    for name in ("out", "dout"):
+        args = {"out": out, "dout": dout}
+        off = torch.empty(out.numel() + 1, device="cuda",
+                          dtype=torch.bfloat16)[1:].view(out.shape)
+        args[name] = off.copy_(args[name])
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_backward(q, k, v, args["out"], args["dout"], lse)
+    assert flash_attention_backward.launches == before
 
 
 @pytest.mark.cuda
