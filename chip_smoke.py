@@ -17,6 +17,8 @@
         # prints no result lines
     python3 chip_smoke.py --train              # phases 1, 2 and 19 alone;
         # prints no result lines
+    python3 chip_smoke.py --moe                # phases 1, 2 and 20 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -226,10 +228,40 @@ Phases, each asserting (any failure exits non-zero with no result line):
     against the CPU (plain forms), 1e-4 of each leaf's max, TF32 off;
     (d) ms a step, tokens/s, peak memory, a profiled step, B7b's device us
     a launch beside SDPA's backward.
+20. Mixture-of-Experts (olmoe-1b-7b: 16 q and 16 kv heads, 64 experts,
+    top-8): (a) B7 at its prefill shape (BH = 4 x 16, L = S = 1024, G = 1,
+    hd = 128, causal, bf16) against its plain form and the f64 oracle at
+    phase 13's bars, and B7b at the same shape against its plain backward
+    and the oracle at phase 19's, bitwise on repeat, each timed beside its
+    plain form, SDPA (its backward) and the bound; (b) olmoe-1b-7b at
+    full width and depth (6,919,100,416 parameters, bf16 compute, random
+    weights from a seeded generator) served by ``BatchServer``, two waves
+    of 4 x (1024 + 32) tokens, every kernel counter zeroed just before and
+    read just after (``flash_attention`` 16 x 2, nothing else); the
+    capacity dispatch's dropped assignments in the served prefills; every
+    teacher-forced decode step (which drops nothing; the cache from a
+    dense prefill) against a no-cache prefill through the ``dense``
+    oracle: in bf16 printed with each layer's routing flips and the logit
+    move of one bf16 ulp on the embeddings (~1x: not held), in f32 at
+    full width held, 1e-3 of max |logit| where the routing agrees and at
+    most 5 % of decode tokens routed otherwise; prefill ms, decode ms a
+    step, tok/s, peak memory, a profiled prefill; a 1-layer full-width
+    f32 prefill on the card against the CPU (1e-4), the same top-k
+    experts in both asserted first and the smallest gap between a
+    token's k-th and (k+1)-th router logit printed; (c)
+    olmoe-1b-7b at full width cut to 4 of 16 layers (f32 state for 16
+    does not fit 80 GB) trained through ``launch.train.main`` (4 x 1024
+    tokens, lr 3e-3, warmup 10, 6 steps, no checkpoints) twice: one digest
+    of losses, ``ce``, ``moe_lb``, ``moe_z``, grad norms and parameters;
+    ``flash_attention`` 4 x 2 x 6 and B7b 4 x 6 launches a run; ms a step,
+    tokens/s, peak memory; a 1-layer full-width f32 loss (its aux terms
+    too) and every gradient on the card against the CPU (1e-4 of each
+    leaf's max), the same routing asserted first.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -1815,6 +1847,9 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # kernel against plain form
 ORACLE_TOL = {"bfloat16": 0.06, "float32": 2e-5}  # against the f64 oracle
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 TF_LOGIT_TOL = 5e-2        # bf16 decode vs prefill logits, of max |logit|
+F32_TF_TOL = 1e-3          # f32 decode vs dense prefill (olmoe), of max
+                           # |logit|, where the routing agrees
+MOE_TF_FLIP_SHARE = 0.05   # decode tokens routed unlike the prefill, f32
 F32_LOGIT_TOL = 1e-4       # card vs CPU prefill logits in f32, of max |logit|
 
 
@@ -1967,6 +2002,106 @@ def flash_phase(lib_path):
 
 # ---- phase 14: serve qwen3-1.7b at full width through the kernel --------------
 
+def lm_serve_counted(model, label):
+    """Two waves of ``SERVE_BATCH`` requests (``SERVE_PROMPT``-token
+    prompts from ``RandomState(0)``, ``SERVE_NEW`` new tokens) through
+    ``BatchServer`` with every kernel counter zeroed just before and read
+    just after: ``flash_attention`` must read 2 x n_layers (one prefill a
+    wave) and every other counter 0.  Prints the launches, tok/s and peak
+    memory; returns ``(waves, served requests, server, launches, the
+    prompts' RandomState after its draws)``."""
+    import numpy as np
+    import torch
+    from repro_torch import BatchServer
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    from repro_torch.runtime.serve_loop import Request, throughput_stats
+
+    cfg = model.cfg
+    rng = np.random.RandomState(0)
+    waves = [[Request(prompt=rng.randint(0, cfg.vocab, size=(SERVE_PROMPT,))
+                      .astype(np.int32), max_new_tokens=SERVE_NEW)
+              for _ in range(SERVE_BATCH)] for _ in range(2)]
+    server = BatchServer(model, batch_size=SERVE_BATCH,
+                         max_len=SERVE_PROMPT + SERVE_NEW)
+    counters = {**kernel_counters(), "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    done = []
+    for reqs in waves:
+        done += server.serve_wave(reqs)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  counted run: 2 waves x {SERVE_BATCH} requests, launches "
+          f"{launches}; wave latencies "
+          f"{[done[0].latency_s, done[-1].latency_s]} s")
+    check(launches["flash_attention"] == 2 * cfg.n_layers,
+          f"{label}: flash_attention launched "
+          f"{launches['flash_attention']} times, not {2 * cfg.n_layers}")
+    check(all(n == 0 for name, n in launches.items()
+              if name != "flash_attention"),
+          f"{label}: another kernel ran while serving")
+    for r in done:
+        check(r.out_tokens.shape == (SERVE_NEW,) and
+              0 <= int(r.out_tokens.min()) and
+              int(r.out_tokens.max()) < cfg.vocab,
+              f"{label}: served tokens out of range: {r.out_tokens}")
+    stats = throughput_stats(done)
+    wave2 = throughput_stats(done[SERVE_BATCH:])
+    print(f"  serving: {stats['tokens']} tokens in {stats['wall_s']:.4f} s "
+          f"-> {stats['tok_per_s']:.3f} tok/s over both waves "
+          f"({wave2['tok_per_s']:.3f} tok/s, {wave2['wall_s']:.4f} s, "
+          f"in the second); peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    return waves, done, server, launches, rng
+
+
+def lm_serve_timings(model, prompt):
+    """Steady timings through the entry points (host clock after a sync):
+    a prefill of ``prompt`` into a fresh cache (median of 5) and a token
+    step of greedy decode after it (median of 3 runs of ``SERVE_NEW``
+    steps).  Returns the prefill thunk, for a profile."""
+    import torch
+
+    max_len = SERVE_PROMPT + SERVE_NEW
+
+    def prefill_once():
+        model.prefill({"tokens": prompt},
+                      model.init_cache(SERVE_BATCH, max_len))
+
+    def decode_run():
+        c = model.init_cache(SERVE_BATCH, max_len)
+        lg, c = model.prefill({"tokens": prompt}, c)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(SERVE_NEW):
+            tok.cpu()
+            lg, c = model.decode_step(tok, SERVE_PROMPT + i, c)
+            tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / SERVE_NEW
+
+    prefill_all = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_once()
+        torch.cuda.synchronize()
+        prefill_all.append((time.perf_counter() - t1) * 1e3)
+    prefill_ms = sorted(prefill_all)[2]
+    decode_all = [decode_run() for _ in range(3)]
+    decode_ms = sorted(decode_all)[1]
+    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: median "
+          f"{prefill_ms:.4f} ms per wave ({prefill_all}); decode: median "
+          f"{decode_ms:.4f} ms per token step of {SERVE_BATCH} rows "
+          f"({decode_all}), {SERVE_BATCH * 1e3 / decode_ms:.3f} tok/s")
+    return prefill_once
+
+
 def serve_phase():
     """qwen3-1.7b, 28 layers, bf16 compute over f32 params from a seeded
     generator; ``BatchServer`` serves two waves of 4 requests (1024-token
@@ -1980,9 +2115,9 @@ def serve_phase():
 
     import numpy as np
     import torch
-    from repro_torch import BatchServer, build_model, get_config
+    from repro_torch import build_model, get_config
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.runtime.serve_loop import Request, throughput_stats
+    from repro_torch.runtime.serve_loop import Request
 
     cfg = get_config("qwen3-1.7b")
     check(cfg.n_layers == 28 and cfg.compute_dtype == "bfloat16",
@@ -1997,42 +2132,9 @@ def serve_phase():
           f"({cfg.param_dtype} params, {cfg.compute_dtype} compute), init "
           f"{time.perf_counter() - t0:.2f} s")
 
-    rng = np.random.RandomState(0)
     max_len = SERVE_PROMPT + SERVE_NEW
-    waves = [[Request(prompt=rng.randint(0, cfg.vocab, size=(SERVE_PROMPT,))
-                      .astype(np.int32), max_new_tokens=SERVE_NEW)
-              for _ in range(SERVE_BATCH)] for _ in range(2)]
-    server = BatchServer(model, batch_size=SERVE_BATCH, max_len=max_len)
-    counters = {**kernel_counters(), "flash_attention": flash_attention}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    done = []
-    for reqs in waves:
-        done += server.serve_wave(reqs)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  counted run: 2 waves x {SERVE_BATCH} requests, launches "
-          f"{launches}; wave latencies "
-          f"{[done[0].latency_s, done[-1].latency_s]} s")
-    check(launches["flash_attention"] == 2 * cfg.n_layers,
-          f"flash_attention launched {launches['flash_attention']} times, "
-          f"not {2 * cfg.n_layers}")
-    check(all(n == 0 for name, n in launches.items()
-              if name != "flash_attention"), "an MD kernel ran while serving")
-    for r in done:
-        check(r.out_tokens.shape == (SERVE_NEW,) and
-              0 <= int(r.out_tokens.min()) and
-              int(r.out_tokens.max()) < cfg.vocab,
-              f"served tokens out of range: {r.out_tokens}")
-    stats = throughput_stats(done)
-    wave2 = throughput_stats(done[SERVE_BATCH:])
-    print(f"  serving: {stats['tokens']} tokens in {stats['wall_s']:.4f} s "
-          f"-> {stats['tok_per_s']:.3f} tok/s over both waves "
-          f"({wave2['tok_per_s']:.3f} tok/s, {wave2['wall_s']:.4f} s, "
-          f"in the second); peak device memory {peak} bytes "
-          f"({peak / 2**30:.3f} GiB)")
+    waves, done, server, launches, rng = lm_serve_counted(model,
+                                                          "qwen3-1.7b")
 
     # teacher-forced decode against no-cache prefill of each prefix
     prompt = torch.from_numpy(np.stack([r.prompt for r in waves[0]])).cuda()
@@ -2058,41 +2160,7 @@ def serve_phase():
     check(worst <= TF_LOGIT_TOL, f"decode logits {worst} from prefill's")
     del cache, logits, full
 
-    # steady timings through the entry points (host clock after sync)
-    def timed(fn, n):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t1) * 1e3)
-        return sorted(ts)[n // 2], ts
-
-    def prefill_once():
-        model.prefill({"tokens": prompt},
-                      model.init_cache(SERVE_BATCH, max_len))
-
-    def decode_run():
-        c = model.init_cache(SERVE_BATCH, max_len)
-        lg, c = model.prefill({"tokens": prompt}, c)
-        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for i in range(SERVE_NEW):
-            tok.cpu()
-            lg, c = model.decode_step(tok, SERVE_PROMPT + i, c)
-            tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t1) * 1e3 / SERVE_NEW
-
-    prefill_ms, prefill_all = timed(prefill_once, 5)
-    decode_all = [decode_run() for _ in range(3)]
-    decode_ms = sorted(decode_all)[1]
-    print(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: median "
-          f"{prefill_ms:.4f} ms per wave ({prefill_all}); decode: median "
-          f"{decode_ms:.4f} ms per token step of {SERVE_BATCH} rows "
-          f"({decode_all}), {SERVE_BATCH * 1e3 / decode_ms:.3f} tok/s")
+    lm_serve_timings(model, prompt)
 
     prof = _profile(lambda: server.serve_wave(
         [Request(prompt=r.prompt, max_new_tokens=SERVE_NEW)
@@ -3777,14 +3845,589 @@ def train_phase(b7b):
                 launches_a["flash_attention_backward"]}
 
 
+# ---- phase 20: Mixture-of-Experts, olmoe-1b-7b served and trained -----------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PARAMS = 6_919_100_416          # full width and depth
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 4, 1_884_310_528   # f32 state fits 80 GB
+
+
+def moe_flash_phase():
+    """B7 and B7b at olmoe's attention shape (16 q heads over 16 kv heads,
+    so G = 1; BH = 4 x 16, L = S = 1024, hd 128, causal, bf16): B7 against
+    its plain form and the f64 oracle at phase 13's bars, B7b against its
+    plain backward and the f64 oracle at phase 19's, each timed beside its
+    plain form, SDPA (its backward) and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    BH, L, S, G, hd = 64, 1024, 1024, 1, 128
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                     .to(torch.bfloat16)
+                     for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd),
+                                   (BH, L, G, hd)))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got.double() - want.double()).abs().max())
+    oerr = float((got.double() - ref.flash_attention_ref(
+        q, k, v, causal=True)).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL["bfloat16"]
+          and oerr <= ORACLE_TOL["bfloat16"], f"B7 at olmoe's shape: "
+          f"{err} from its plain form, {oerr} from the f64 oracle")
+    nbytes, ops = flash_work(BH, L, S, G, hd, True, 2)
+    bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+    t_k = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), n=50,
+                  warmup=5)
+    t_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                  n=3, warmup=1)
+    qt, kt, vt = q.transpose(1, 2).contiguous(), k[:, None], v[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), n=50, warmup=5)
+    print(f"MoE phase (a): B7 at olmoe's prefill shape (BH {BH}, L = S = "
+          f"{L}, G {G}, hd {hd}, causal, bf16): vs plain {err:.3e}, vs f64 "
+          f"oracle {oerr:.3e}; kernel {t_k:.6f} ms, plain {t_p:.6f} ms, "
+          f"SDPA {t_l:.6f} ms, bound {bound:.6f} ms ({bound / t_k:.4f} of "
+          f"it; {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s)")
+    b7 = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+          "max_abs_err": err}
+    del got, want, qt, kt, vt
+
+    o, lse = fa._forward(q, k, v, True, with_lse=True)
+    grads = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
+    again = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "B7b at olmoe's shape: two launches differ")
+    plain = fa.flash_attention_backward_plain(q, k, v, dout, causal=True)
+    oracle = ref.flash_attention_backward_ref(q, k, v, dout, causal=True)
+    line, worst = [], 0.0
+    for label, a, b, c in zip("qkv", grads, plain, oracle):
+        scale = float(c.abs().max())
+        e = float((a.double() - b.double()).abs().max())
+        eo = float((a.double() - c).abs().max())
+        check(bool(torch.isfinite(a).all()) and
+              e <= BWD_TOL["bfloat16"] * scale and
+              eo <= BWD_ORACLE_TOL["bfloat16"] * scale,
+              f"B7b at olmoe's shape: d{label} {e} from its plain form, "
+              f"{eo} from the f64 oracle (scale {scale})")
+        line.append(f"d{label} {e / scale:.3e} / {eo / scale:.3e}")
+        worst = max(worst, e)
+    del again, plain, oracle
+    nbytes, ops = flash_bwd_work(BH, L, S, G, hd, True, 2)
+    bound_b = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+    t_kb = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, o, dout, lse, causal=True), n=50, warmup=5)
+    t_pb = cuda_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, dout, causal=True), n=3, warmup=1)
+    t_lb, _ = sdpa_backward(q, k, v, dout, True)
+    print(f"  B7b at olmoe's training shape (the same): vs plain / vs "
+          f"oracle, of max |grad|: {'; '.join(line)}; bitwise on repeat; "
+          f"B7b {t_kb:.6f} ms, plain backward {t_pb:.6f} ms, SDPA backward "
+          f"{t_lb:.6f} ms, bound {bound_b:.6f} ms ({bound_b / t_kb:.4f} of "
+          f"it)")
+    return {"flash_attention": b7,
+            "flash_attention_backward": {
+                "ms": t_kb, "plain_ms": t_pb, "library_ms": t_lb,
+                "bound_ms": bound_b, "max_abs_err": worst}}
+
+
+@contextlib.contextmanager
+def routing_record(per_token=False):
+    """Record each MoE routing while the block runs: (top_e on the host,
+    the smallest gap between a token's k-th and (k+1)-th router logit, or
+    with ``per_token`` every token's gap on the host)."""
+    import torch
+    from repro_torch.models import moe
+
+    real, seen = moe._route, []
+
+    def spy(x2d, router_w, m):
+        out = real(x2d, router_w, m)
+        with torch.no_grad():
+            top = torch.topk(x2d.float() @ router_w.float(),
+                             m.top_k + 1).values
+            gap = top[:, -2] - top[:, -1]
+            seen.append((out[0].cpu(),
+                         gap.cpu() if per_token else float(gap.min())))
+        return out
+
+    moe._route = spy
+    try:
+        yield seen
+    finally:
+        moe._route = real
+
+
+def same_routing(card, cpu, label):
+    """The card and the CPU chose the same top-k sets in every MoE layer
+    (a flip there moves a whole token): prints the smallest logit gap."""
+    check(len(card) == len(cpu) > 0, f"{label}: {len(card)} routings on the "
+          f"card, {len(cpu)} on the CPU")
+    gap = min(g for _, g in card + cpu)
+    print(f"  {label}: {len(card)} MoE routings, the same top-k experts on "
+          f"the card and the CPU; smallest gap between a token's k-th and "
+          f"(k+1)-th router logit {gap:.3e}")
+    for n, ((a, _), (b, _)) in enumerate(zip(card, cpu)):
+        check(torch_equal_sets(a, b), f"{label}: layer {n} routed "
+              f"differently on the card and the CPU (smallest logit gap "
+              f"{gap:.3e})")
+
+
+def torch_equal_sets(a, b) -> bool:
+    """Two (T, K) top-k index tensors pick the same set per token."""
+    import torch
+    return bool(torch.equal(a.sort(dim=-1).values, b.sort(dim=-1).values))
+
+
+def moe_dense_prefill(model, toks, cache=None):
+    """``model.prefill`` through the dense oracle (every expert on every
+    token: no capacity, so no drops)."""
+    model.moe_dispatch = "dense"
+    try:
+        return model.prefill({"tokens": toks}, cache)
+    finally:
+        model.moe_dispatch = "fused"
+
+
+def moe_drops(routes, m) -> tuple:
+    """``(dropped, assigned)`` (token, pick) assignments of the capacity
+    dispatch of each recorded routing (``routing_record``): its tables
+    again on the host."""
+    from repro_torch.models import moe
+    dropped = assigned = 0
+    for top_e, _ in routes:
+        _, keep = moe._dispatch_tables(
+            top_e, None, m.n_experts,
+            moe._capacity(top_e.shape[0], m, m.n_experts))
+        dropped += int((~keep).sum())
+        assigned += keep.numel()
+    return dropped, assigned
+
+
+def moe_teacher_forced(model, prompt, gen, max_len):
+    """Each decode step (the served ``fused`` dispatch; at 4 tokens it
+    drops nothing) against a no-cache dense prefill of the same prefix,
+    the cache filled by a dense prefill, so both sides hold every expert
+    of every prompt token.  Returns per position and row the logit gap
+    (of the position's max |logit|) and whether any layer routed the
+    decode token unlike the prefill's same position; per layer the count
+    of such flips; the prefill's k-th / (k+1)-th router logit gap at each
+    flip; and the smallest gap seen."""
+    import torch
+
+    B, P = prompt.shape
+    logits, cache = moe_dense_prefill(model, prompt,
+                                      model.init_cache(B, max_len))
+    out = {"rel": [], "row_rel": [], "row_flip": [], "flips": None,
+           "flip_gaps": [], "gap": math.inf, "finite": True}
+    decode_routes = []
+    for t in range(gen.shape[1]):
+        routes = []
+        if t:
+            with routing_record() as routes:
+                logits, cache = model.decode_step(gen[:, t - 1:t],
+                                                  P + t - 1, cache)
+            decode_routes += routes
+        with routing_record(per_token=True) as full_routes:
+            full, _ = moe_dense_prefill(
+                model, torch.cat([prompt, gen[:, :t]], dim=1))
+        out["finite"] &= bool(torch.isfinite(logits).all()) and \
+            bool(torch.isfinite(full).all())
+        scale = full.float().abs().max()
+        row = ((logits.float() - full.float()).abs().amax(-1) / scale)
+        out["row_rel"].append(row.tolist())
+        out["rel"].append(float(row.max()))
+        out["gap"] = min([out["gap"]] +
+                         [float(g.min()) for _, g in full_routes])
+        flipped = [False] * B
+        if routes:
+            flips = []
+            for (a, _), (b, g) in zip(routes, full_routes):
+                last = b.reshape(B, P + t, -1)[:, -1]
+                rows = (a.sort(-1).values !=
+                        last.sort(-1).values).any(-1)
+                flips.append(int(rows.sum()))
+                for r in rows.nonzero().flatten().tolist():
+                    flipped[r] = True
+                    out["flip_gaps"].append(float(g.reshape(
+                        B, P + t)[r, -1]))
+            out["flips"] = flips if out["flips"] is None else \
+                [x + y for x, y in zip(out["flips"], flips)]
+        out["row_flip"].append(flipped)
+    dropped, _ = moe_drops(decode_routes, model.cfg.moe)
+    check(dropped == 0 and len(decode_routes) ==
+          (gen.shape[1] - 1) * model.cfg.n_layers,
+          f"teacher-forced decode: {len(decode_routes)} dispatches, "
+          f"{dropped} assignments dropped")
+    out["worst"] = max(out["rel"])
+    return out
+
+
+def moe_sensitivity(model, prompt) -> float:
+    """How far the dense prefill's logits move (of max |logit|) when the
+    embeddings move by one ulp of the compute dtype (times 1 + eps)."""
+    import torch
+    base, _ = moe_dense_prefill(model, prompt)
+    real = model._embed
+
+    def nudged(tokens):
+        x = real(tokens)
+        return x * (1 + torch.finfo(x.dtype).eps)
+
+    model._embed = nudged
+    try:
+        moved, _ = moe_dense_prefill(model, prompt)
+    finally:
+        del model._embed
+    return float((moved.float() - base.float()).abs().max()
+                 / base.float().abs().max())
+
+
+def moe_serve_phase():
+    """olmoe-1b-7b at full width and depth (16 layers, 64 experts top-8,
+    6,919,100,416 parameters, bf16 compute over f32 parameters from a
+    seeded generator) served by ``BatchServer``: two waves of 4 requests
+    (1024-token prompts, 32 new tokens) with every kernel counter zeroed
+    just before and read just after (``flash_attention`` 16 x 2, no other
+    kernel); the capacity dispatch's drops in the served prefills; every
+    teacher-forced decode step against a no-cache ``dense`` prefill (the
+    reference's oracle, no capacity): in bf16 measured, with its routing
+    flips and the model's one-ulp sensitivity (random-weight olmoe is
+    chaotic at bf16: no bar holds there), then in f32 at full width held
+    to ``F32_TF_TOL`` where the routing agrees, with at most
+    ``MOE_TF_FLIP_SHARE`` of the decode tokens routed otherwise; prefill
+    / decode timings and a profiled prefill; then a 1-layer full-width
+    f32 prefill on the card against the CPU, with the same routing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import active_param_count
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    check(cfg.n_layers == 16 and cfg.compute_dtype == "bfloat16" and
+          (m.n_experts, m.top_k, m.d_expert) == (64, 8, 1024) and
+          cfg.n_heads == cfg.n_kv_heads == 16, f"{MOE_ARCH} changed: {cfg}")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == MOE_PARAMS, f"{MOE_ARCH} has {n_params} parameters")
+    check(model.moe_dispatch == "fused", "serving dispatch is not fused")
+    print(f"MoE phase (b): {MOE_ARCH}, {n_params} parameters "
+          f"({active_param_count(cfg)} active a token), {cfg.param_dtype} "
+          f"params, {cfg.compute_dtype} compute, dispatch "
+          f"{model.moe_dispatch}; init {time.perf_counter() - t0:.2f} s")
+
+    max_len = SERVE_PROMPT + SERVE_NEW
+    waves, done, server, launches, rng = lm_serve_counted(model, MOE_ARCH)
+
+    # the drops of the served prefills (the same inputs, fresh caches)
+    prompts = [torch.from_numpy(np.stack([r.prompt for r in w])).cuda()
+               for w in waves]
+    with routing_record() as routes:
+        for toks in prompts:
+            model.prefill({"tokens": toks},
+                          model.init_cache(SERVE_BATCH, max_len))
+    dropped, assigned = moe_drops(routes, m)
+    cap = moe._capacity(SERVE_BATCH * SERVE_PROMPT, m, m.n_experts)
+    print(f"  capacity dispatch of the served prefills ({cap} slots an "
+          f"expert for {SERVE_BATCH * SERVE_PROMPT} tokens x top-{m.top_k}): "
+          f"{dropped} of {assigned} assignments dropped "
+          f"({dropped / assigned:.6f}) over {len(routes)} layer "
+          f"dispatches; a {SERVE_BATCH}-token "
+          f"decode step has {moe._capacity(SERVE_BATCH, m, m.n_experts)} "
+          f"slots an expert and drops nothing")
+
+    # teacher-forced decode against the dense oracle in bf16: measured,
+    # with the routing flips between the two paths counted
+    gen = torch.from_numpy(np.stack([r.out_tokens
+                                     for r in done[:SERVE_BATCH]])).cuda()
+    fused0, _ = model.prefill({"tokens": prompts[0]})
+    dense0, _ = moe_dense_prefill(model, prompts[0])
+    drop_rel = float((fused0.float() - dense0.float()).abs().max()
+                     / dense0.float().abs().max())
+    print(f"  the served (fused) prefill's last-position logits against the "
+          f"dense oracle's: max |dlogit| / max |logit| = {drop_rel:.4e} "
+          f"(the capacity drops' effect)")
+    del fused0, dense0
+    tf = moe_teacher_forced(model, prompts[0], gen, max_len)
+    sens = moe_sensitivity(model, prompts[0])
+    print(f"  bf16 teacher-forced decode (fused; cache from a dense prefill) "
+          f"vs no-cache dense prefill, {SERVE_NEW} positions: max |dlogit| "
+          f"/ max |logit| = {tf['worst']:.4e} (per position "
+          f"{[float(f'{r:.3e}') for r in tf['rel']]}); decode tokens routed "
+          f"unlike the prefill's same positions, per layer over all "
+          f"positions: {tf['flips']} of {SERVE_BATCH * (SERVE_NEW - 1)}; "
+          f"smallest k-th / (k+1)-th logit gap {tf['gap']:.3e}; one bf16 ulp "
+          f"on the embeddings moves the dense prefill's logits by "
+          f"{sens:.4e} of max |logit|")
+    check(tf["finite"], "non-finite bf16 teacher-forced logits")
+
+    prefill_once = lm_serve_timings(model, prompts[0])
+    prof = _profile(prefill_once, 1)
+    if prof is None:
+        print("  MoE prefill profile: device time not measured (no CUDA "
+              "events)")
+    else:
+        wall, device, n_kern, busy, by_name = prof
+        print(f"  MoE prefill profile (torch.profiler, one {SERVE_BATCH} x "
+              f"{SERVE_PROMPT} prefill): host wall {wall / 1e3:.4f} ms, "
+              f"device kernel time {device / 1e3:.4f} ms, {n_kern:.0f} "
+              f"kernels, device busy {busy:.4f} of the host wall")
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:10]:
+            print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms "
+                  f"{k:7.0f}x {name[:90]}")
+    del model, server, prompts, gen, prefill_once   # the thunk holds model
+    gc_release()
+
+    # the same in f32 at full width (the same parameters: they are drawn
+    # in f32 whatever the compute dtype): no routing flips, and the bar
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg32).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.from_numpy(np.stack([r.prompt for r in waves[0]])).cuda()
+    gen = torch.from_numpy(np.stack([r.out_tokens
+                                     for r in done[:SERVE_BATCH]])).cuda()
+    tf32 = moe_teacher_forced(model, prompt, gen, max_len)
+    sens32 = moe_sensitivity(model, prompt)
+    same = [r for rows, fl in zip(tf32["row_rel"], tf32["row_flip"])
+            for r, f in zip(rows, fl) if not f]
+    flipped = [(t, b, float(f"{r:.3e}")) for t, (rows, fl) in
+               enumerate(zip(tf32["row_rel"], tf32["row_flip"]))
+               for b, (r, f) in enumerate(zip(rows, fl)) if f]
+    n_dec = SERVE_BATCH * (SERVE_NEW - 1)
+    print(f"  f32 teacher-forced decode, the same tokens: decode tokens "
+          f"routed as the prefill's same position in every layer: "
+          f"{n_dec - len(flipped)} of {n_dec}, their logits within "
+          f"{max(same):.4e} of max |logit| (tolerance {F32_TF_TOL}); the "
+          f"others (position, row, gap) {flipped} (at most "
+          f"{MOE_TF_FLIP_SHARE} of the tokens), flips per layer "
+          f"{tf32['flips']}, the prefill's logit gap at each flip "
+          f"{[float(f'{g:.3e}') for g in tf32['flip_gaps']]}; smallest "
+          f"gap {tf32['gap']:.3e}; one f32 ulp on the embeddings moves the "
+          f"logits by {sens32:.4e}")
+    check(tf32["finite"], "non-finite f32 teacher-forced logits")
+    check(len(flipped) <= MOE_TF_FLIP_SHARE * n_dec,
+          f"f32 teacher-forced decode: {len(flipped)} of {n_dec} decode "
+          f"tokens routed unlike the dense prefill")
+    check(max(same) <= F32_TF_TOL, f"f32 decode logits {max(same)} from "
+          "the dense prefill's where the routing agrees")
+    del model, prompt, gen
+    gc_release()
+
+    # one full-width layer in f32: card (kernel) against CPU (plain form)
+    cfg1 = dataclasses.replace(cfg, n_layers=1, compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, size=(2, 300))
+                            .astype(np.int32))
+    before = flash_attention.launches
+    with routing_record() as card_routes:
+        on_card, _ = small.prefill({"tokens": toks.cuda()})
+    check(flash_attention.launches == before + 1,
+          "the f32 card prefill did not run the kernel")
+    on_card = on_card.cpu()
+    small.to("cpu")
+    with routing_record() as cpu_routes:
+        on_cpu, _ = small.prefill({"tokens": toks})
+    same_routing(card_routes, cpu_routes, "1-layer f32 prefill")
+    rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    print(f"  1-layer full-width f32 prefill (2 x 300 tokens), card vs CPU: "
+          f"max |dlogit| / max |logit| = {rel:.4e} (tolerance "
+          f"{F32_LOGIT_TOL}, TF32 off)")
+    check(bool(torch.isfinite(on_card).all()) and rel <= F32_LOGIT_TOL,
+          f"f32 card logits {rel} from the CPU's")
+    del small
+    gc_release()
+    return launches
+
+
+def gc_release():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train_phase():
+    """olmoe-1b-7b at full width cut to 4 of its 16 layers (its f32
+    parameters, gradients and AdamW moments, 110.7 GB at full depth, do
+    not fit one card) trained through ``launch.train.main`` (``--n-layers
+    4``, batch 4 x seq 1024, lr 3e-3, warmup 10, 6 steps, the synthetic
+    stream, no checkpoints) twice from fresh processes' state: one digest
+    of losses, grad norms, aux terms and every parameter;
+    ``flash_attention`` 4 x 2 x 6 and B7b 4 x 6 launches a run; ms a step,
+    tokens/s, peak memory; then a 1-layer full-width f32 loss and every
+    gradient on the card against the CPU, with the same routing."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    from repro_torch.launch import train as train_launch
+
+    t20 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    counters = {**kernel_counters(), "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
+    work = ROOT / "build" / "phase20"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def drive(tag):
+        argv = ["--arch", MOE_ARCH, "--n-layers", str(MOE_TRAIN_LAYERS),
+                "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--ckpt-every", "0",
+                "--ckpt-dir", str(work / tag)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        prog, params, opt, hist = train_launch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        check(prog.microbatches == 1 and prog.model.moe_dispatch == "fused"
+              and sum(p.numel() for p in params.values()) ==
+              MOE_TRAIN_PARAMS, f"train {tag}: not {MOE_ARCH} at "
+              f"{MOE_TRAIN_LAYERS} layers, one microbatch, fused")
+        fwd = MOE_TRAIN_LAYERS * 2 * TRAIN_STEPS  # forward + remat recompute
+        bwd = MOE_TRAIN_LAYERS * TRAIN_STEPS
+        check(launches["flash_attention"] == fwd and
+              launches["flash_attention_backward"] == bwd and
+              all(n == 0 for k, n in launches.items()
+                  if not k.startswith("flash")),
+              f"MoE train {tag}: launches {launches}, expected "
+              f"flash_attention {fwd}, flash_attention_backward {bwd}")
+        keys = ("step", "loss", "ce", "moe_lb", "moe_z", "grad_norm")
+        rows = [tuple(h[k] for k in keys) for h in hist]
+        check(all(math.isfinite(x) for r in rows for x in r[1:]),
+              f"MoE train {tag}: non-finite loss / aux / grad norm {rows}")
+        out = (rows, param_digest(params), int(opt["step"]),
+               [h["dt"] for h in hist], launches, wall, peak)
+        del prog, params, opt, hist
+        gc_release()
+        return out
+
+    rows_a, digest_a, opt_step, dts_a, launches, wall_a, peak = drive("a")
+    print(f"MoE phase (c): {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of "
+          f"16 layers ({MOE_TRAIN_PARAMS} parameters), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} steps; run a {wall_a:.2f} s, "
+          f"launches {launches}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    for r in rows_a:
+        print(f"  step {r[0]}: loss {r[1]:.6f} ce {r[2]:.6f} moe_lb "
+              f"{r[3]:.6f} moe_z {r[4]:.6f} grad_norm {r[5]:.6f}")
+    check(opt_step == TRAIN_STEPS, f"MoE train a: AdamW step {opt_step}")
+    rows_b, digest_b, _, dts_b, _, wall_b, _ = drive("b")
+    print(f"  run b: {wall_b:.2f} s; losses, aux terms, grad norms and "
+          f"parameter digest {digest_b} "
+          f"{'==' if (rows_b, digest_b) == (rows_a, digest_a) else '!='} "
+          f"run a's {digest_a}")
+    check(rows_b == rows_a and digest_b == digest_a,
+          f"MoE train: two fresh runs differ: {rows_a} vs {rows_b}, "
+          f"{digest_a} vs {digest_b}")
+    shutil.rmtree(work, ignore_errors=True)
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    print(f"  MoE train speed: median {step_ms:.4f} ms a step over steps 1-5 "
+          f"of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3):.3f} tokens/s")
+
+    # one full-width layer in f32: loss and every gradient on the card
+    # (kernels) against the CPU (plain forms), TF32 off
+    cfg1 = dataclasses.replace(cfg, n_layers=1, compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (2, 129)).astype(np.int32))
+    for fn in counters.values():
+        fn.launches = 0
+    with routing_record() as card_routes:
+        loss_c, met_c = small.loss_fn({"tokens": toks.cuda()})
+    loss_c.backward()
+    check(flash_attention.launches == 2 and
+          flash_attention_backward.launches == 1,
+          f"the f32 card loss launched flash_attention "
+          f"{flash_attention.launches} / backward "
+          f"{flash_attention_backward.launches} times, not 2 / 1")
+    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
+    met_c = {k: float(v.detach()) for k, v in met_c.items()}
+    loss_c = float(loss_c.detach())
+    small.zero_grad(set_to_none=True)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    with routing_record() as cpu_routes:
+        loss_h, met_h = small.loss_fn({"tokens": toks})
+    loss_h.backward()
+    t_cpu = time.perf_counter() - t_cpu
+    same_routing(card_routes, cpu_routes, "1-layer f32 loss")
+    worst, worst_name = 0.0, ""
+    for n, p in small.named_parameters():
+        scale = float(p.grad.abs().max())
+        e = float((grads_c[n] - p.grad).abs().max()) / max(scale, 1e-30)
+        check(math.isfinite(e) and scale > 0, f"f32 grad {n}: {e}, {scale}")
+        if e > worst:
+            worst, worst_name = e, n
+    rels = {k: abs(met_c[k] - float(met_h[k].detach()))
+            / abs(float(met_h[k].detach())) for k in met_c}
+    lrel = abs(loss_c - float(loss_h.detach())) / abs(float(loss_h.detach()))
+    print(f"  1-layer full-width f32 loss and gradients (2 x 128 tokens; "
+          f"the CPU's loss and backward {t_cpu:.2f} s), card vs CPU: loss "
+          f"{loss_c:.7f} vs {float(loss_h.detach()):.7f} (rel {lrel:.3e}; "
+          f"ce / "
+          f"moe_lb / moe_z rel {', '.join(f'{v:.3e}' for v in rels.values())}"
+          f"), worst leaf {worst_name} {worst:.3e} of its max |grad| "
+          f"(tolerance {GRAD_TOL}, TF32 off)")
+    check(lrel <= GRAD_TOL and max(rels.values()) <= GRAD_TOL and
+          worst <= GRAD_TOL, f"f32 card gradients {worst} ({worst_name}) / "
+          f"loss {lrel} / aux {rels} from the CPU's")
+    del small, grads_c
+    gc_release()
+    print(f"MoE phase (c): {time.perf_counter() - t20:.1f} s")
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_backward": launches["flash_attention_backward"],
+            "step_ms": step_ms}
+
+
+def moe_phase():
+    """Phase 20: (a) B7 / B7b at olmoe's G = 1 shape, (b) olmoe-1b-7b
+    served at full width and depth, (c) trained at full width, 4 layers.
+    Returns the kernels' olmoe entries for the kernels line."""
+    t0 = time.perf_counter()
+    kern = moe_flash_phase()
+    served = moe_serve_phase()
+    trained = moe_train_phase()
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return {name: {"olmoe_ms": acc["ms"], "olmoe_library_ms":
+                   acc["library_ms"], "olmoe_bound_ms": acc["bound_ms"],
+                   "olmoe_serve_launches": served[name],
+                   "olmoe_train_launches": trained[name]}
+            for name, acc in kern.items()}
+
+
 def main():
     args = sys.argv[1:]
-    if args in (["--serve"], ["--drill"], ["--train"]):
+    if args in (["--serve"], ["--drill"], ["--train"], ["--moe"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve | --drill | --train]")
+             "| --serve | --drill | --train | --moe]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -3822,6 +4465,13 @@ def main():
                               "flash_attention"])
         train_phase(b7b_phase(built["flash_attention"].path)
                     ["flash_attention_backward"])
+        print(card)
+        return
+    if args == ["--moe"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        moe_phase()
         print(card)
         return
     if args and args[0] == "--steps":
@@ -3934,6 +4584,10 @@ def main():
     b7b_kernel = b7b_phase(built["flash_attention"].path)
     train_launches = train_phase(b7b_kernel["flash_attention_backward"])
 
+    # 20. Mixture-of-Experts: B7 / B7b at olmoe's G = 1 shape, olmoe-1b-7b
+    # served at full width and depth and trained at full width (4 layers)
+    moe_kernel = moe_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -4012,6 +4666,7 @@ def main():
             **({"serve_launches": served[name]} if name in served else {}),
             **({"train_launches": train_launches[name]}
                if name in train_launches else {}),
+            **moe_kernel.get(name, {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
@@ -4028,7 +4683,11 @@ def main():
           "remat recompute)); flash_attention_backward (B7b): one bf16 "
           "backward at the training shape (the same shape), its launches "
           "over the 6 steps, its bound at 989 TFLOP/s bf16 over five "
-          "products, its yardstick SDPA's backward; pack_wire / "
+          "products, its yardstick SDPA's backward; olmoe_*: B7 / B7b at "
+          "olmoe-1b-7b's shape (BH 64, L = S = 1024, G 1, hd 128), ms, "
+          "yardstick and bound as above, launches over its two served "
+          "waves (16 layers) and over one 6-step training run at 4 layers; "
+          "pack_wire / "
           "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "
           "f64 rows to f32, launches on the grappa-45k f64 float32-wire "

@@ -3,13 +3,17 @@ card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --reduced --requests 16 --batch 4 --new-tokens 16 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --reduced --device cpu [--moe-dispatch dense]
 
   PYTHONPATH=src python -m repro_torch.launch.serve --md \
       --replicas 8 --atoms 200 --steps 40 --backend dense [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given (and raises without
-CUDA).  LM weights are random, drawn from a ``torch.Generator`` seeded
-with 0; prompts from ``numpy.random.RandomState(0)``.  ``--md`` serves
+CUDA).  ``--moe-dispatch`` (the port's; default ``fused``, as the
+reference's ``LM``) picks an MoE model's dispatch.  LM weights are
+random, drawn from a ``torch.Generator`` seeded with 0; prompts from
+``numpy.random.RandomState(0)``.  ``--md`` serves
 ``--replicas`` grappa-like replicas (seeds 0, 1, ...) through
 :class:`~repro_torch.serve.SimServer` on a (1, 1, 1) mesh with the
 default bucket ladder and prints the reference's summary line.
@@ -71,6 +75,7 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--moe-dispatch", default="fused")
     ap.add_argument("--md", action="store_true",
                     help="serve MD replicas (SimServer) instead of LM waves")
     ap.add_argument("--replicas", type=int, default=8)
@@ -89,7 +94,8 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduce()
     dev = resolve_device(args.device)
-    model = build_model(cfg, device=dev).init(
+    model = build_model(cfg, device=dev,
+                        moe_dispatch=args.moe_dispatch).init(
         torch.Generator(device=dev).manual_seed(0))
     server = BatchServer(model, batch_size=args.batch, max_len=args.max_len,
                          temperature=args.temperature)

@@ -1,13 +1,15 @@
 """Training step builder for one card.
 
 Port of the training part of ``src/repro/launch/steps.py``:
-``param_count``, ``auto_microbatches``, ``TrainProgram`` and
-``make_train_step``.  The step is the reference's: gradients of
-``LM.loss_fn`` over ``microbatches`` slices of the batch, summed in
-float32 in microbatch order and divided by the count (one microbatch:
-the gradients as they come), the loss the mean of the microbatches',
-``ce`` the last microbatch's, then one AdamW update.  Metrics: ``loss``,
-``ce``, ``grad_norm``, ``lr`` (0-dim tensors on the model's device).
+``param_count``, ``active_param_count``, ``auto_microbatches``,
+``TrainProgram`` and ``make_train_step``.  The step is the reference's:
+gradients of ``LM.loss_fn`` over ``microbatches`` slices of the batch,
+summed in float32 in microbatch order and divided by the count (one
+microbatch: the gradients as they come), the loss the mean of the
+microbatches', ``ce`` the last microbatch's, then one AdamW update.
+Metrics: ``loss``, ``ce`` (with MoE also ``moe_lb`` and ``moe_z``, the
+last microbatch's), ``grad_norm``, ``lr`` (0-dim tensors on the model's
+device).
 
 PyTorch runs eagerly, so there is no jit and no sharding: the program
 holds its model, whose parameters the step updates in place (the
@@ -37,6 +39,17 @@ from repro_torch.optim import adamw
 def param_count(cfg: ArchConfig) -> int:
     """Analytic parameter count (exact for the port's declarations)."""
     return sum(math.prod(d.shape) for d in _flatten(model_defs(cfg)).values())
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Per-token active params (MoE: top_k of n_experts per MoE layer)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    moe_layers = sum(1 for s in cfg.pattern_unit if s.moe) * cfg.n_units
+    per_expert = 3 * cfg.d_model * m.d_expert
+    return total - moe_layers * per_expert * (m.n_experts - m.top_k)
 
 
 def auto_microbatches(cfg: ArchConfig, shape: ShapeCfg,
@@ -86,16 +99,17 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
                     microbatches: Optional[int] = None,
                     pod_compress: Optional[str] = None,
                     zero2: bool = False,
-                    device="cuda") -> TrainProgram:
+                    device="cuda",
+                    moe_dispatch: str = "fused") -> TrainProgram:
     """The training program of ``cfg`` on ``device`` (its model's
     parameters uninitialised: ``run_training``'s ``init_params_fn`` or a
-    checkpoint fills them)."""
+    checkpoint fills them), MoE layers dispatching by ``moe_dispatch``."""
     if pod_compress is not None or zero2:
         raise NotImplementedError(
             "pod-compressed and zero2 steps need a multi-GPU mesh "
             "(ROADMAP A13)")
     ocfg = ocfg or adamw.AdamWConfig()
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, moe_dispatch=moe_dispatch)
     mb = microbatches or auto_microbatches(cfg, shape)
 
     def train_step(params, opt_state, batch):

@@ -4,6 +4,8 @@
       --steps 6 --batch 4 --seq 1024 --ckpt-every 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --reduced --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+      --reduced --steps 20 --device cpu --moe-dispatch dense
 
 Port of ``src/repro/launch/train.py`` with its flags: the train step of
 ``launch/steps.py`` (grad accumulation, remat, AdamW with
@@ -11,8 +13,10 @@ Port of ``src/repro/launch/train.py`` with its flags: the train step of
 ``run_training`` (checkpoint / resume, straggler watchdog) on one card,
 parameters drawn from ``torch.Generator`` seed 0.  ``--device`` (default
 ``cuda``; ``cpu`` runs the plain forms), ``--fail-at-step`` (raise after
-that step, before its checkpoint; a rerun resumes) and ``--ckpt-every 0``
-(no checkpoints) are the port's.
+that step, before its checkpoint; a rerun resumes), ``--ckpt-every 0``
+(no checkpoints) and ``--n-layers`` (the config at that depth, its widths
+unchanged: olmoe-1b-7b's f32 training state fits one 80 GB card at 4 of
+its 16 layers) are the port's.
 Checkpoints go to ``--ckpt-dir`` (default ``build/repro_train`` under
 the repository root).
 """
@@ -47,12 +51,12 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=None)
-    # accepted as the reference's launcher takes it; MoE is not ported
     ap.add_argument("--moe-dispatch", default="fused")
     ap.add_argument("--data-vocab", type=int, default=None)
     ap.add_argument("--copy-period", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--n-layers", type=int, default=None)
     return ap.parse_args(argv)
 
 
@@ -64,13 +68,16 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduce()
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=args.seq,
                                 global_batch=args.batch)
     prog = make_train_step(
         cfg, shape,
         ocfg=adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                                total_steps=args.steps),
-        microbatches=args.microbatches, device=dev)
+        microbatches=args.microbatches, device=dev,
+        moe_dispatch=args.moe_dispatch)
     print(f"arch={cfg.name} on {dev} microbatches={prog.microbatches}")
 
     data_cfg = DataConfig(vocab=args.data_vocab or cfg.vocab,

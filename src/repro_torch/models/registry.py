@@ -1,15 +1,17 @@
-"""Model registry: config -> model (the dense-attention ``LM``)."""
+"""Model registry: config -> model (the ``LM``: dense or MoE)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.transformer import LM
 
 
-def build_model(cfg: ArchConfig, device="cuda") -> LM:
+def build_model(cfg: ArchConfig, device="cuda",
+                moe_dispatch: str = "fused") -> LM:
     """The model for ``cfg`` with uninitialised parameters on ``device``
-    (call ``.init(generator)`` or ``.load_state_dict``).  Raises on a
+    (call ``.init(generator)`` or ``.load_state_dict``); MoE layers
+    dispatch by ``moe_dispatch`` (``models.moe.DISPATCHES``).  Raises on a
     config the port cannot build yet, and on CUDA when it is absent."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   "not ported yet (ROADMAP A14: enc-dec)")
-    return LM(cfg, device=device)
+    return LM(cfg, device=device, moe_dispatch=moe_dispatch)

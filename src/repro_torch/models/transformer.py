@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for one card: dense attention stacks.
+"""Decoder-only LM assembly for one card: dense and MoE attention stacks.
 
 Port of ``src/repro/models/transformer.py`` (``LM``) as an ``nn.Module``:
 the embedding, a ``ModuleList`` of layers (layer ``u * len(pattern_unit)
@@ -26,13 +26,22 @@ reference's ``unit_fn``.  The embedding gather's gradient sums each
 token's rows in a fixed order (:class:`_GatherRows`), so a training step
 gives the same bits on every run.
 
+MoE layers (``spec.moe``) hold ``"moe"`` in place of ``"mlp"`` and run
+:func:`repro_torch.models.moe.moe_fwd` with the model's ``moe_dispatch``
+(``"fused"`` by default, as the reference's ``LM``); every layer returns
+its aux losses beside ``x``, and the stack sums ``moe_lb`` / ``moe_z`` in
+the reference's order (over a unit's layers, then over units), also
+through ``checkpoint``.  ``loss_fn`` adds ``0.01 * moe_lb / n_layers +
+1e-3 * moe_z / n_layers`` and reports both terms.
+
 Caches mirror the reference's per-unit stacks ``{"layer{i}": {"attn":
 {"k", "v"}}}`` of shape ``(n_units, batch, max_len, n_kv_heads, hd)``; on
 one card ``ShardingCtx.kv_repeat`` is 1, so the cache holds ``n_kv_heads``
 heads (the reference's sharding, ``specs`` and ``_unit_gather_spec`` wait
 for the multi-GPU work).  The port writes the cache in place and returns
-the same dict.  MoE, Mamba, RWKV, VLM-prefix and encoder-decoder configs
-raise ``NotImplementedError`` naming their ROADMAP item.
+the same dict (MoE layers hold no state).  Mamba, RWKV, VLM-prefix and
+encoder-decoder configs raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -43,8 +52,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.device import resolve_device
+from repro_torch.device import const, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     ParamDef,
     ParamDefs,
@@ -61,11 +71,18 @@ from repro_torch.models.layers import (
 
 
 def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> ParamDefs:
-    return {"ln1": norm_defs(cfg.d_model, cfg.use_bias),
-            "attn": attn.attn_defs(cfg),
-            "ln2": norm_defs(cfg.d_model, cfg.use_bias),
-            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                            cfg.use_bias)}
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are not "
+                                  "ported yet (ROADMAP A14: SSM)")
+    d: ParamDefs = {"ln1": norm_defs(cfg.d_model, cfg.use_bias),
+                    "attn": attn.attn_defs(cfg),
+                    "ln2": norm_defs(cfg.d_model, cfg.use_bias)}
+    if spec.moe:
+        d["moe"] = moe_mod.moe_defs(cfg)
+    else:
+        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                            cfg.use_bias)
+    return d
 
 
 def unit_defs(cfg: ArchConfig) -> ParamDefs:
@@ -74,7 +91,11 @@ def unit_defs(cfg: ArchConfig) -> ParamDefs:
 
 
 def model_defs(cfg: ArchConfig) -> ParamDefs:
-    """The reference's stacked declaration of every parameter."""
+    """The reference's stacked declaration of every parameter (raises on
+    a layer kind or an encoder the port does not declare yet)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  "not ported yet (ROADMAP A14: enc-dec)")
     V, d = cfg.padded_vocab, cfg.d_model
     defs: ParamDefs = {
         "embed": ParamDef((V, d), "small_normal"),
@@ -112,6 +133,15 @@ class _GatherRows(torch.autograd.Function):
         return out, None
 
 
+def _add_aux(acc: dict, aux: dict) -> dict:
+    """``acc + aux`` key by key, a key of one alone taken as it is (the
+    reference adds to float32 zeros, and ``0 + v`` is ``v``)."""
+    out = dict(acc)
+    for k, v in aux.items():
+        out[k] = out[k] + v if k in out else v
+    return out
+
+
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet (None when it can)."""
     if cfg.is_encdec:
@@ -119,22 +149,45 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
     kinds = {s.kind for s in cfg.pattern_unit}
     if kinds & {"mamba", "rwkv"}:
         return f"{'/'.join(sorted(kinds - {'attn'}))} layers (ROADMAP A14: SSM)"
-    if cfg.moe is not None or any(s.moe for s in cfg.pattern_unit):
-        return "MoE layers (ROADMAP A14: MoE)"
     if cfg.prefix_tokens:
         return "a VLM prefix (ROADMAP A14: VLM)"
     return None
 
 
+class _ParamNode(nn.Module):
+    """A node holding both parameters and sub-nodes by name (an MoE
+    layer's experts beside its ``shared`` expert)."""
+
+    def __init__(self, defs: ParamDefs, dtype, device):
+        super().__init__()
+        self._keys = list(defs)
+        for k, d in defs.items():
+            if isinstance(d, ParamDef):
+                self.register_parameter(k, nn.Parameter(
+                    torch.empty(d.shape, dtype=dtype, device=device)))
+            else:
+                self.add_module(k, _params_module(d, dtype, device))
+
+    def __getitem__(self, k):
+        return getattr(self, k)
+
+    def items(self):
+        return [(k, getattr(self, k)) for k in self._keys]
+
+
 def _params_module(defs: ParamDefs, dtype, device) -> nn.Module:
     """``defs`` as modules: a ``ParameterDict`` where every value is a
-    ``ParamDef``, a ``ModuleDict`` above that (uninitialised storage)."""
-    if all(isinstance(d, ParamDef) for d in defs.values()):
+    ``ParamDef``, a ``ModuleDict`` where none is, a ``_ParamNode`` where
+    they mix (uninitialised storage)."""
+    kinds = {isinstance(d, ParamDef) for d in defs.values()}
+    if kinds == {True}:
         return nn.ParameterDict({
             k: nn.Parameter(torch.empty(d.shape, dtype=dtype, device=device))
             for k, d in defs.items()})
-    return nn.ModuleDict({k: _params_module(v, dtype, device)
-                          for k, v in defs.items()})
+    if kinds == {False}:
+        return nn.ModuleDict({k: _params_module(v, dtype, device)
+                              for k, v in defs.items()})
+    return _ParamNode(defs, dtype, device)
 
 
 def _tree(module: nn.Module) -> dict:
@@ -154,13 +207,18 @@ def _leaf(root: nn.Module, path) -> torch.Tensor:
 class LM(nn.Module):
     """Decoder-only language model over a pattern-unit stack."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 moe_dispatch: str = "fused"):
         super().__init__()
         why = _unsupported(cfg)
         if why is not None:
             raise NotImplementedError(f"{cfg.name}: {why} is not ported yet")
+        if moe_dispatch not in moe_mod.DISPATCHES:
+            raise ValueError(f"moe_dispatch {moe_dispatch!r}: one of "
+                             f"{moe_mod.DISPATCHES}")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.moe_dispatch = moe_dispatch
         self.cdt = getattr(torch, cfg.compute_dtype)
         self.pdt = getattr(torch, cfg.param_dtype)
         V, d = cfg.padded_vocab, cfg.d_model
@@ -232,6 +290,8 @@ class LM(nn.Module):
     # ---- layers ------------------------------------------------------------
 
     def _layer(self, p, x, positions, cache=None, cache_index=None):
+        """One layer: ``(x, aux)``, aux the MoE losses (empty for a dense
+        FFN)."""
         cfg = self.cfg
         h = norm_fwd(p["ln1"], x, cfg.norm_eps)
         out, nc = attn.attention_fwd(
@@ -240,20 +300,39 @@ class LM(nn.Module):
             cache_index=cache_index)
         x = x + out
         h = norm_fwd(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp_fwd(p["mlp"], h, cfg.mlp_type)
-        return x
+        aux = {}
+        if "moe" in p:
+            out, aux = moe_mod.moe_fwd(p["moe"], h, cfg, self.moe_dispatch)
+        else:
+            out = mlp_fwd(p["mlp"], h, cfg.mlp_type)
+        return x + out, aux
+
+    def _unit(self, unit, x, positions, caches=None, cache_index=None):
+        """The layers of one unit: ``(x, aux)``, aux summed over its layers
+        (the reference's ``_unit``)."""
+        aux = {}
+        for i, p in enumerate(unit):
+            x, a = self._layer(p, x, positions,
+                               None if caches is None else caches[i],
+                               cache_index)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     def _run_stack(self, x, positions, cache=None, cache_index=None):
+        """``(x, aux)``: aux the units' sums added up in unit order."""
         layers, _ = self._compute_params()
         P = len(self.cfg.pattern_unit)
-        for n, p in enumerate(layers):
-            u, i = divmod(n, P)
-            c = None
+        aux = {}
+        for u in range(self.cfg.n_units):
+            caches = None
             if cache is not None:
-                c = {"attn": {k: t[u] for k, t in
-                              cache[f"layer{i}"]["attn"].items()}}
-            x = self._layer(p, x, positions, c, cache_index)
-        return x
+                caches = [{"attn": {k: t[u] for k, t in
+                                    cache[f"layer{i}"]["attn"].items()}}
+                          for i in range(P)]
+            x, a = self._unit(layers[u * P:(u + 1) * P], x, positions,
+                              caches, cache_index)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     def _train_stack(self, x, positions):
         """The stack with grad: each unit casts its own weights, under
@@ -266,18 +345,18 @@ class LM(nn.Module):
         P = len(cfg.pattern_unit)
 
         def unit_fn(x, *unit):
-            for layer in unit:
-                x = self._layer(cast_floats(_tree(layer), self.cdt), x,
-                                positions)
-            return x
+            return self._unit([cast_floats(_tree(layer), self.cdt)
+                               for layer in unit], x, positions)
 
+        aux = {}
         for u in range(cfg.n_units):
             unit = tuple(self.layers[u * P:(u + 1) * P])
             if cfg.remat:
-                x = checkpoint(unit_fn, x, *unit, use_reentrant=False)
+                x, a = checkpoint(unit_fn, x, *unit, use_reentrant=False)
             else:
-                x = unit_fn(x, *unit)
-        return x
+                x, a = unit_fn(x, *unit)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     # ---- public entry points -------------------------------------------------
 
@@ -299,23 +378,30 @@ class LM(nn.Module):
 
     def loss_fn(self, batch):
         """Token-mean cross entropy (z-loss 1e-4) of ``batch["tokens"]``
-        (B, L+1): inputs ``[:, :-1]``, labels ``[:, 1:]``.  Returns
-        ``(loss, {"ce": loss})``; differentiable while grad is enabled."""
+        (B, L+1): inputs ``[:, :-1]``, labels ``[:, 1:]``; with MoE plus
+        ``0.01 * moe_lb / n_layers + 1e-3 * moe_z / n_layers``.  Returns
+        ``(loss, {"ce", and with MoE "moe_lb", "moe_z"})``; differentiable
+        while grad is enabled."""
         if batch.get("prefix_embeds") is not None:
             raise NotImplementedError("prefix embeddings (ROADMAP A14: VLM)")
-        if self.cfg.moe is not None:
-            raise NotImplementedError("the MoE aux loss (ROADMAP A14: MoE)")
+        cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens[:, :-1])
         labels = tokens[:, 1:]
         B, L, _ = x.shape
         positions = torch.arange(L, device=x.device).expand(B, L)
         if torch.is_grad_enabled():
-            x = self._train_stack(x, positions)
+            x, aux = self._train_stack(x, positions)
         else:
-            x = self._run_stack(x, positions)
+            x, aux = self._run_stack(x, positions)
         loss = cross_entropy(self._logits(x), labels)
-        return loss, {"ce": loss}
+        metrics = {"ce": loss}
+        if cfg.moe is not None:
+            n = const(float(cfg.n_layers), torch.float32, x.device)
+            loss = loss + 0.01 * aux["moe_lb"] / n \
+                + 1e-3 * aux["moe_z"] / n
+            metrics.update(aux)
+        return loss, metrics
 
     @torch.no_grad()
     def prefill(self, batch, cache=None):
@@ -328,9 +414,9 @@ class LM(nn.Module):
         B, L, _ = x.shape
         positions = torch.arange(L, device=x.device).expand(B, L)
         if cache is None:
-            x = self._run_stack(x, positions)
+            x, _ = self._run_stack(x, positions)
             return self._logits(x[:, -1:])[:, 0], None
-        x = self._run_stack(x, positions, cache=cache, cache_index=0)
+        x, _ = self._run_stack(x, positions, cache=cache, cache_index=0)
         return self._logits(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
@@ -341,7 +427,8 @@ class LM(nn.Module):
         B = token.shape[0]
         x = self._embed(token)
         positions = torch.full((B, 1), int(pos), device=x.device)
-        x = self._run_stack(x, positions, cache=cache, cache_index=int(pos))
+        x, _ = self._run_stack(x, positions, cache=cache,
+                               cache_index=int(pos))
         return self._logits(x)[:, 0], cache
 
     # ---- caches ----------------------------------------------------------------

@@ -61,7 +61,8 @@ def run_training(loop_cfg: TrainLoopConfig, program, data_cfg: DataConfig,
     of the reference's params), or initialises the model itself (e.g.
     ``lambda: program.model.init(gen)``).  ``fail_at_step`` raises just
     after that step completes (BEFORE its checkpoint).  History entries:
-    ``step``, ``loss``, ``grad_norm``, ``dt`` (seconds).
+    ``step``, ``loss``, ``grad_norm``, ``dt`` (seconds), and with MoE
+    ``ce``, ``moe_lb`` and ``moe_z``.
     """
     mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep,
                             async_save=loop_cfg.async_save)
@@ -109,7 +110,9 @@ def run_training(loop_cfg: TrainLoopConfig, program, data_cfg: DataConfig,
             watchdog.observe(step, dt)
             history.append({"step": step, "loss": loss,
                             "grad_norm": float(metrics["grad_norm"]),
-                            "dt": dt})
+                            "dt": dt, **{k: float(metrics[k]) for k in
+                                         ("ce", "moe_lb", "moe_z")
+                                         if "moe_lb" in metrics}})
             if log and step % loop_cfg.log_every == 0:
                 log(f"[step {step}] loss={loss:.4f} {dt * 1e3:.0f}ms")
             done = step + 1

@@ -40,8 +40,15 @@ from repro_torch.core.pipeline.block_graph import (
 from repro_torch.core.md import pair_schedule
 from repro_torch.kernels import nonbonded
 from repro_torch.launch.mesh import make_mesh
+from _torch_threads import share_cores
 
 AXES = ("z", "y", "x")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 def _toy_fns():

@@ -22,6 +22,7 @@ from repro_torch.convert import cells_to_domains
 from repro_torch.core import halo_plan
 from repro_torch.core.halo_plan import HaloPlan, HaloSpec
 from repro_torch.launch.mesh import make_mesh
+from _torch_threads import share_cores  # noqa: E402
 
 AXES = ("z", "y", "x")
 BACKENDS = ("serialized", "fused", "pallas", "signal")
@@ -29,6 +30,12 @@ CONFIGS = {"w111": ((1, 1, 1), None), "w121": ((1, 2, 1), None),
            "w222p222": ((2, 2, 2), (2, 2, 2))}
 LOCAL = (4, 3, 5)
 F = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 def _shift():

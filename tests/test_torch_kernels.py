@@ -20,10 +20,17 @@ import pytest
 import torch
 
 from repro_torch.kernels import halo_pack, ref
+from _torch_threads import share_cores
 
 DTYPES = [np.float32, np.float64, np.int32]
 SHAPES = [(64, 32, 4), (100, 60, 7), (16, 128, 3)]
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 class JaxKernels:

@@ -1,25 +1,16 @@
-"""The port's MD slice against the JAX MDEngine.
+"""The port's MD slice against the JAX MDEngine: host geometry, binning,
+rebin / migration and f32 forces, a short NVE run, the engine's knobs.
 
 Bitwise where the work is data movement (system builder, binning,
 rebin / migration), to stated tolerances where it is arithmetic:
 * f32 forces: 1e-5 of the force scale against JAX (summation order
-  differs), 5e-5 against the O(N^2) direct oracle; PE to 1e-5 relative;
-* 24-step f64 trajectories: per-step PE / KE to 1e-9 relative and final
-  positions to 1e-9 of the box, on 1x1x1 in process and on a 2x2x2 mesh
-  against an 8-virtual-device JAX run in a subprocess (dense, pruned, and
-  the signal backend under the depth-3 double-buffered pipeline with the
-  fused rebin).
-Within the port the pallas, signal and serialized halo backends, and the
-off and double_buffer pipelines, must give bitwise-identical trajectories
-(2x2x2, and 3x2x2 for the roll signs).
+  differs), 5e-5 against the O(N^2) direct oracle; PE to 1e-5 relative.
+The 24-step f64 trajectories are in ``tests/test_torch_md_trajectories.py``
+(1x1x1 against JAX in process, and the port's halo backends and pipelines
+against each other) and ``tests/test_torch_md_2x2x2.py`` (a 2x2x2 mesh
+against an 8-virtual-device JAX run in a subprocess).
 """
-import contextlib
 import dataclasses
-import functools
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,63 +20,45 @@ jax = pytest.importorskip("jax")   # the JAX package is the reference
 
 import jax.numpy as jnp  # noqa: E402
 
-from repro.core.halo_plan import HaloSpec as JaxHaloSpec
-from repro.core.md import MDEngine as JaxMDEngine
-from repro.core.md import make_grappa_like as jax_make_grappa_like
-from repro.core.md.cells import bin_to_cells as jax_bin_to_cells
-from repro.core.md.cells import cell_counts as jax_cell_counts
-from repro.core.md.cells import choose_layout as jax_choose_layout
-from repro.launch.mesh import make_mesh as jax_make_mesh
-from repro_torch.convert import (
+from _torch_md_common import (  # noqa: E402
+    AXES,
+    _diag_rows,
+    _jax_engine,
+    _port_engine,
+)
+from repro.core.md import MDEngine as JaxMDEngine  # noqa: E402
+from repro.core.md import make_grappa_like as jax_make_grappa_like  # noqa: E402
+from repro.core.md.cells import bin_to_cells as jax_bin_to_cells  # noqa: E402
+from repro.core.md.cells import cell_counts as jax_cell_counts  # noqa: E402
+from repro.core.md.cells import choose_layout as jax_choose_layout  # noqa: E402
+from repro.launch.mesh import make_mesh as jax_make_mesh  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
     cells_to_domains,
     domains_to_cells,
     system_from_jax,
 )
-from repro_torch.core.halo_plan import HaloSpec
-from repro_torch.core.md import (
+from repro_torch.core.halo_plan import HaloSpec  # noqa: E402
+from repro_torch.core.md import (  # noqa: E402
     MDEngine,
     choose_layout,
     direct_forces_reference,
     make_grappa_like,
 )
-from repro_torch.core.md.cells import bin_to_cells, cell_counts
-from repro_torch.core.md.domain import rebin
-from repro_torch.launch.mesh import make_md_mesh, make_mesh
-
-AXES = ("z", "y", "x")
-REPO = Path(__file__).resolve().parent.parent
-DIAG_KEYS = ("migration_dropped", "migration_lost", "bin_overflow",
-             "n_atoms")
-
-
-@contextlib.contextmanager
-def x64(enabled: bool):
-    old = jax.config.jax_enable_x64
-    jax.config.update("jax_enable_x64", enabled)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", old)
-
-
-def _port_engine(system, mesh_shape=(1, 1, 1), backend="pallas"):
-    return MDEngine(system, make_mesh(mesh_shape, AXES),
-                    HaloSpec(AXES, (1, 1, 1), backend=backend),
-                    device="cpu")
-
-
-def _jax_engine(system, backend="pallas"):
-    return JaxMDEngine(system, jax_make_mesh((1, 1, 1), AXES),
-                       JaxHaloSpec(AXES, (1, 1, 1), backend=backend))
-
-
-def _diag_rows(diags):
-    return [[int(np.asarray(d[k])) for k in DIAG_KEYS] for d in diags]
+from repro_torch.core.md.cells import bin_to_cells, cell_counts  # noqa: E402
+from repro_torch.core.md.domain import rebin  # noqa: E402
+from repro_torch.launch.mesh import make_md_mesh, make_mesh  # noqa: E402
+from _torch_threads import share_cores  # noqa: E402
 
 
 # --------------------------------------------------------------------------
 # host geometry: identical
 # --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
+
 
 @pytest.mark.parametrize("n,seed,dtype", [(300, 11, np.float32),
                                           (900, 3, np.float64),
@@ -276,208 +249,6 @@ def test_forces_f32_match_jax_and_oracle(f32_system, jax_f32_engine):
     assert np.abs(f_port - f_ref).max() / np.abs(f_ref).max() < 5e-5
     assert np.abs(f_port.sum(axis=0)).max() < 1e-3       # Newton's third law
 
-
-def _assert_trajectories_agree(m, d, pos, ref_m, ref_d, ref_pos, box):
-    for k in ("pe", "ke"):
-        rel = np.abs(m[k] - ref_m[k]).max() / np.abs(ref_m[k]).max()
-        assert rel < 1e-9, (k, rel)
-    assert np.abs(pos - ref_pos).max() / box < 1e-9
-    assert _diag_rows(d) == _diag_rows(ref_d)
-
-
-def test_whole_slice_f64_1x1x1_matches_jax():
-    with x64(True):
-        s = jax_make_grappa_like(300, seed=11, dtype=np.float64)
-        jeng = _jax_engine(s, backend="pallas")
-        (jcf, jci), jm, jd = jeng.simulate(24)
-        jpos, = jeng.gather_by_id([jcf[..., :3]], jci)
-        jstats = jeng.halo_stats()
-        assert jeng.plan._pallas_broken is False
-    eng = _port_engine(system_from_jax(s))
-    (cf, ci), m, d = eng.simulate(24)
-    pos, = eng.gather_by_id([cf[..., :3]], ci)
-    assert m["pe"].shape == (24,) and m["mom"].shape == (24, 3)
-    assert cf.dtype == torch.float64
-    _assert_trajectories_agree(m, d, pos, jm, jd, jpos, s.box[0])
-    assert len(d) == 2                       # crossed one rebin
-    assert eng.halo_stats() == jstats
-    assert eng.overlap_stats() == jeng.overlap_stats()
-    assert eng.pair_stats() == jeng.pair_stats()
-
-
-# the 2x2x2 reference: one JAX run on 8 virtual devices, in a subprocess
-# (the main pytest process keeps a single JAX device)
-_JAX_DD_SCRIPT = r"""
-import sys
-import numpy as np
-import jax
-jax.config.update("jax_enable_x64", True)
-from repro.core.halo_plan import HaloSpec
-from repro.core.md import MDEngine, make_grappa_like
-from repro.launch.mesh import make_mesh
-assert len(jax.devices()) >= 8
-s = make_grappa_like(900, seed=3, dtype=np.float64)
-keys = ("migration_dropped", "migration_lost", "bin_overflow", "n_atoms")
-out = {}
-# the dense run, the pruned "sparse" backend with nstprune 0 and 4, and
-# the signal backend under the depth-3 double buffer with the fused rebin
-for tag, backend, kw in (
-        ("", "pallas", {}),
-        ("sparse0_", "pallas", dict(force_backend="sparse")),
-        ("sparse4_", "pallas", dict(force_backend="sparse", nstprune=4)),
-        ("signal_", "signal", dict(pipeline="double_buffer",
-                                   pipeline_depth=3, overlap_rebin=True))):
-    eng = MDEngine(s, make_mesh((2, 2, 2), ("z", "y", "x")),
-                   HaloSpec(("z", "y", "x"), (1, 1, 1), backend=backend),
-                   **kw)
-    (cf, ci), m, d = eng.simulate(24)
-    pos, = eng.gather_by_id([cf[..., :3]], ci)
-    out.update({tag + "pe": m["pe"], tag + "ke": m["ke"],
-                tag + "mom": m["mom"], tag + "pos": pos,
-                tag + "diags": np.array([[int(x[k]) for k in keys]
-                                         for x in d]),
-                tag + "sched_history": np.array(eng.sched_history)})
-    out[tag + "pallas_broken"] = eng.plan._pallas_broken
-np.savez(sys.argv[1], **out)
-"""
-
-
-@pytest.fixture(scope="session")
-def jax_dd_reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_dd") / "ref_2x2x2.npz"
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = f"{REPO / 'src'}:{env.get('PYTHONPATH', '')}"
-    proc = subprocess.run([sys.executable, "-c", _JAX_DD_SCRIPT, str(out)],
-                          capture_output=True, text=True, timeout=600,
-                          env=env)
-    if proc.returncode != 0:
-        raise AssertionError(f"JAX 2x2x2 reference failed:\n{proc.stderr}")
-    return dict(np.load(out))
-
-
-def _ref_run(jax_dd_reference, tag):
-    return {k[len(tag):]: v for k, v in jax_dd_reference.items()
-            if k.startswith(tag)}
-
-
-@functools.lru_cache(maxsize=None)
-def _port_dd_run(mesh_shape=(2, 2, 2), n_atoms=900, seed=3,
-                 backend="pallas", **kw):
-    """One f64 24-step port run on the CPU (cached: several tests compare
-    against the same run)."""
-    s = make_grappa_like(n_atoms, seed=seed, dtype=np.float64)
-    eng = MDEngine(s, make_mesh(mesh_shape, AXES),
-                   HaloSpec(AXES, (1, 1, 1), backend=backend), device="cpu",
-                   **kw)
-    (cf, ci), m, d = eng.simulate(24)
-    pos, = eng.gather_by_id([cf[..., :3]], ci)
-    return s, eng, (cf, ci), m, d, pos
-
-
-def _assert_runs_bitwise(a, b):
-    """Two ``_port_dd_run`` results: final state, per-step metrics,
-    migration diagnostics and (pruned) schedule history identical."""
-    assert torch.equal(a[2][0], b[2][0]) and torch.equal(a[2][1], b[2][1])
-    for k in ("pe", "ke", "mom"):
-        assert np.array_equal(a[3][k], b[3][k]), k
-    assert a[4] == b[4]
-    assert a[1].sched_history == b[1].sched_history
-
-
-def test_whole_slice_f64_2x2x2_matches_jax(jax_dd_reference):
-    ref = _ref_run(jax_dd_reference, "")
-    assert not bool(ref["pallas_broken"])
-    s, _eng, _state, m, d, pos = _port_dd_run()
-    ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
-    _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
-    assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
-
-
-def test_signal_double_buffer_f64_2x2x2_matches_jax(jax_dd_reference):
-    """signal / double_buffer / depth 3 / overlap_rebin against the same
-    JAX run, and bitwise against the port's serialized / off."""
-    ref = _ref_run(jax_dd_reference, "signal_")
-    run = _port_dd_run(backend="signal", pipeline="double_buffer",
-                       pipeline_depth=3, overlap_rebin=True)
-    s, eng, _state, m, d, pos = run
-    assert (eng.pipeline.mode, eng.pipeline.depth) == ("double_buffer", 3)
-    ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
-    _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
-    assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
-    _assert_runs_bitwise(run, _port_dd_run(backend="serialized"))
-
-
-@pytest.mark.parametrize("nstprune", [0, 4])
-def test_pruned_f64_2x2x2_matches_jax_sparse(jax_dd_reference, nstprune):
-    """The port's ``"pallas"`` force backend (its kernels' plain forms on
-    the CPU) against JAX's ``"sparse"`` backend on 8 devices."""
-    ref = _ref_run(jax_dd_reference, f"sparse{nstprune}_")
-    s, eng, _state, m, d, pos = _port_dd_run(force_backend="pallas",
-                                             nstprune=nstprune)
-    ref_d = [dict(zip(DIAG_KEYS, row)) for row in ref["diags"]]
-    _assert_trajectories_agree(m, d, pos, ref, ref_d, ref["pos"], s.box[0])
-    assert np.abs(m["mom"] - ref["mom"]).max() < 1e-9
-    assert eng.sched_history == [tuple(r) for r in ref["sched_history"]]
-
-
-@pytest.mark.parametrize("nstprune", [0, 4])
-def test_pruned_signal_double_buffer_equals_off_bitwise(nstprune):
-    """Pruned signal / double_buffer / overlap_rebin against the port's
-    pruned off, bitwise (on jax 0.9 the reference's own sparse off and
-    double_buffer runs differ, so JAX is no bitwise oracle here)."""
-    off = _port_dd_run(force_backend="pallas", nstprune=nstprune)
-    for depth in (2, 3):
-        _assert_runs_bitwise(_port_dd_run(
-            backend="signal", force_backend="pallas", nstprune=nstprune,
-            pipeline="double_buffer", pipeline_depth=depth,
-            overlap_rebin=True), off)
-
-
-@pytest.mark.parametrize("mesh_shape,widths,pulses", [
-    pytest.param((3, 2, 2), (1, 1, 1), None, id="3x2x2"),
-    pytest.param((2, 2, 2), (2, 2, 2), (2, 2, 2), id="2x2x2-w2p2"),
-])
-def test_signal_double_buffer_equals_serialized_off(mesh_shape, widths,
-                                                    pulses):
-    """signal / double_buffer against serialized / off, bitwise, across a
-    fused rebin: on 3x2x2 (size-3 domain axes tell the two put directions
-    apart, which size-2 axes cannot) and with two-pulse dims, which take
-    ``fused_pulses`` (local blocks of 2 cells, so 1600 atoms)."""
-    runs = {}
-    s = make_grappa_like(1600, seed=4)
-    for backend, kw in (("serialized", {}),
-                        ("signal", dict(pipeline="double_buffer",
-                                        pipeline_depth=2,
-                                        overlap_rebin=True))):
-        eng = MDEngine(s, make_mesh(mesh_shape, AXES),
-                       HaloSpec(AXES, widths, backend=backend,
-                                pulses=pulses), device="cpu", **kw)
-        (cf, ci), m, d = eng.simulate(22)
-        runs[backend] = (cf, ci, m, d)
-    p, q = runs["signal"], runs["serialized"]
-    assert torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
-    for k in ("pe", "ke", "mom"):
-        assert np.array_equal(p[2][k], q[2][k]), k
-    assert p[3] == q[3] and len(p[3]) == 2
-
-
-def test_pallas_equals_serialized_bitwise_2x2x2():
-    s = make_grappa_like(900, seed=3)
-    runs = {}
-    for b in ("pallas", "serialized"):
-        eng = _port_engine(s, mesh_shape=(2, 2, 2), backend=b)
-        (cf, ci), m, d = eng.simulate(24)
-        runs[b] = (cf, ci, m, d)
-    p, q = runs["pallas"], runs["serialized"]
-    assert torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
-    for k in ("pe", "ke", "mom"):
-        assert np.array_equal(p[2][k], q[2][k]), k
-    assert p[3] == q[3]
-    E = p[2]["pe"] + p[2]["ke"]
-    assert np.all(np.isfinite(E))
-    assert (E.max() - E.min()) / s.n_atoms < 5e-3
 
 
 def test_short_nve_run_is_stable(f32_system):

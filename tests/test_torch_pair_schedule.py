@@ -48,11 +48,18 @@ from repro_torch.core.md import schedule_opt as so
 from repro_torch.core.md.cells import cell_bounds, cell_levels
 from repro_torch.kernels import nonbonded, ref
 from repro_torch.launch.mesh import make_mesh
+from _torch_threads import share_cores  # noqa: E402
 
 AXES = ("z", "y", "x")
 FORCE_RTOL = {np.float32: 5e-6, np.float64: 1e-12}
 DIAG_KEYS = ("migration_dropped", "migration_lost", "bin_overflow",
              "n_atoms")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 @contextlib.contextmanager

@@ -47,6 +47,7 @@ from repro_torch.core.pipeline import (  # noqa: E402
     StepPipeline,
 )
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from _torch_threads import share_cores  # noqa: E402
 
 MATRIX_BACKENDS = ("serialized", "fused", "pallas", "signal")
 MATRIX_MODES = ("off", "double_buffer")
@@ -60,6 +61,12 @@ MATRIX = [(b, m, w, d)
           for d in MATRIX_DEPTHS]
 LOCAL = (6, 4)
 TOL = 1e-5           # f32, relative to the compared array's scale
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 def _x0(n_dom):

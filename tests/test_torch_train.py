@@ -68,11 +68,18 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.optim import adamw as tadamw
 from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+from _torch_threads import share_cores  # noqa: E402
 
 ARCH = "qwen3-1.7b"
 SEQ, BATCH = 16, 4
 OCFG = dict(lr=8e-3, warmup_steps=2, total_steps=60)
 PARAM_ATOL = 1e-2 * OCFG["lr"]     # see the module docstring
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_cores():
+    """Run this module's PyTorch ops on the worker's share of the cores."""
+    yield from share_cores()
 
 
 class Jax:
