@@ -19,6 +19,8 @@
         # prints no result lines
     python3 chip_smoke.py --moe                # phases 1, 2 and 20 alone;
         # prints no result lines
+    python3 chip_smoke.py --ssm                # phases 1, 2 and 21 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -257,6 +259,30 @@ Phases, each asserting (any failure exits non-zero with no result line):
     tokens/s, peak memory; a 1-layer full-width f32 loss (its aux terms
     too) and every gradient on the card against the CPU (1e-4 of each
     leaf's max), the same routing asserted first.
+21. state-space models: (a) rwkv6-3b at full width and depth
+    (3,073,313,280 parameters, f32 parameters from a seeded generator,
+    bf16 compute) served by ``BatchServer``, two waves of 4 x (1024 + 32)
+    tokens with every kernel counter zeroed just before and read just
+    after (no kernel launched: ``flash_attention`` 0); prefill ms a wave,
+    decode ms a step, tok/s, peak memory, a profiled prefill and decode
+    step (device ms by kernel, kernels a call, busy share); the first 8
+    teacher-forced decode steps against a no-cache prefill in bf16 (held
+    at 5e-2 of max |logit| unless one bf16 ulp on the embeddings already
+    moves the logits further) and in f32 at full width (1e-3); a 1-layer
+    full-width f32 prefill and 4 decode steps, card vs CPU (1e-4); (b) B7
+    at jamba's prefill shape (BH = 4 x 8, L = S = 1024, G = 4, hd = 128,
+    causal, bf16) against its plain form (2e-2), timed beside SDPA and the
+    bound; jamba-v0.1-52b at full width cut to one of its four 8-layer
+    units (13,295,235,072 parameters, bf16 parameters) served the same way
+    (``flash_attention`` 2: one attention layer a wave), the capacity
+    dispatch's drops (644 slots an expert), timings and profiles; the bf16
+    model freed, the unit in f32: the first 8 teacher-forced decode steps
+    against a no-cache ``dense`` prefill (1e-3 where the routing agrees, at
+    most 5 % of the tokens routed otherwise), held where one f32 ulp on the
+    embeddings moves the logits less than 1e-3, else printed and held on
+    the unit drawn at each leaf's fan-in scale; one full-width Mamba layer
+    (d_inner 8192) in f32, a 4 x 1024 prefill from a seeded state and 4
+    decode steps, card vs CPU (1e-4).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -2006,8 +2032,8 @@ def lm_serve_counted(model, label):
     """Two waves of ``SERVE_BATCH`` requests (``SERVE_PROMPT``-token
     prompts from ``RandomState(0)``, ``SERVE_NEW`` new tokens) through
     ``BatchServer`` with every kernel counter zeroed just before and read
-    just after: ``flash_attention`` must read 2 x n_layers (one prefill a
-    wave) and every other counter 0.  Prints the launches, tok/s and peak
+    just after: ``flash_attention`` must read 2 x the attention layers
+    (one prefill a wave; none for RWKV) and every other counter 0.  Prints the launches, tok/s and peak
     memory; returns ``(waves, served requests, server, launches, the
     prompts' RandomState after its draws)``."""
     import numpy as np
@@ -2038,9 +2064,10 @@ def lm_serve_counted(model, label):
     print(f"  counted run: 2 waves x {SERVE_BATCH} requests, launches "
           f"{launches}; wave latencies "
           f"{[done[0].latency_s, done[-1].latency_s]} s")
-    check(launches["flash_attention"] == 2 * cfg.n_layers,
+    n_attn = cfg.n_units * sum(s.kind == "attn" for s in cfg.pattern_unit)
+    check(launches["flash_attention"] == 2 * n_attn,
           f"{label}: flash_attention launched "
-          f"{launches['flash_attention']} times, not {2 * cfg.n_layers}")
+          f"{launches['flash_attention']} times, not {2 * n_attn}")
     check(all(n == 0 for name, n in launches.items()
               if name != "flash_attention"),
           f"{label}: another kernel ran while serving")
@@ -4035,6 +4062,8 @@ def moe_teacher_forced(model, prompt, gen, max_len):
         out["finite"] &= bool(torch.isfinite(logits).all()) and \
             bool(torch.isfinite(full).all())
         scale = full.float().abs().max()
+        check(float(scale) > 0, f"teacher-forced position {t}: the no-cache "
+              "prefill's logits are all zero")
         row = ((logits.float() - full.float()).abs().amax(-1) / scale)
         out["row_rel"].append(row.tolist())
         out["rel"].append(float(row.max()))
@@ -4055,9 +4084,10 @@ def moe_teacher_forced(model, prompt, gen, max_len):
             out["flips"] = flips if out["flips"] is None else \
                 [x + y for x, y in zip(out["flips"], flips)]
         out["row_flip"].append(flipped)
-    dropped, _ = moe_drops(decode_routes, model.cfg.moe)
-    check(dropped == 0 and len(decode_routes) ==
-          (gen.shape[1] - 1) * model.cfg.n_layers,
+    cfg = model.cfg
+    n_moe = cfg.n_units * sum(s.moe for s in cfg.pattern_unit)
+    dropped, _ = moe_drops(decode_routes, cfg.moe)
+    check(dropped == 0 and len(decode_routes) == (gen.shape[1] - 1) * n_moe,
           f"teacher-forced decode: {len(decode_routes)} dispatches, "
           f"{dropped} assignments dropped")
     out["worst"] = max(out["rel"])
@@ -4420,14 +4450,458 @@ def moe_phase():
             for name, acc in kern.items()}
 
 
+# ---- phase 21: state-space models, rwkv6-3b and jamba-v0.1-52b served --------
+
+RWKV_ARCH, RWKV_PARAMS = "rwkv6-3b", 3_073_313_280          # full size
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS, JAMBA_UNIT_PARAMS = 8, 13_295_235_072   # one of its 4 units
+SSM_TF_STEPS = 8           # teacher-forced decode steps checked a model
+SSM_LAYER_TOL = 1e-4       # a full-width Mamba layer, card vs CPU, of max
+
+
+def ssm_flash_phase():
+    """B7 at jamba's attention shape (32 q heads over 8 kv heads, so G =
+    4; BH = 4 x 8, L = S = 1024, hd 128, causal, bf16) against its plain
+    form (phase 13's bar), timed beside its plain form, SDPA and the
+    bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    BH, L, S, G, hd = 32, 1024, 1024, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd)))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got.double() - want.double()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL["bfloat16"],
+          f"B7 at jamba's shape: {err} from its plain form")
+    nbytes, ops = flash_work(BH, L, S, G, hd, True, 2)
+    bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+    t_k = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), n=50,
+                  warmup=5)
+    t_p = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                  n=3, warmup=1)
+    # SDPA over the kv heads repeated G times (its GQA layout)
+    qt = q.transpose(1, 2).contiguous()                     # (BH, G, L, hd)
+    kt = k[:, None].expand(BH, G, S, hd).contiguous()
+    vt = v[:, None].expand(BH, G, S, hd).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_l = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), n=50, warmup=5)
+    print(f"SSM phase (b): B7 at jamba's prefill shape (BH {BH}, L = S = "
+          f"{L}, G {G}, hd {hd}, causal, bf16, {ops / 1e9:.2f} GFLOP): vs "
+          f"plain {err:.3e} (tolerance {FLASH_TOL['bfloat16']}); kernel "
+          f"{t_k:.6f} ms, plain {t_p:.6f} ms, SDPA {t_l:.6f} ms, bound "
+          f"{bound:.6f} ms ({bound / t_k:.4f} of it; "
+          f"{ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s)")
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+            "max_abs_err": err}
+
+
+def ssm_profiles(model, prompt, label):
+    """Steady prefill / decode timings through the entry points, then a
+    profiled prefill and a profiled decode step: device ms by kernel,
+    kernels a call, busy share of the host wall."""
+    import torch
+
+    prefill_once = lm_serve_timings(model, prompt)
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)
+    lg, cache = model.prefill({"tokens": prompt}, cache)
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+
+    def decode_once():
+        model.decode_step(tok, SERVE_PROMPT, cache)
+
+    for what, fn in (("prefill", prefill_once),
+                     ("decode step", decode_once)):
+        prof = _profile(fn, 1)
+        if prof is None:
+            print(f"  {label} {what} profile: device time not measured (no "
+                  f"CUDA events)")
+            continue
+        wall, device, n_kern, busy, by_name = prof
+        print(f"  {label} {what} profile (torch.profiler, one call, "
+              f"{SERVE_BATCH} rows): host wall {wall / 1e3:.4f} ms, device "
+              f"kernel time {device / 1e3:.4f} ms, {n_kern:.0f} kernels, "
+              f"device busy {busy:.4f} of the host wall")
+        for name, (t, k) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms "
+                  f"{k:7.0f}x {name[:90]}")
+    del cache, lg, tok
+
+
+def ssm_card_vs_cpu(cfg, label, n_prefill=256, n_decode=4):
+    """``cfg`` at full width in f32: a prefill of 2 x ``n_prefill`` tokens
+    into a cache and ``n_decode`` decode steps, on the card and on the CPU
+    with the same weights; every call's logits within ``F32_LOGIT_TOL``
+    of max |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+
+    small = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (2, n_prefill + n_decode)).astype(np.int32))
+
+    def run(model):
+        dev = model.device
+        out = []
+        lg, cache = model.prefill({"tokens": toks[:, :n_prefill].to(dev)},
+                                  model.init_cache(2, n_prefill + n_decode))
+        out.append(lg.cpu())
+        for t in range(n_prefill, n_prefill + n_decode):
+            lg, cache = model.decode_step(toks[:, t:t + 1].to(dev), t, cache)
+            out.append(lg.cpu())
+        return out
+
+    on_card = run(small)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    on_cpu = run(small)
+    t_cpu = time.perf_counter() - t_cpu
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(on_card, on_cpu)]
+    print(f"  {label}: a 2 x {n_prefill} prefill and {n_decode} decode "
+          f"steps, f32 at full width, card vs CPU (the CPU's {t_cpu:.2f} s): "
+          f"max |dlogit| / max |logit| per call "
+          f"{[float(f'{r:.3e}') for r in rels]} (tolerance {F32_LOGIT_TOL}, "
+          f"TF32 off)")
+    check(all(bool(torch.isfinite(a).all()) for a in on_card) and
+          max(rels) <= F32_LOGIT_TOL, f"{label}: card logits {rels} from "
+          "the CPU's")
+    del small
+    gc_release()
+
+
+def rwkv_serve_phase():
+    """rwkv6-3b at full width and depth (32 layers, 3,073,313,280
+    parameters, f32 parameters from a seeded generator, bf16 compute)
+    served by ``BatchServer``: two waves of 4 x (1024 + 32) tokens with
+    every kernel counter zeroed just before and read just after (no
+    kernel: ``flash_attention`` 0); timings and profiles; the first
+    ``SSM_TF_STEPS`` teacher-forced decode steps against a no-cache
+    prefill, in bf16 (held at ``TF_LOGIT_TOL`` unless one bf16 ulp on the
+    embeddings already moves the logits further) and in f32 at full width
+    (``F32_TF_TOL``); a 1-layer f32 prefill and 4 decode steps on the card
+    against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+
+    cfg = get_config(RWKV_ARCH)
+    check(cfg.n_layers == 32 and cfg.d_model == 2560 and
+          cfg.compute_dtype == "bfloat16" and
+          cfg.pattern_unit[0].kind == "rwkv", f"{RWKV_ARCH} changed: {cfg}")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == RWKV_PARAMS, f"{RWKV_ARCH} has {n_params} parameters")
+    print(f"SSM phase (a): {RWKV_ARCH}, {n_params} parameters, "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute; init "
+          f"{time.perf_counter() - t0:.2f} s")
+    waves, done, server, launches, _ = lm_serve_counted(model, RWKV_ARCH)
+    prompt = torch.from_numpy(np.stack([r.prompt for r in waves[0]])).cuda()
+    gen = torch.from_numpy(np.stack([r.out_tokens for r in
+                                     done[:SERVE_BATCH]]))[:, :SSM_TF_STEPS + 1]
+    max_len = SERVE_PROMPT + SERVE_NEW
+    ssm_profiles(model, prompt, RWKV_ARCH)
+
+    tf = moe_teacher_forced(model, prompt, gen.cuda(), max_len)
+    sens = moe_sensitivity(model, prompt)
+    held = sens <= TF_LOGIT_TOL
+    print(f"  bf16 teacher-forced decode vs no-cache prefill, the first "
+          f"{SSM_TF_STEPS} decode steps: max |dlogit| / max |logit| = "
+          f"{tf['worst']:.4e} (per position "
+          f"{[float(f'{r:.3e}') for r in tf['rel']]}); one bf16 ulp on the "
+          f"embeddings moves the prefill's logits by {sens:.4e} of max "
+          f"|logit|: {'held at ' + str(TF_LOGIT_TOL) if held else 'not held (the one-ulp move exceeds ' + str(TF_LOGIT_TOL) + ')'}")
+    check(tf["finite"], "non-finite bf16 teacher-forced logits")
+    if held:
+        check(tf["worst"] <= TF_LOGIT_TOL, f"{RWKV_ARCH} bf16 decode logits "
+              f"{tf['worst']} from the prefill's")
+    del model, server, prompt
+    gc_release()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = build_model(cfg32).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.from_numpy(np.stack([r.prompt for r in waves[0]])).cuda()
+    tf32 = moe_teacher_forced(model, prompt, gen.cuda(), max_len)
+    print(f"  f32 teacher-forced decode at full width, the same tokens: max "
+          f"|dlogit| / max |logit| = {tf32['worst']:.4e} (per position "
+          f"{[float(f'{r:.3e}') for r in tf32['rel']]}; tolerance "
+          f"{F32_TF_TOL})")
+    check(tf32["finite"] and tf32["worst"] <= F32_TF_TOL,
+          f"{RWKV_ARCH} f32 decode logits {tf32['worst']} from the prefill's")
+    del model, prompt
+    gc_release()
+    ssm_card_vs_cpu(dataclasses.replace(cfg, n_layers=1,
+                                        compute_dtype="float32"),
+                    f"1-layer {RWKV_ARCH}")
+    return launches
+
+
+def _rescale_unit_weights(model, std) -> None:
+    """Scale every unit leaf that ``init`` drew by the reference's rule
+    (``normal``, no declared scale: ``1 / sqrt(n_units)``, the stacked
+    leaf's first dim its fan-in) to the standard deviation ``std(shape)``
+    of its unstacked shape."""
+    import torch
+    from repro_torch.models.layers import _flatten
+    from repro_torch.models.transformer import _leaf
+
+    cfg = model.cfg
+    P = len(cfg.pattern_unit)
+    with torch.no_grad():
+        for path, d in _flatten(model.defs["units"]).items():
+            if d.init == "normal" and d.scale is None:
+                f = std(d.shape[1:]) * math.sqrt(cfg.n_units)
+                i = int(path[0][len("layer"):])
+                for u in range(cfg.n_units):
+                    _leaf(model.layers[u * P + i], path[1:]).mul_(f)
+    model.drop_cast()
+
+
+def draw_at_full_depth(model, full_units: int) -> None:
+    """The unit weights at the full model's ``1 / sqrt(full_units)``: a
+    model cut to one unit would draw them at 1.0, and jamba's residual
+    stream then outgrows float32 in the norms' sum of squares (every
+    logit 0, every router logit tied; PR 28, call 1)."""
+    _rescale_unit_weights(model, lambda shape: full_units ** -0.5)
+
+
+def draw_at_fan_in(model) -> None:
+    """The unit weights at ``1 / sqrt(fan_in)``, the fan-in the input dim
+    of the leaf's product (``shape[-2]``): activations stay of order one
+    through the depth, as a trained model's do."""
+    _rescale_unit_weights(
+        model, lambda shape: (shape[-2] if len(shape) > 1 else shape[-1])
+        ** -0.5)
+
+
+def mamba_layer_card_vs_cpu(cfg):
+    """One Mamba layer of ``cfg`` at full width in f32 (seeded weights by
+    the reference's rule): a 4 x 1024 prefill from a seeded state, then 4
+    decode steps from the state it leaves, on the card and on the CPU;
+    every output and the final states within ``SSM_LAYER_TOL`` of max."""
+    import torch
+    from repro_torch.models import layers, mamba
+
+    gen = torch.Generator().manual_seed(7)
+    p = {k: layers._init_one(gen, d, torch.float32)
+         for k, d in mamba.mamba_defs(cfg).items()}
+    B, L, di, ds = SERVE_BATCH, SERVE_PROMPT, cfg.d_inner_mamba, \
+        cfg.mamba_d_state
+    x = torch.randn(B, L + 4, cfg.d_model, generator=gen)
+    state0 = {"conv": torch.randn(B, cfg.mamba_d_conv - 1, di,
+                                  generator=gen),
+              "ssm": torch.randn(B, di, ds, generator=gen)}
+
+    def run(dev):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        st = {k: v.to(dev) for k, v in state0.items()}
+        outs = []
+        out, st = mamba.mamba_fwd(pd, x[:, :L].to(dev), cfg, state=st)
+        outs.append(out.cpu())
+        for t in range(L, L + 4):
+            out, st = mamba.mamba_fwd(pd, x[:, t:t + 1].to(dev), cfg,
+                                      state=st)
+            outs.append(out.cpu())
+        return outs, {k: v.cpu() for k, v in st.items()}
+
+    t1 = time.perf_counter()
+    card, card_st = run("cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu, cpu_st = run("cpu")
+    t_cpu = time.perf_counter() - t1
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(card + list(card_st.values()),
+                            cpu + list(cpu_st.values()))]
+    print(f"  one Mamba layer at full width (d_inner {di}, d_state {ds}, "
+          f"dt_rank {mamba.dt_rank(cfg)}), f32: a {B} x {L} prefill from a "
+          f"seeded state and 4 decode steps, card ({t_card:.2f} s) vs CPU "
+          f"({t_cpu:.2f} s): max |d| / max per output and final state "
+          f"{[float(f'{r:.3e}') for r in rels]} (tolerance {SSM_LAYER_TOL}, "
+          f"TF32 off)")
+    check(all(bool(torch.isfinite(a).all()) for a in card) and
+          max(rels) <= SSM_LAYER_TOL, f"Mamba layer card vs CPU: {rels}")
+
+
+def jamba_teacher_forced(cfg32, prompt, gen, label, draw, hold):
+    """The first ``SSM_TF_STEPS`` f32 teacher-forced decode steps of a
+    model of ``cfg32`` (seed 0, then ``draw``) against a no-cache dense
+    prefill, with the f32 one-ulp sensitivity of its logits; PR 27's rule
+    (``F32_TF_TOL`` where the routing agrees, at most
+    ``MOE_TF_FLIP_SHARE`` of the tokens routed otherwise) held when
+    ``hold`` is True, or, with ``hold`` None, when one f32 ulp on the
+    embeddings moves the logits by less than the bar (a model that
+    chaotic cannot tell two summation orders apart).  Returns whether the
+    rule was held."""
+    import torch
+    from repro_torch import build_model
+
+    max_len = SERVE_PROMPT + SERVE_NEW
+    model = build_model(cfg32).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    draw(model)
+    tf = moe_teacher_forced(model, prompt.cuda(), gen.cuda(), max_len)
+    sens = moe_sensitivity(model, prompt.cuda())
+    same = [r for rows, fl in zip(tf["row_rel"], tf["row_flip"])
+            for r, f in zip(rows, fl) if not f]
+    flipped = [(t, b, float(f"{r:.3e}")) for t, (rows, fl) in
+               enumerate(zip(tf["row_rel"], tf["row_flip"]))
+               for b, (r, f) in enumerate(zip(rows, fl)) if f]
+    n_dec = SERVE_BATCH * SSM_TF_STEPS
+    if hold is None:
+        hold = sens <= F32_TF_TOL
+    print(f"  f32 teacher-forced decode, {label} (fused; cache from a dense "
+          f"prefill) vs no-cache dense prefill, the first {SSM_TF_STEPS} "
+          f"decode steps: decode tokens routed as the prefill's same "
+          f"position in every MoE layer: {n_dec - len(flipped)} of {n_dec}, "
+          f"their logits within {max(same, default=0.0):.4e} of max |logit| "
+          f"(per position {[float(f'{r:.3e}') for r in tf['rel']]}); the "
+          f"others (position, row, gap) {flipped}; flips per MoE layer "
+          f"{tf['flips']}; smallest k-th / (k+1)-th router logit gap "
+          f"{tf['gap']:.3e}; one f32 ulp on the embeddings moves the dense "
+          f"prefill's logits by {sens:.4e} of max |logit|; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB: "
+          + (f"held ({F32_TF_TOL} where the routing agrees, at most "
+             f"{MOE_TF_FLIP_SHARE} of the tokens routed otherwise)" if hold
+             else f"not held (the one-ulp move exceeds {F32_TF_TOL})"))
+    check(tf["finite"], f"non-finite f32 teacher-forced logits ({label})")
+    if hold:
+        check(len(flipped) <= MOE_TF_FLIP_SHARE * n_dec,
+              f"f32 teacher-forced decode ({label}): {len(flipped)} of "
+              f"{n_dec} decode tokens routed unlike the dense prefill")
+        check(max(same) <= F32_TF_TOL, f"{JAMBA_ARCH} f32 decode logits "
+              f"({label}) {max(same)} from the dense prefill's where the "
+              "routing agrees")
+    del model
+    gc_release()
+    return hold
+
+
+def jamba_serve_phase():
+    """jamba-v0.1-52b at full width cut to one of its four 8-layer units
+    (7 Mamba layers and 1 attention layer; 4 MoE layers of 16 experts,
+    top-2; 13,295,235,072 parameters) with bf16 parameters: its f32
+    parameters and their bf16 casts (79.8 GB) do not fit the card.  The
+    unit's weights are drawn at the full model's scale
+    (``draw_at_full_depth``).
+    ``BatchServer`` serves two waves of 4 x (1024 + 32) tokens with every
+    kernel counter zeroed just before and read just after
+    (``flash_attention`` 2: one attention layer a wave); the capacity
+    dispatch's drops in the served prefills; timings and profiles.  Then,
+    the bf16 model freed, the same unit in f32 (53.2 GB): the first
+    ``SSM_TF_STEPS`` teacher-forced decode steps against a no-cache dense
+    prefill (``jamba_teacher_forced``: PR 27's rule, held where one f32
+    ulp moves the logits less than its bar; else measured and held again
+    on the unit drawn at each leaf's fan-in scale), and one full-width
+    Mamba layer on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+    from repro_torch.launch.steps import active_param_count
+    from repro_torch.models import moe
+
+    full = get_config(JAMBA_ARCH)
+    m = full.moe
+    check(full.n_layers == 32 and len(full.pattern_unit) == JAMBA_LAYERS and
+          full.d_model == 4096 and (m.n_experts, m.top_k) == (16, 2) and
+          (full.n_heads, full.n_kv_heads) == (32, 8),
+          f"{JAMBA_ARCH} changed: {full}")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS,
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    draw_at_full_depth(model, full.n_units)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == JAMBA_UNIT_PARAMS,
+          f"{JAMBA_ARCH} at {JAMBA_LAYERS} layers has {n_params} parameters")
+    print(f"SSM phase (b): {JAMBA_ARCH} at full width, {JAMBA_LAYERS} of "
+          f"{full.n_layers} layers ({n_params} parameters, "
+          f"{active_param_count(cfg)} active a token), {cfg.param_dtype} "
+          f"params, {cfg.compute_dtype} compute, dispatch "
+          f"{model.moe_dispatch}; init {time.perf_counter() - t0:.2f} s")
+    waves, done, server, launches, _ = lm_serve_counted(model, JAMBA_ARCH)
+    max_len = SERVE_PROMPT + SERVE_NEW
+    prompts = [torch.from_numpy(np.stack([r.prompt for r in w])).cuda()
+               for w in waves]
+    with routing_record() as routes:
+        for toks in prompts:
+            model.prefill({"tokens": toks},
+                          model.init_cache(SERVE_BATCH, max_len))
+    dropped, assigned = moe_drops(routes, m)
+    cap = moe._capacity(SERVE_BATCH * SERVE_PROMPT, m, m.n_experts)
+    check(cap == 644, f"capacity {cap} for {SERVE_BATCH * SERVE_PROMPT} "
+          "tokens, not 644")
+    print(f"  capacity dispatch of the served prefills ({cap} slots an "
+          f"expert for {SERVE_BATCH * SERVE_PROMPT} tokens x top-{m.top_k}): "
+          f"{dropped} of {assigned} assignments dropped "
+          f"({dropped / assigned:.6f}) over {len(routes)} layer dispatches")
+    ssm_profiles(model, prompts[0], JAMBA_ARCH)
+    gen = torch.from_numpy(np.stack([r.out_tokens for r in
+                                     done[:SERVE_BATCH]]))[:, :SSM_TF_STEPS + 1]
+    prompt = prompts[0].cpu()
+    del model, server, prompts
+    gc_release()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    held = jamba_teacher_forced(cfg32, prompt, gen, "the served draw",
+                                lambda m: draw_at_full_depth(m, full.n_units),
+                                hold=None)
+    if not held:
+        jamba_teacher_forced(cfg32, prompt, gen, "drawn at each leaf's "
+                             "fan-in scale", draw_at_fan_in, hold=True)
+    mamba_layer_card_vs_cpu(full)
+    return launches
+
+
+def ssm_phase():
+    """Phase 21: (a) rwkv6-3b served at full width and depth, (b) B7 at
+    jamba's G = 4 shape and jamba-v0.1-52b served at full width, one
+    unit.  Returns the flash_attention entries for the kernels line."""
+    t0 = time.perf_counter()
+    print(f"phase 21 on {card_line()}")
+    rwkv = rwkv_serve_phase()
+    print(f"SSM phase (a): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    b7 = ssm_flash_phase()
+    jamba = jamba_serve_phase()
+    print(f"SSM phase (b): {time.perf_counter() - t1:.1f} s")
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    return {"flash_attention": {
+        "jamba_ms": b7["ms"], "jamba_plain_ms": b7["plain_ms"],
+        "jamba_library_ms": b7["library_ms"],
+        "jamba_bound_ms": b7["bound_ms"],
+        "jamba_max_abs_err": b7["max_abs_err"],
+        "jamba_serve_launches": jamba["flash_attention"],
+        "rwkv_serve_launches": rwkv["flash_attention"]}}
+
+
 def main():
     args = sys.argv[1:]
-    if args in (["--serve"], ["--drill"], ["--train"], ["--moe"]):
+    if args in (["--serve"], ["--drill"], ["--train"], ["--moe"],
+                ["--ssm"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve | --drill | --train | --moe]")
+             "| --serve | --drill | --train | --moe | --ssm]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -4472,6 +4946,13 @@ def main():
         _build.build(["halo_pack", "halo_signal", "nonbonded",
                       "flash_attention"])
         moe_phase()
+        print(card)
+        return
+    if args == ["--ssm"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        ssm_phase()
         print(card)
         return
     if args and args[0] == "--steps":
@@ -4588,6 +5069,10 @@ def main():
     # served at full width and depth and trained at full width (4 layers)
     moe_kernel = moe_phase()
 
+    # 21. state-space models: rwkv6-3b served at full width and depth,
+    # jamba-v0.1-52b at full width (one unit), B7 at jamba's G = 4 shape
+    ssm_kernel = ssm_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -4667,6 +5152,7 @@ def main():
             **({"train_launches": train_launches[name]}
                if name in train_launches else {}),
             **moe_kernel.get(name, {}),
+            **ssm_kernel.get(name, {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
@@ -4687,6 +5173,10 @@ def main():
           "olmoe-1b-7b's shape (BH 64, L = S = 1024, G 1, hd 128), ms, "
           "yardstick and bound as above, launches over its two served "
           "waves (16 layers) and over one 6-step training run at 4 layers; "
+          "jamba_*: B7 at jamba-v0.1-52b's shape (BH 32, L = S = 1024, G 4, "
+          "hd 128), launches over its two served waves (one unit, one "
+          "attention layer); rwkv_serve_launches: over rwkv6-3b's two "
+          "served waves (no attention); "
           "pack_wire / "
           "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "

@@ -2,7 +2,10 @@
 
 Port of the training part of ``src/repro/launch/steps.py``:
 ``param_count``, ``active_param_count``, ``auto_microbatches``,
-``TrainProgram`` and ``make_train_step``.  The step is the reference's:
+``TrainProgram`` and ``make_train_step``.  The counts cover every config
+the port declares (dense, MoE, RWKV, the Mamba hybrid); a training step of
+a Mamba or RWKV config is refused (``NotImplementedError`` naming ROADMAP
+A14b.2, SSM training).  The step is the reference's:
 gradients of ``LM.loss_fn`` over ``microbatches`` slices of the batch,
 summed in float32 in microbatch order and divided by the count (one
 microbatch: the gradients as they come), the loss the mean of the
@@ -32,7 +35,8 @@ from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.device import const
 from repro_torch.models.layers import _flatten, _unflatten
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import LM, model_defs
+from repro_torch.models.transformer import LM, model_defs, \
+    refuse_ssm_training
 from repro_torch.optim import adamw
 
 
@@ -108,6 +112,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
         raise NotImplementedError(
             "pod-compressed and zero2 steps need a multi-GPU mesh "
             "(ROADMAP A13)")
+    refuse_ssm_training(cfg)
     ocfg = ocfg or adamw.AdamWConfig()
     model = build_model(cfg, device=device, moe_dispatch=moe_dispatch)
     mb = microbatches or auto_microbatches(cfg, shape)

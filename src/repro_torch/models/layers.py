@@ -3,9 +3,10 @@
 Port of ``src/repro/models/layers.py``.  Each module declares its
 parameters once as ``ParamDef``s (shape, initializer); the declaration
 drives initialization, so the port draws every leaf with the reference's
-rule: ``normal`` leaves get ``1 / sqrt(shape[0])`` (for a stacked unit
-weight ``(n_units, ...)`` that is ``1 / sqrt(n_units)``, as the reference
-computes it), ``small_normal`` 0.02, ``zeros`` and ``ones`` their value.
+rule: ``normal`` leaves get their declared ``scale``, else ``1 /
+sqrt(shape[0])`` (for a stacked unit weight ``(n_units, ...)`` that is
+``1 / sqrt(n_units)``, as the reference computes it), ``small_normal``
+0.02, ``zeros`` and ``ones`` their value.
 ``jax.random`` keys become one ``torch.Generator`` drawn leaf by leaf in
 the declaration order; the numbers differ from JAX's, the scales do not.
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,7 @@ class ParamDef:
     parallel dim, which has no single-card counterpart)."""
     shape: Tuple[int, ...]
     init: str = "normal"          # normal | zeros | ones | small_normal
+    scale: Optional[float] = None
 
 
 ParamDefs = Dict[str, "ParamDefs | ParamDef"]  # nested
@@ -41,18 +43,19 @@ def _init_one(gen: torch.Generator, d: ParamDef, dtype) -> torch.Tensor:
         return torch.zeros(d.shape, dtype=dtype, device=gen.device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=gen.device)
-    if d.init == "small_normal":
-        scale = 0.02
-    else:
+    scale = d.scale
+    if scale is None:
         fan_in = d.shape[0] if len(d.shape) > 1 else d.shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
+    if d.init == "small_normal":
+        scale = 0.02
     return scale * torch.randn(d.shape, generator=gen, dtype=dtype,
                                device=gen.device)
 
 
 def stack_defs(defs: ParamDefs, n: int) -> ParamDefs:
     """Prepend the scan-stack dim to every def (layer-stacked params)."""
-    return _unflatten({path: ParamDef((n,) + tuple(d.shape), d.init)
+    return _unflatten({path: ParamDef((n,) + tuple(d.shape), d.init, d.scale)
                        for path, d in _flatten(defs).items()})
 
 

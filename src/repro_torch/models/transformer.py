@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for one card: dense and MoE attention stacks.
+"""Decoder-only LM assembly for one card: dense / MoE / RWKV / Mamba-hybrid.
 
 Port of ``src/repro/models/transformer.py`` (``LM``) as an ``nn.Module``:
 the embedding, a ``ModuleList`` of layers (layer ``u * len(pattern_unit)
@@ -34,14 +34,25 @@ the reference's order (over a unit's layers, then over units), also
 through ``checkpoint``.  ``loss_fn`` adds ``0.01 * moe_lb / n_layers +
 1e-3 * moe_z / n_layers`` and reports both terms.
 
-Caches mirror the reference's per-unit stacks ``{"layer{i}": {"attn":
-{"k", "v"}}}`` of shape ``(n_units, batch, max_len, n_kv_heads, hd)``; on
-one card ``ShardingCtx.kv_repeat`` is 1, so the cache holds ``n_kv_heads``
-heads (the reference's sharding, ``specs`` and ``_unit_gather_spec`` wait
-for the multi-GPU work).  The port writes the cache in place and returns
-the same dict (MoE layers hold no state).  Mamba, RWKV, VLM-prefix and
-encoder-decoder configs raise ``NotImplementedError`` naming their ROADMAP
-item.
+Layer kinds (``LayerSpec.kind``) are the reference's: ``attn``, ``mamba``
+(:mod:`repro_torch.models.mamba`, Jamba's hybrid units) and ``rwkv``
+(:mod:`repro_torch.models.rwkv`: the time mix in place of attention, the
+channel mix in place of the FFN).  A layer's parameters are declared in
+the reference's key order (``ln1``, the mixer, ``ln2``, the FFN), which is
+the order ``init`` draws them in.
+
+Caches mirror the reference's per-unit stacks, dim 0 the unit:
+``{"layer{i}": {"attn": {"k", "v"}}}`` of shape ``(n_units, batch,
+max_len, n_kv_heads, hd)`` (on one card ``ShardingCtx.kv_repeat`` is 1, so
+the cache holds ``n_kv_heads`` heads); ``{"mamba": {"conv": (n, B, dc-1,
+di), "ssm": (n, B, di, ds) float32}}``; ``{"rwkv_tm": {"shift_tm": (n, B,
+1, d), "wkv": (n, B, H, hd, hd) float32}, "rwkv_cm": {"shift_cm": (n, B,
+1, d)}}``, the rest in the compute dtype.  The port writes every cache and
+state in place and returns the same dict (MoE layers hold no state); the
+reference's sharding, ``specs`` and ``_unit_gather_spec`` wait for the
+multi-GPU work.  Training a Mamba or RWKV config raises
+``NotImplementedError`` naming ROADMAP A14b.2 (SSM training), and VLM-prefix
+and encoder-decoder configs raise naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -54,7 +65,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import const, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     ParamDef,
     ParamDefs,
@@ -71,13 +84,19 @@ from repro_torch.models.layers import (
 
 
 def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> ParamDefs:
-    if spec.kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: {spec.kind} layers are not "
-                                  "ported yet (ROADMAP A14: SSM)")
-    d: ParamDefs = {"ln1": norm_defs(cfg.d_model, cfg.use_bias),
-                    "attn": attn.attn_defs(cfg),
-                    "ln2": norm_defs(cfg.d_model, cfg.use_bias)}
-    if spec.moe:
+    d: ParamDefs = {"ln1": norm_defs(cfg.d_model, cfg.use_bias)}
+    if spec.kind == "attn":
+        d["attn"] = attn.attn_defs(cfg)
+    elif spec.kind == "mamba":
+        d["mamba"] = mam.mamba_defs(cfg)
+    elif spec.kind == "rwkv":
+        d["rwkv"] = rwkv_mod.rwkv_defs(cfg)["tm"]
+    else:
+        raise ValueError(spec.kind)
+    d["ln2"] = norm_defs(cfg.d_model, cfg.use_bias)
+    if spec.kind == "rwkv":
+        d["cm"] = rwkv_mod.rwkv_defs(cfg)["cm"]
+    elif spec.moe:
         d["moe"] = moe_mod.moe_defs(cfg)
     else:
         d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_type,
@@ -146,12 +165,27 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet (None when it can)."""
     if cfg.is_encdec:
         return "encoder-decoder (ROADMAP A14: enc-dec)"
-    kinds = {s.kind for s in cfg.pattern_unit}
-    if kinds & {"mamba", "rwkv"}:
-        return f"{'/'.join(sorted(kinds - {'attn'}))} layers (ROADMAP A14: SSM)"
     if cfg.prefix_tokens:
         return "a VLM prefix (ROADMAP A14: VLM)"
     return None
+
+
+def refuse_ssm_training(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` if ``cfg`` has Mamba or RWKV layers:
+    their training is the next slice of the port."""
+    kinds = sorted({s.kind for s in cfg.pattern_unit} & {"mamba", "rwkv"})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: training {'/'.join(kinds)} layers is not ported "
+            "yet (ROADMAP A14b.2: SSM training)")
+
+
+def _store(cache: Optional[dict], kind: str, new: Optional[dict]) -> None:
+    """Write a layer's new state into its cache slice in place (cast to
+    the cache's dtype, as the reference's ``n.astype(c.dtype)``)."""
+    if cache is not None:
+        for name, t in new.items():
+            cache[kind][name].copy_(t)
 
 
 class _ParamNode(nn.Module):
@@ -289,19 +323,36 @@ class LM(nn.Module):
 
     # ---- layers ------------------------------------------------------------
 
-    def _layer(self, p, x, positions, cache=None, cache_index=None):
-        """One layer: ``(x, aux)``, aux the MoE losses (empty for a dense
-        FFN)."""
+    def _layer(self, spec: LayerSpec, p, x, positions, cache=None,
+               cache_index=None):
+        """One layer of kind ``spec.kind``: ``(x, aux)``, aux the MoE
+        losses (empty for a dense FFN or a channel mix).  With ``cache``
+        (this layer's slice) its state is written in place."""
         cfg = self.cfg
         h = norm_fwd(p["ln1"], x, cfg.norm_eps)
-        out, nc = attn.attention_fwd(
-            p["attn"], h, cfg, positions=positions,
-            cache=None if cache is None else cache["attn"],
-            cache_index=cache_index)
+        if spec.kind == "attn":
+            out, _ = attn.attention_fwd(
+                p["attn"], h, cfg, positions=positions,
+                cache=None if cache is None else cache["attn"],
+                cache_index=cache_index)
+        elif spec.kind == "mamba":
+            out, ns = mam.mamba_fwd(
+                p["mamba"], h, cfg,
+                state=None if cache is None else cache["mamba"])
+            _store(cache, "mamba", ns)
+        else:  # rwkv time mix
+            out, ns = rwkv_mod.rwkv_time_mix(
+                p["rwkv"], h, cfg,
+                state=None if cache is None else cache["rwkv_tm"])
+            _store(cache, "rwkv_tm", ns)
         x = x + out
         h = norm_fwd(p["ln2"], x, cfg.norm_eps)
         aux = {}
-        if "moe" in p:
+        if spec.kind == "rwkv":
+            out, ns = rwkv_mod.rwkv_channel_mix(
+                p["cm"], h, state=None if cache is None else cache["rwkv_cm"])
+            _store(cache, "rwkv_cm", ns)
+        elif spec.moe:
             out, aux = moe_mod.moe_fwd(p["moe"], h, cfg, self.moe_dispatch)
         else:
             out = mlp_fwd(p["mlp"], h, cfg.mlp_type)
@@ -311,8 +362,8 @@ class LM(nn.Module):
         """The layers of one unit: ``(x, aux)``, aux summed over its layers
         (the reference's ``_unit``)."""
         aux = {}
-        for i, p in enumerate(unit):
-            x, a = self._layer(p, x, positions,
+        for i, (spec, p) in enumerate(zip(self.cfg.pattern_unit, unit)):
+            x, a = self._layer(spec, p, x, positions,
                                None if caches is None else caches[i],
                                cache_index)
             aux = _add_aux(aux, a)
@@ -326,8 +377,8 @@ class LM(nn.Module):
         for u in range(self.cfg.n_units):
             caches = None
             if cache is not None:
-                caches = [{"attn": {k: t[u] for k, t in
-                                    cache[f"layer{i}"]["attn"].items()}}
+                caches = [{kind: {k: t[u] for k, t in leaves.items()}
+                           for kind, leaves in cache[f"layer{i}"].items()}
                           for i in range(P)]
             x, a = self._unit(layers[u * P:(u + 1) * P], x, positions,
                               caches, cache_index)
@@ -338,6 +389,7 @@ class LM(nn.Module):
         """The stack with grad: each unit casts its own weights, under
         ``checkpoint`` when ``cfg.remat``."""
         cfg = self.cfg
+        refuse_ssm_training(cfg)
         if cfg.remat and cfg.remat_policy != "nothing":
             raise NotImplementedError(
                 f"remat_policy {cfg.remat_policy!r} (the port remats with "
@@ -435,9 +487,21 @@ class LM(nn.Module):
 
     def cache_shapes(self, batch: int, max_len: int):
         """Abstract per-unit cache stack (stack dim 0 = units)."""
-        return {f"layer{i}": {"attn": attn.init_cache_shapes(
-                    self.cfg, batch, max_len, self.cfg.n_units, self.cdt)}
-                for i, _ in enumerate(self.cfg.pattern_unit)}
+        cfg, n = self.cfg, self.cfg.n_units
+        out = {}
+        for i, spec in enumerate(cfg.pattern_unit):
+            if spec.kind == "attn":
+                c = {"attn": attn.init_cache_shapes(cfg, batch, max_len, n,
+                                                    self.cdt)}
+            elif spec.kind == "mamba":
+                c = {"mamba": mam.mamba_state_shapes(cfg, batch, n,
+                                                     self.cdt)}
+            else:
+                s = rwkv_mod.rwkv_state_shapes(cfg, batch, n, self.cdt)
+                c = {"rwkv_tm": {"shift_tm": s["shift_tm"], "wkv": s["wkv"]},
+                     "rwkv_cm": {"shift_cm": s["shift_cm"]}}
+            out[f"layer{i}"] = c
+        return out
 
     def init_cache(self, batch: int, max_len: int):
         return {layer: {kind: {name: torch.zeros(s.shape, dtype=s.dtype,

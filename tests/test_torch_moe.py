@@ -577,23 +577,32 @@ def test_converter_round_trips_moe_leaves(jx, arch):
 
 def test_active_param_count_matches_reference_for_every_config(jx):
     """Every config's count equals the reference's (declarations only, no
-    allocation), or, for a family the port does not declare yet, raises
-    naming its ROADMAP item rather than counting other layers."""
+    allocation), or, for a family the port does not declare yet (the
+    encoder-decoder), raises naming its ROADMAP item rather than counting
+    other layers."""
     counted = []
     for arch in ARCH_IDS:
         cfg, jcfg = get_config(arch), jx.get_config(arch)
-        if cfg.is_encdec or any(s.kind != "attn" for s in cfg.pattern_unit):
+        if cfg.is_encdec:
             for count in (tsteps.param_count, tsteps.active_param_count):
                 with pytest.raises(NotImplementedError,
-                                   match="ROADMAP A14: (SSM|enc-dec)"):
+                                   match="ROADMAP A14: enc-dec"):
                     count(cfg)
             continue
         assert tsteps.param_count(cfg) == jx.steps.param_count(jcfg), arch
         assert tsteps.active_param_count(cfg) == \
             jx.steps.active_param_count(jcfg), arch
         counted.append(cfg.name)
-    assert {OLMOE, LLAMA4, "qwen3-1.7b", "internvl2-26b"} <= set(counted)
-    assert len(counted) == 7
+    assert {OLMOE, LLAMA4, "qwen3-1.7b", "internvl2-26b", "rwkv6-3b",
+            "jamba-v0.1-52b"} <= set(counted)
+    assert len(counted) == 9
+    rwkv, jamba = get_config("rwkv6-3b"), get_config("jamba-v0.1-52b")
+    assert tsteps.param_count(rwkv) == \
+        tsteps.active_param_count(rwkv) == 3_073_313_280
+    assert tsteps.param_count(jamba) == 51_570_315_264
+    assert tsteps.active_param_count(jamba) == 12_110_303_232
+    assert tsteps.param_count(dataclasses.replace(jamba, n_layers=8)) == \
+        13_295_235_072
     olmoe = get_config(OLMOE)
     assert tsteps.param_count(olmoe) == 6_919_100_416
     assert tsteps.active_param_count(olmoe) == 1_281_955_840
