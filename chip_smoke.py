@@ -21,6 +21,8 @@
         # prints no result lines
     python3 chip_smoke.py --ssm                # phases 1, 2 and 21 alone;
         # prints no result lines
+    python3 chip_smoke.py --ssm-train          # phases 1, 2 and 22 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -283,6 +285,29 @@ Phases, each asserting (any failure exits non-zero with no result line):
     the unit drawn at each leaf's fan-in scale; one full-width Mamba layer
     (d_inner 8192) in f32, a 4 x 1024 prefill from a seeded state and 4
     decode steps, card vs CPU (1e-4).
+22. state-space training: (a) in f32 with TF32 off, on 2 x 300 tokens,
+    one rwkv6-3b layer at full width (the 1-layer LM's loss and every
+    gradient; the WKV recurrence crosses a 256-token block) and one Mamba
+    layer at jamba's width (every gradient; three chunks of 100) on the
+    card against the CPU, 1e-4 of each leaf's max; (b) rwkv6-3b at full
+    width and depth trained through ``launch.train.main`` on phase 19's
+    schedule (4 x 1024 tokens, 6 steps, no checkpoints) twice: losses,
+    grad norms and a parameter digest bitwise equal and finite, no kernel
+    launched (the model has no attention); ms a step, tokens/s, peak
+    memory, one profiled step split into the WKV Function's forward, its
+    checkpoint recompute and its backward, and into the recurrences'
+    ``addcmul`` launches, GEMMs and the rest; (c) jamba-v0.1-52b at full
+    width, one 8-layer unit, as one card's share of 8-way expert
+    parallelism (``expert_share=(0, 8)``: 2 of 16 experts held a MoE layer,
+    every token routed over all 16, no exchange; 3,430,232,064 parameters
+    drawn at each leaf's fan-in scale) through ``make_train_step`` and
+    ``run_training`` on the same schedule twice: bitwise equal and finite,
+    ``flash_attention`` 2 x 6 and B7b 6 launches a run and nothing else;
+    ms a step, tokens/s, peak memory, the capacity dispatch's drops; (d)
+    B7b at jamba's G = 4 training shape (BH = 4 x 8, L = S = 1024, hd 128,
+    causal, bf16) against its plain backward and the f64 oracle at phase
+    19's bars, bitwise on repeat, timed beside SDPA's backward and the
+    bound.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -3511,6 +3536,57 @@ def b7b_speed(label):
     return t_k, t_l
 
 
+def b7b_at(label, BH, L, S, G, hd, seed):
+    """B7b at one causal bf16 shape against its plain backward and the f64
+    oracle at phase 19's bars, bitwise on repeat, timed beside its plain
+    backward, SDPA's backward and the bound: ``(entry for the kernels
+    line, the per-gradient errors as text)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                     .to(torch.bfloat16)
+                     for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd),
+                                   (BH, L, G, hd)))
+    o, lse = fa._forward(q, k, v, True, with_lse=True)
+    grads = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
+    again = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"B7b at {label}: two launches differ")
+    plain = fa.flash_attention_backward_plain(q, k, v, dout, causal=True)
+    oracle = ref.flash_attention_backward_ref(q, k, v, dout, causal=True)
+    line, worst = [], 0.0
+    for name, a, b, c in zip("qkv", grads, plain, oracle):
+        scale = float(c.abs().max())
+        e = float((a.double() - b.double()).abs().max())
+        eo = float((a.double() - c).abs().max())
+        check(bool(torch.isfinite(a).all()) and
+              e <= BWD_TOL["bfloat16"] * scale and
+              eo <= BWD_ORACLE_TOL["bfloat16"] * scale,
+              f"B7b at {label}: d{name} {e} from its plain form, "
+              f"{eo} from the f64 oracle (scale {scale})")
+        line.append(f"d{name} {e / scale:.3e} / {eo / scale:.3e}")
+        worst = max(worst, e)
+    del again, plain, oracle
+    nbytes, ops = flash_bwd_work(BH, L, S, G, hd, True, 2)
+    bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+    t_k = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, o, dout, lse, causal=True), n=50, warmup=5)
+    t_p = cuda_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, dout, causal=True), n=3, warmup=1)
+    t_l, _ = sdpa_backward(q, k, v, dout, True)
+    entry = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+             "bound_ms": bound, "max_abs_err": worst}
+    text = (f"vs plain / vs oracle, of max |grad|: {'; '.join(line)}; "
+            f"bitwise on repeat; B7b {t_k:.6f} ms, plain backward {t_p:.6f} "
+            f"ms, SDPA backward {t_l:.6f} ms, bound {bound:.6f} ms "
+            f"({bound / t_k:.4f} of it; {ops / (t_k * 1e-3) / 1e12:.2f} "
+            f"TFLOP/s)")
+    return entry, text
+
+
 def b7b_sass(lib_path):
     """``cuobjdump -sass`` of B7b: HGMMA in every bf16 dK / dV and dQ
     kernel at every head_dim, no atomic instruction in any backward
@@ -3919,44 +3995,10 @@ def moe_flash_phase():
           f"it; {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s)")
     b7 = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
           "max_abs_err": err}
-    del got, want, qt, kt, vt
-
-    o, lse = fa._forward(q, k, v, True, with_lse=True)
-    grads = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
-    again = fa.flash_attention_backward(q, k, v, o, dout, lse, causal=True)
-    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
-          "B7b at olmoe's shape: two launches differ")
-    plain = fa.flash_attention_backward_plain(q, k, v, dout, causal=True)
-    oracle = ref.flash_attention_backward_ref(q, k, v, dout, causal=True)
-    line, worst = [], 0.0
-    for label, a, b, c in zip("qkv", grads, plain, oracle):
-        scale = float(c.abs().max())
-        e = float((a.double() - b.double()).abs().max())
-        eo = float((a.double() - c).abs().max())
-        check(bool(torch.isfinite(a).all()) and
-              e <= BWD_TOL["bfloat16"] * scale and
-              eo <= BWD_ORACLE_TOL["bfloat16"] * scale,
-              f"B7b at olmoe's shape: d{label} {e} from its plain form, "
-              f"{eo} from the f64 oracle (scale {scale})")
-        line.append(f"d{label} {e / scale:.3e} / {eo / scale:.3e}")
-        worst = max(worst, e)
-    del again, plain, oracle
-    nbytes, ops = flash_bwd_work(BH, L, S, G, hd, True, 2)
-    bound_b = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
-    t_kb = cuda_ms(lambda: fa.flash_attention_backward(
-        q, k, v, o, dout, lse, causal=True), n=50, warmup=5)
-    t_pb = cuda_ms(lambda: fa.flash_attention_backward_plain(
-        q, k, v, dout, causal=True), n=3, warmup=1)
-    t_lb, _ = sdpa_backward(q, k, v, dout, True)
-    print(f"  B7b at olmoe's training shape (the same): vs plain / vs "
-          f"oracle, of max |grad|: {'; '.join(line)}; bitwise on repeat; "
-          f"B7b {t_kb:.6f} ms, plain backward {t_pb:.6f} ms, SDPA backward "
-          f"{t_lb:.6f} ms, bound {bound_b:.6f} ms ({bound_b / t_kb:.4f} of "
-          f"it)")
-    return {"flash_attention": b7,
-            "flash_attention_backward": {
-                "ms": t_kb, "plain_ms": t_pb, "library_ms": t_lb,
-                "bound_ms": bound_b, "max_abs_err": worst}}
+    del got, want, qt, kt, vt, q, k, v, dout
+    b7b, text = b7b_at("olmoe's shape", BH, L, S, G, hd, 20)
+    print(f"  B7b at olmoe's training shape (the same): {text}")
+    return {"flash_attention": b7, "flash_attention_backward": b7b}
 
 
 @contextlib.contextmanager
@@ -4893,15 +4935,509 @@ def ssm_phase():
         "rwkv_serve_launches": rwkv["flash_attention"]}}
 
 
+# ---- phase 22: the state-space models trained: rwkv6-3b, the jamba share ---
+
+JAMBA_SHARE = (0, 8)        # one card of 8-way expert parallelism
+JAMBA_SHARE_PARAMS = 3_430_232_064   # one unit, 2 of 16 experts a MoE layer
+SSM_GRAD_TOKENS = 300       # crosses a WKV block; Mamba chunks of 100
+RWKV_PROFILE_LAYERS = 2     # the profiled rwkv6-3b step's depth
+GEMM_KERNEL = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|gemv|sm90_|splitK",
+                         re.I)
+
+
+def ssm_grads_card_vs_cpu(cfg_rwkv, cfg_jamba):
+    """(a) In f32 with TF32 off, on 2 x ``SSM_GRAD_TOKENS`` tokens: one
+    rwkv6-3b layer at full width (the 1-layer LM: its loss and every
+    gradient) and one Mamba layer at jamba's width (every parameter's
+    gradient and the input's, of a seeded projection of its output), each
+    on the card against the CPU with the same weights: within
+    ``GRAD_TOL`` of each leaf's max |grad|."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+    from repro_torch.models import layers, mamba, rwkv
+
+    check(SSM_GRAD_TOKENS > rwkv.WKV_BLOCK, "the WKV check crosses no block")
+    cfg1 = dataclasses.replace(cfg_rwkv, n_layers=1, compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg1.vocab, (2, SSM_GRAD_TOKENS + 1)).astype(np.int32))
+    loss_c, _ = small.loss_fn({"tokens": toks.cuda()})
+    loss_c.backward()
+    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
+    loss_c = float(loss_c.detach())
+    small.zero_grad(set_to_none=True)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    loss_h, _ = small.loss_fn({"tokens": toks})
+    loss_h.backward()
+    loss_h = float(loss_h.detach())
+    t_cpu = time.perf_counter() - t_cpu
+    worst, worst_name = 0.0, ""
+    for n, p in small.named_parameters():
+        scale = float(p.grad.abs().max())
+        e = float((grads_c[n] - p.grad).abs().max()) / max(scale, 1e-30)
+        check(math.isfinite(e) and scale > 0, f"rwkv f32 grad {n}: {e}, "
+              f"{scale}")
+        if e > worst:
+            worst, worst_name = e, n
+    lrel = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"SSM train phase (a): one {RWKV_ARCH} layer at full width, f32, "
+          f"2 x {SSM_GRAD_TOKENS} tokens (WKV block {rwkv.WKV_BLOCK}), card "
+          f"vs CPU (the CPU's loss and backward {t_cpu:.2f} s): loss "
+          f"{loss_c:.7f} vs {loss_h:.7f} (rel {lrel:.3e}), worst leaf "
+          f"{worst_name} {worst:.3e} of its max |grad| (tolerance "
+          f"{GRAD_TOL}, TF32 off)")
+    check(lrel <= GRAD_TOL and worst <= GRAD_TOL, f"rwkv f32 card gradients "
+          f"{worst} ({worst_name}) / loss {lrel} from the CPU's")
+    del small, grads_c
+
+    gen = torch.Generator().manual_seed(7)
+    p = {k: layers._init_one(gen, d, torch.float32)
+         for k, d in mamba.mamba_defs(cfg_jamba).items()}
+    x = torch.randn(2, SSM_GRAD_TOKENS, cfg_jamba.d_model, generator=gen)
+    g = torch.randn(x.shape, generator=gen)
+
+    def run(dev):
+        pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).requires_grad_()
+        out, _ = mamba.mamba_fwd(pd, xd, cfg_jamba)
+        names = list(pd)
+        grads = torch.autograd.grad(out, [pd[k] for k in names] + [xd],
+                                    g.to(dev))
+        return out.detach().cpu(), {n: t.cpu() for n, t in
+                                    zip(names + ["x"], grads)}
+
+    out_c, grads_c = run("cuda")
+    t_cpu = time.perf_counter()
+    out_h, grads_h = run("cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    rels = {n: float((grads_c[n] - t).abs().max() / t.abs().max())
+            for n, t in grads_h.items()}
+    rels["out"] = float((out_c - out_h).abs().max() / out_h.abs().max())
+    worst_name = max(rels, key=rels.get)
+    print(f"  one Mamba layer at {JAMBA_ARCH}'s width (d_inner "
+          f"{cfg_jamba.d_inner_mamba}), f32, 2 x {SSM_GRAD_TOKENS} tokens "
+          f"(chunks of {SSM_GRAD_TOKENS // 3}), card vs CPU (the CPU's "
+          f"{t_cpu:.2f} s): max |d| / max per gradient "
+          f"{ {n: float(f'{r:.3e}') for n, r in rels.items()} } (tolerance "
+          f"{GRAD_TOL}, TF32 off)")
+    check(all(math.isfinite(r) for r in rels.values()) and
+          rels[worst_name] <= GRAD_TOL, f"Mamba f32 card gradients: {rels}")
+    gc_release()
+
+
+def ssm_train_counters():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    return {**kernel_counters(), "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward}
+
+
+def wkv_profile(prog, params, opt, batch):
+    """One profiled training step of an RWKV program: host wall, device
+    kernel time and busy share, the device time under the WKV Function's
+    forward, its checkpoint recompute and its backward (record_function
+    ranges set from outside the model), and the kernels split into the
+    recurrence's ``addcmul`` launches, GEMMs and the rest.  Returns None
+    when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import rwkv
+
+    blocks, backward = rwkv._wkv_blocks, rwkv.WKVFunction.backward
+    model, in_loss = prog.model, []
+
+    def loss_fn(batch):
+        in_loss.append(True)
+        try:
+            return type(model).loss_fn(model, batch)
+        finally:
+            in_loss.pop()
+
+    def labelled_blocks(*args, **kw):
+        with record_function("wkv forward" if in_loss else "wkv recompute"):
+            return blocks(*args, **kw)
+
+    def labelled_backward(ctx, *grads):
+        with record_function("wkv backward"):
+            return backward(ctx, *grads)
+
+    model.loss_fn = loss_fn
+    rwkv._wkv_blocks = labelled_blocks
+    rwkv.WKVFunction.backward = staticmethod(labelled_backward)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prog.step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del model.loss_fn
+        rwkv._wkv_blocks = blocks
+        rwkv.WKVFunction.backward = staticmethod(backward)
+    t1 = time.perf_counter()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the ranges' own device-side spans (user annotations) are no kernels
+    ann = [e for e in dev if getattr(e, "is_user_annotation", False)
+           or e.name.startswith("wkv ")]
+    kern = [e for e in dev if not (getattr(e, "is_user_annotation", False)
+                                   or e.name.startswith("wkv "))]
+    if not kern:
+        return None
+    cats = {"addcmul (the recurrences)": [0.0, 0], "GEMM": [0.0, 0],
+            "other (elementwise, reductions, copies)": [0.0, 0]}
+    spans, by_name = [], {}
+    for e in kern:
+        t = e.time_range.elapsed_us()
+        tn, kn = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tn + t, kn + 1)
+        key = "addcmul (the recurrences)" if "addcmul" in e.name else \
+            "GEMM" if GEMM_KERNEL.search(e.name) else \
+            "other (elementwise, reductions, copies)"
+        cats[key][0] += t
+        cats[key][1] += 1
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    # per range: its calls, their device span (first to last kernel,
+    # gaps included) and the kernel time that starts inside it
+    ranges = {}
+    for label in ("wkv forward", "wkv recompute", "wkv backward"):
+        iv = sorted((e.time_range.start, e.time_range.end) for e in ann
+                    if e.name == label)
+        inside = sum(t_e - t_s for t_s, t_e in spans
+                     if any(a <= t_s < b for a, b in iv))
+        ranges[label] = (len(iv), sum(b - a for a, b in iv) / 1e3,
+                         inside / 1e3)
+    device = sum(t for t, _ in cats.values()) / 1e3
+    return {"wall_ms": wall, "device_ms": device, "kernels": len(kern),
+            "busy": busy / 1e3 / wall,
+            "cats": {k: (t / 1e3, n) for k, (t, n) in cats.items()},
+            "ranges": ranges, "by_name": by_name,
+            "post_s": time.perf_counter() - t1}
+
+
+def rwkv_profile(n_layers):
+    """rwkv6-3b at full width cut to ``n_layers`` (each layer is one unit,
+    so a full-depth step is ``32 / n_layers`` times its layers' work plus
+    the embedding, head and update), one training step on phase 19's batch
+    shape: after two warm steps, a step's host wall and device span (CUDA
+    events) unprofiled, then one step under torch.profiler split by
+    ``wkv_profile``, its top kernels by device time.  The profiler's
+    post-processing of a full-depth step (165,185 kernels) took 226 s
+    (PR 29, call 1), so the profiled step runs at this cut."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import get_config
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=n_layers)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    prog = make_train_step(cfg, shape, ocfg=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS), microbatches=1)
+    prog.model.init(torch.Generator(device="cuda").manual_seed(0))
+    params, opt = prog.params, adamw.init_state(prog.params)
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)).cuda()}
+    for _ in range(2):
+        prog.step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    prog.step_fn(params, opt, batch)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    span = start.elapsed_time(end)
+    prof = wkv_profile(prog, params, opt, batch)
+    print(f"  rwkv train profile: {RWKV_ARCH} at full width cut to "
+          f"{n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, after two "
+          f"warm steps: unprofiled step host wall {wall:.4f} ms, device "
+          f"span {span:.4f} ms (CUDA events)")
+    if prof is None:
+        print("  rwkv train profile: device time not measured (no CUDA "
+              "events)")
+    else:
+        print(f"  rwkv train profile (torch.profiler, the next step; its "
+              f"post-processing {prof['post_s']:.1f} s): host wall "
+              f"{prof['wall_ms']:.4f} ms, device kernel time "
+              f"{prof['device_ms']:.4f} ms, {prof['kernels']} kernels, "
+              f"device busy {prof['busy']:.4f} of the host wall")
+        for name, (t, n) in prof["cats"].items():
+            print(f"    {name}: {t:.4f} ms device, {n} kernels, "
+                  f"{t / prof['device_ms']:.4f} of device time")
+        for name, (n, span, inside) in prof["ranges"].items():
+            print(f"    {name} (record_function, {n} device ranges): "
+                  f"device span {span:.4f} ms, kernels in it {inside:.4f} ms")
+        for name, (t, k) in sorted(prof["by_name"].items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+            print(f"    kernel {t / 1e3 / prof['device_ms']:7.4f} "
+                  f"{t / 1e3:10.4f} ms {k:7d}x {name[:100]}")
+    del prog, params, opt, batch
+    gc_release()
+
+
+def rwkv_train_phase():
+    """(b) rwkv6-3b at full width and depth (32 layers, 3,073,313,280
+    parameters) trained through ``launch.train.main`` on phase 19's
+    schedule (4 x 1024 tokens, lr 3e-3, warmup 10, ``TRAIN_STEPS`` steps,
+    the synthetic stream, ``--ckpt-every 0``) twice, every kernel counter
+    zeroed just before and read just after (none may launch: the model
+    has no attention): the losses, grad norms and parameter digest equal
+    bitwise between the runs and finite; ms a step, tokens/s, peak
+    memory; a profiled step (``rwkv_profile``)."""
+    import shutil
+
+    import torch
+    from repro_torch.launch import train as train_launch
+
+    counters = ssm_train_counters()
+    work = ROOT / "build" / "phase22"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def drive(tag):
+        argv = ["--arch", RWKV_ARCH, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--ckpt-every", "0", "--ckpt-dir", str(work / tag)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = train_launch.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        prog, params, opt, hist = res
+        check(prog.microbatches == 1 and sum(
+            p.numel() for p in params.values()) == RWKV_PARAMS,
+            f"rwkv train {tag}: not {RWKV_ARCH} at one microbatch")
+        check(all(n == 0 for n in launches.values()),
+              f"rwkv train {tag}: a kernel ran: {launches}")
+        rows = [(h["step"], h["loss"], h["grad_norm"]) for h in hist]
+        check(all(math.isfinite(x) for r in rows for x in r[1:]),
+              f"rwkv train {tag}: non-finite loss / grad norm {rows}")
+        check(int(opt["step"]) == TRAIN_STEPS, f"rwkv train {tag}: AdamW "
+              f"step {int(opt['step'])}")
+        out = (rows, param_digest(params), [h["dt"] for h in hist],
+               launches, wall, torch.cuda.max_memory_allocated())
+        del res, prog, params, opt, hist
+        gc_release()
+        return out
+
+    t0 = time.perf_counter()
+    rows_a, digest_a, dts_a, launches, wall_a, peak = drive("a")
+    print(f"SSM train phase (b): {RWKV_ARCH} at full width and depth "
+          f"({RWKV_PARAMS} parameters), {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{TRAIN_STEPS} steps; run a {wall_a:.2f} s, launches {launches}; "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for r in rows_a:
+        print(f"  step {r[0]}: loss {r[1]:.6f} grad_norm {r[2]:.6f}")
+    rows_b, digest_b, dts_b, _, wall_b, _ = drive("b")
+    shutil.rmtree(work, ignore_errors=True)
+    same = (rows_b, digest_b) == (rows_a, digest_a)
+    print(f"  run b: {wall_b:.2f} s; losses, grad norms and parameter digest "
+          f"{digest_b} {'==' if same else '!='} run a's {digest_a}")
+    check(same, f"rwkv train: two fresh runs differ: {rows_a} vs {rows_b}, "
+          f"{digest_a} vs {digest_b}")
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    rwkv_profile(RWKV_PROFILE_LAYERS)
+    print(f"  rwkv train speed: median {step_ms:.4f} ms a step over steps "
+          f"1-5 of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3):.3f} tokens/s; "
+          f"(b) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def jamba_train_phase():
+    """(c) jamba-v0.1-52b at full width, one 8-layer unit, as one card's
+    share of 8-way expert parallelism (``expert_share=(0, 8)``: 2 of the
+    16 experts held a MoE layer, every token routed over all 16; 3,430,232,064
+    parameters), drawn by ``draw_at_fan_in``, through ``make_train_step``
+    and ``run_training`` on phase 19's schedule, twice, every kernel
+    counter zeroed just before and read just after (``flash_attention`` 2
+    a step: forward and remat recompute; B7b 1 a step; nothing else): the
+    losses, aux terms, grad norms and parameter digest equal bitwise and
+    finite; ms a step, tokens/s, peak memory; the capacity dispatch's
+    dropped assignments of an evaluation loss on the stream's first batch
+    after run a."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import get_config
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.synthetic import DataConfig, _batch_at
+    from repro_torch.launch.steps import make_train_step, param_count
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainLoopConfig, run_training
+
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    m = cfg.moe
+    check(param_count(cfg, JAMBA_SHARE) == JAMBA_SHARE_PARAMS and
+          cfg.remat and cfg.compute_dtype == "bfloat16",
+          f"{JAMBA_ARCH} share: {param_count(cfg, JAMBA_SHARE)} parameters")
+    counters = ssm_train_counters()
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0, copy_period=4)
+    work = ROOT / "build" / "phase22"
+
+    def drive(tag, drops=False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prog = make_train_step(cfg, shape, ocfg=adamw.AdamWConfig(
+            lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS),
+            microbatches=1, expert_share=JAMBA_SHARE)
+        model = prog.model
+
+        def init():
+            model.init(torch.Generator(device="cuda").manual_seed(0))
+            draw_at_fan_in(model)
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt, hist = run_training(
+            TrainLoopConfig(total_steps=TRAIN_STEPS,
+                            ckpt_dir=str(work / tag), ckpt_every=0),
+            prog, data, init, log=None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        check(sum(p.numel() for p in params.values()) == JAMBA_SHARE_PARAMS
+              and model.expert_share == JAMBA_SHARE and
+              params["layers.1.moe.w_gate"].shape[0] == 2,
+              f"jamba train {tag}: not the share's parameters")
+        check(launches["flash_attention"] == 2 * TRAIN_STEPS and
+              launches["flash_attention_backward"] == TRAIN_STEPS and
+              all(n == 0 for k, n in launches.items()
+                  if not k.startswith("flash")),
+              f"jamba train {tag}: launches {launches}, expected "
+              f"flash_attention {2 * TRAIN_STEPS}, flash_attention_backward "
+              f"{TRAIN_STEPS}")
+        keys = ("step", "loss", "ce", "moe_lb", "moe_z", "grad_norm")
+        rows = [tuple(h[k] for k in keys) for h in hist]
+        check(all(math.isfinite(x) for r in rows for x in r[1:]),
+              f"jamba train {tag}: non-finite loss / aux / grad norm {rows}")
+        check(int(opt["step"]) == TRAIN_STEPS, f"jamba train {tag}: AdamW "
+              f"step {int(opt['step'])}")
+        out = (rows, param_digest(params), [h["dt"] for h in hist],
+               launches, wall, peak)
+        if drops:
+            first = torch.from_numpy(_batch_at(data, 0)).cuda()
+            with torch.no_grad(), routing_record() as routes:
+                model.loss_fn({"tokens": first})
+            out += (moe_drops(routes, m) + (len(routes),),)
+        del prog, model, params, opt, hist
+        gc_release()
+        return out
+
+    t0 = time.perf_counter()
+    rows_a, digest_a, dts_a, launches, wall_a, peak, drops = drive("a", True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"SSM train phase (c): {JAMBA_ARCH} at full width, {JAMBA_LAYERS} "
+          f"of {full.n_layers} layers, expert share {JAMBA_SHARE[0]}/"
+          f"{JAMBA_SHARE[1]} ({m.n_experts // JAMBA_SHARE[1]} of "
+          f"{m.n_experts} experts held a MoE layer, {JAMBA_SHARE_PARAMS} "
+          f"parameters, drawn at each leaf's fan-in scale), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} steps, one microbatch; run a "
+          f"{wall_a:.2f} s, launches {launches}; peak device memory {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB)")
+    for r in rows_a:
+        print(f"  step {r[0]}: loss {r[1]:.6f} ce {r[2]:.6f} moe_lb "
+              f"{r[3]:.6f} moe_z {r[4]:.6f} grad_norm {r[5]:.6f}")
+    dropped, assigned, n_routes = drops
+    print(f"  capacity dispatch of an evaluation loss on the stream's first "
+          f"batch after run a ({moe._capacity(tokens, m, m.n_experts)} slots "
+          f"an expert for {tokens} tokens x top-{m.top_k}, all "
+          f"{m.n_experts} experts routed over): {dropped} of {assigned} "
+          f"assignments dropped "
+          f"({dropped / assigned:.6f}) over {n_routes} MoE layers")
+    rows_b, digest_b, dts_b, _, wall_b, _ = drive("b")
+    shutil.rmtree(work, ignore_errors=True)
+    same = (rows_b, digest_b) == (rows_a, digest_a)
+    print(f"  run b: {wall_b:.2f} s; losses, aux terms, grad norms and "
+          f"parameter digest {digest_b} {'==' if same else '!='} run a's "
+          f"{digest_a}")
+    check(same, f"jamba train: two fresh runs differ: {rows_a} vs {rows_b}, "
+          f"{digest_a} vs {digest_b}")
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    print(f"  jamba share train speed: median {step_ms:.4f} ms a step over "
+          f"steps 1-5 of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3):.3f} tokens/s; (c) "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def ssm_train_phase():
+    """Phase 22: (a) one rwkv6-3b layer and one Mamba layer at full width,
+    gradients card vs CPU; (b) rwkv6-3b trained at full width and depth;
+    (c) jamba-v0.1-52b's one-unit expert share trained at full width; (d)
+    B7b at jamba's G = 4 training shape.  Returns the kernels' entries for
+    the kernels line."""
+    from repro_torch import get_config
+
+    t0 = time.perf_counter()
+    print(f"phase 22 on {card_line()}")
+    ssm_grads_card_vs_cpu(get_config(RWKV_ARCH), get_config(JAMBA_ARCH))
+    print(f"SSM train phase (a): {time.perf_counter() - t0:.1f} s")
+    rwkv = rwkv_train_phase()
+    jamba = jamba_train_phase()
+    b7b, text = b7b_at("jamba's training shape", 32, 1024, 1024, 4, 128, 22)
+    print(f"SSM train phase (d): B7b at jamba's training shape (BH 32, L = S "
+          f"= 1024, G 4, hd 128, causal, bf16): {text}")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    return {"flash_attention": {
+                "jamba_train_launches": jamba["flash_attention"],
+                "rwkv_train_launches": rwkv["flash_attention"]},
+            "flash_attention_backward": {
+                "jamba_ms": b7b["ms"], "jamba_plain_ms": b7b["plain_ms"],
+                "jamba_library_ms": b7b["library_ms"],
+                "jamba_bound_ms": b7b["bound_ms"],
+                "jamba_max_abs_err": b7b["max_abs_err"],
+                "jamba_train_launches": jamba["flash_attention_backward"],
+                "rwkv_train_launches": rwkv["flash_attention_backward"]}}
+
+
 def main():
     args = sys.argv[1:]
     if args in (["--serve"], ["--drill"], ["--train"], ["--moe"],
-                ["--ssm"]):
+                ["--ssm"], ["--ssm-train"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve | --drill | --train | --moe | --ssm]")
+             "| --serve | --drill | --train | --moe | --ssm | --ssm-train]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -4953,6 +5489,13 @@ def main():
         _build.build(["halo_pack", "halo_signal", "nonbonded",
                       "flash_attention"])
         ssm_phase()
+        print(card)
+        return
+    if args == ["--ssm-train"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        ssm_train_phase()
         print(card)
         return
     if args and args[0] == "--steps":
@@ -5073,6 +5616,10 @@ def main():
     # jamba-v0.1-52b at full width (one unit), B7 at jamba's G = 4 shape
     ssm_kernel = ssm_phase()
 
+    # 22. state-space models trained: rwkv6-3b at full width and depth, the
+    # jamba-v0.1-52b unit as one card's expert share, B7b at jamba's G = 4
+    ssm_train_kernel = ssm_train_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -5153,6 +5700,7 @@ def main():
                if name in train_launches else {}),
             **moe_kernel.get(name, {}),
             **ssm_kernel.get(name, {}),
+            **ssm_train_kernel.get(name, {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
@@ -5176,7 +5724,12 @@ def main():
           "jamba_*: B7 at jamba-v0.1-52b's shape (BH 32, L = S = 1024, G 4, "
           "hd 128), launches over its two served waves (one unit, one "
           "attention layer); rwkv_serve_launches: over rwkv6-3b's two "
-          "served waves (no attention); "
+          "served waves (no attention); jamba_train_launches: over one "
+          "6-step training run of the jamba-v0.1-52b unit as expert share "
+          "0/8 (B7: forward + remat recompute; B7b: one a step); "
+          "flash_attention_backward's jamba_*: B7b at that shape, G 4, timed "
+          "and bounded as above; rwkv_train_launches: over one 6-step "
+          "rwkv6-3b training run; "
           "pack_wire / "
           "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "

@@ -11,8 +11,10 @@ Both layout functions take numpy arrays or torch tensors.
 
 * :func:`lm_params_from_jax` — a reference LM's parameter tree (leaves as
   numpy arrays, or anything ``numpy.asarray`` takes) as the port's
-  ``LM`` state dict; :func:`lm_params_to_jax` the reverse, the reference's
-  stacked tree of host tensors.
+  ``LM`` state dict, or as the state dict of one card's expert share (each
+  MoE expert leaf cut to the held experts); :func:`lm_params_to_jax` the
+  reverse, the reference's stacked tree of host tensors, which a share
+  cannot give (the other experts live on other cards).
 * :func:`adamw_state_to_jax` / :func:`adamw_state_from_jax` — the port's
   AdamW state (moments keyed by parameter name) against the reference's
   ``{"step", "m", "v"}`` of stacked trees.
@@ -81,12 +83,24 @@ def domains_to_cells(cell_f, cell_i):
     return _domains_to_global(cell_f), _domains_to_global(cell_i)
 
 
-def lm_params_from_jax(params) -> dict:
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")     # (E, ...) under "moe"
+
+
+def _refuse_share(expert_share) -> None:
+    if expert_share is not None:
+        raise ValueError(f"expert share {expert_share}: the reference's tree "
+                         "holds every expert, and the others live on other "
+                         "cards")
+
+
+def lm_params_from_jax(params, expert_share=None) -> dict:
     """The reference ``LM``'s params as the port's ``LM.state_dict()``.
 
     The reference stacks each unit leaf as ``(n_units, ...)`` under
     ``units/layer{i}``; the port holds layer ``u * P + i`` (``P`` layers
     per unit) in ``layers.{u * P + i}``.  Other leaves keep their names.
+    With ``expert_share=(index, count)`` each MoE expert leaf keeps experts
+    ``[index * E / count, (index + 1) * E / count)`` (``models.moe``).
     """
     out = {}
 
@@ -101,6 +115,11 @@ def lm_params_from_jax(params) -> dict:
     P = len(units)
     for path, leaf in walk(units, ()):
         i = int(path[0][len("layer"):])
+        if expert_share is not None and path[-2] == "moe" and \
+                path[-1] in _EXPERT_LEAVES:
+            index, count = expert_share
+            n = leaf.shape[1] // count
+            leaf = leaf[:, index * n:(index + 1) * n]
         for u in range(leaf.shape[0]):
             out[".".join((f"layers.{u * P + i}",) + path[1:])] = \
                 torch.from_numpy(np.array(leaf[u]))
@@ -110,11 +129,14 @@ def lm_params_from_jax(params) -> dict:
     return out
 
 
-def lm_params_to_jax(state: dict, layers_per_unit: int) -> dict:
+def lm_params_to_jax(state: dict, layers_per_unit: int,
+                     expert_share=None) -> dict:
     """The port's LM state (``name -> tensor``, e.g. ``named_parameters``)
     as the reference's parameter tree of host tensors: layer
     ``u * layers_per_unit + i``'s leaves stacked along dim 0 of
-    ``units/layer{i}``, every other leaf under its dotted path."""
+    ``units/layer{i}``, every other leaf under its dotted path.  A state
+    of an expert share raises ``ValueError``."""
+    _refuse_share(expert_share)
     P = layers_per_unit
     layers: dict = {}
     out: dict = {}
@@ -138,9 +160,12 @@ def lm_params_to_jax(state: dict, layers_per_unit: int) -> dict:
     return out
 
 
-def adamw_state_to_jax(opt_state: dict, layers_per_unit: int) -> dict:
+def adamw_state_to_jax(opt_state: dict, layers_per_unit: int,
+                       expert_share=None) -> dict:
     """The port's AdamW state as the reference's: ``step`` (int32 0-dim)
-    and the moments as stacked trees, all host tensors."""
+    and the moments as stacked trees, all host tensors.  The state of an
+    expert share raises ``ValueError``."""
+    _refuse_share(expert_share)
     return {"step": opt_state["step"].detach().cpu(),
             "m": lm_params_to_jax(opt_state["m"], layers_per_unit),
             "v": lm_params_to_jax(opt_state["v"], layers_per_unit)}

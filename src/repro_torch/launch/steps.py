@@ -2,10 +2,11 @@
 
 Port of the training part of ``src/repro/launch/steps.py``:
 ``param_count``, ``active_param_count``, ``auto_microbatches``,
-``TrainProgram`` and ``make_train_step``.  The counts cover every config
-the port declares (dense, MoE, RWKV, the Mamba hybrid); a training step of
-a Mamba or RWKV config is refused (``NotImplementedError`` naming ROADMAP
-A14b.2, SSM training).  The step is the reference's:
+``TrainProgram`` and ``make_train_step``.  The counts and the step cover
+every config the port declares (dense, MoE, RWKV, the Mamba hybrid);
+``expert_share=(index, count)`` builds every MoE layer as one card's share
+of ``count``-way expert parallelism (``models.moe``), and the counts and
+abstract trees follow it.  The step is the reference's:
 gradients of ``LM.loss_fn`` over ``microbatches`` slices of the batch,
 summed in float32 in microbatch order and divided by the count (one
 microbatch: the gradients as they come), the loss the mean of the
@@ -35,14 +36,14 @@ from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.device import const
 from repro_torch.models.layers import _flatten, _unflatten
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import LM, model_defs, \
-    refuse_ssm_training
+from repro_torch.models.transformer import LM, model_defs
 from repro_torch.optim import adamw
 
 
-def param_count(cfg: ArchConfig) -> int:
+def param_count(cfg: ArchConfig, expert_share=None) -> int:
     """Analytic parameter count (exact for the port's declarations)."""
-    return sum(math.prod(d.shape) for d in _flatten(model_defs(cfg)).values())
+    return sum(math.prod(d.shape)
+               for d in _flatten(model_defs(cfg, expert_share)).values())
 
 
 def active_param_count(cfg: ArchConfig) -> int:
@@ -70,17 +71,18 @@ def auto_microbatches(cfg: ArchConfig, shape: ShapeCfg,
     return max(mb, 1)
 
 
-def abstract_params(cfg: ArchConfig) -> dict:
+def abstract_params(cfg: ArchConfig, expert_share=None) -> dict:
     """The reference's stacked parameter tree as ``meta`` tensors."""
     dt = getattr(torch, cfg.param_dtype)
     return _unflatten({path: torch.empty(d.shape, dtype=dt, device="meta")
-                       for path, d in _flatten(model_defs(cfg)).items()})
+                       for path, d in
+                       _flatten(model_defs(cfg, expert_share)).items()})
 
 
-def abstract_opt(cfg: ArchConfig) -> dict:
+def abstract_opt(cfg: ArchConfig, expert_share=None) -> dict:
     """The reference's AdamW state tree as ``meta`` tensors."""
     f32 = {path: torch.empty(d.shape, dtype=torch.float32, device="meta")
-           for path, d in _flatten(model_defs(cfg)).items()}
+           for path, d in _flatten(model_defs(cfg, expert_share)).items()}
     return {"step": torch.empty((), dtype=torch.int32, device="meta"),
             "m": _unflatten(f32), "v": _unflatten(dict(f32))}
 
@@ -104,17 +106,19 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
                     pod_compress: Optional[str] = None,
                     zero2: bool = False,
                     device="cuda",
-                    moe_dispatch: str = "fused") -> TrainProgram:
+                    moe_dispatch: str = "fused",
+                    expert_share=None) -> TrainProgram:
     """The training program of ``cfg`` on ``device`` (its model's
     parameters uninitialised: ``run_training``'s ``init_params_fn`` or a
-    checkpoint fills them), MoE layers dispatching by ``moe_dispatch``."""
+    checkpoint fills them), MoE layers dispatching by ``moe_dispatch`` and
+    holding ``expert_share``'s experts."""
     if pod_compress is not None or zero2:
         raise NotImplementedError(
             "pod-compressed and zero2 steps need a multi-GPU mesh "
             "(ROADMAP A13)")
-    refuse_ssm_training(cfg)
     ocfg = ocfg or adamw.AdamWConfig()
-    model = build_model(cfg, device=device, moe_dispatch=moe_dispatch)
+    model = build_model(cfg, device=device, moe_dispatch=moe_dispatch,
+                        expert_share=expert_share)
     mb = microbatches or auto_microbatches(cfg, shape)
 
     def train_step(params, opt_state, batch):
@@ -146,5 +150,6 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     return TrainProgram(step_fn=train_step, model=model,
-                        abstract_params=abstract_params(cfg),
-                        abstract_opt=abstract_opt(cfg), microbatches=mb)
+                        abstract_params=abstract_params(cfg, expert_share),
+                        abstract_opt=abstract_opt(cfg, expert_share),
+                        microbatches=mb)

@@ -6,6 +6,9 @@
       --reduced --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
       --reduced --steps 20 --device cpu --moe-dispatch dense
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \
+      --n-layers 8 --expert-share 0/8 --steps 6 --batch 4 --seq 1024 \
+      --ckpt-every 0
 
 Port of ``src/repro/launch/train.py`` with its flags: the train step of
 ``launch/steps.py`` (grad accumulation, remat, AdamW with
@@ -16,7 +19,10 @@ parameters drawn from ``torch.Generator`` seed 0.  ``--device`` (default
 that step, before its checkpoint; a rerun resumes), ``--ckpt-every 0``
 (no checkpoints) and ``--n-layers`` (the config at that depth, its widths
 unchanged: olmoe-1b-7b's f32 training state fits one 80 GB card at 4 of
-its 16 layers) are the port's.
+its 16 layers) and ``--expert-share I/N`` (every MoE layer holds share I
+of N of its experts, one card's part of N-way expert parallelism with no
+exchange: ``models.moe``; checkpoints are refused, since the other
+experts live on other cards) are the port's.
 Checkpoints go to ``--ckpt-dir`` (default ``build/repro_train`` under
 the repository root).
 """
@@ -40,6 +46,15 @@ DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_train"
 
 
+def expert_share(text: str):
+    """``"I/N"`` as ``(I, N)``."""
+    try:
+        index, count = (int(x) for x in text.split("/"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expert share {text!r}: I/N")
+    return index, count
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -57,7 +72,10 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fail-at-step", type=int, default=None)
     ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--expert-share", type=expert_share, default=None,
+                    metavar="I/N")
     return ap.parse_args(argv)
+
 
 
 def main(argv=None):
@@ -77,8 +95,10 @@ def main(argv=None):
         ocfg=adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                                total_steps=args.steps),
         microbatches=args.microbatches, device=dev,
-        moe_dispatch=args.moe_dispatch)
-    print(f"arch={cfg.name} on {dev} microbatches={prog.microbatches}")
+        moe_dispatch=args.moe_dispatch, expert_share=args.expert_share)
+    print(f"arch={cfg.name} on {dev} microbatches={prog.microbatches}"
+          + ("" if args.expert_share is None else
+             " expert share {}/{}".format(*args.expert_share)))
 
     data_cfg = DataConfig(vocab=args.data_vocab or cfg.vocab,
                           seq_len=args.seq, global_batch=args.batch,

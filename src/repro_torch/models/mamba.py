@@ -149,6 +149,69 @@ def _ssm_chunk(carry_h, chunk, A):
     return h_all[:, -1], y
 
 
+def _scan(dt, Bc, Cc, xin, A, h, C: int, ends=None):
+    """The chunks of the selective scan from state ``h``: ``(y (B, L, di),
+    final state)``; with ``ends`` (a list) each chunk's final state is
+    appended to it."""
+    ys = []
+    for s in range(0, dt.shape[1], C):
+        h, y = _ssm_chunk(h, tuple(a[:, s:s + C]
+                                   for a in (dt, Bc, Cc, xin)), A)
+        ys.append(y)
+        if ends is not None:
+            ends.append(h)
+    return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), h
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The chunked selective scan with a chunk-recompute backward.
+
+    The forward runs :func:`_ssm_chunk` over the chunks as the no-grad
+    path does and saves dt, B, C, xin, A and the ``n + 1`` chunk-boundary
+    states ``(B, d_inner, d_state)``.  The backward walks the chunks from
+    last to first: it runs the chunk again from its boundary state under
+    ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of ``(y,
+    h_end)`` against ``(dy, dh_end)``, carrying ``dh`` to the chunk before.
+    Only one chunk's graph is alive at a time.  Inputs: dt, xin ``(B, L,
+    di)``, Bc, Cc ``(B, L, ds)``, A ``(di, ds)``, h0 ``(B, di, ds)``;
+    returns ``(y (B, L, di), h_final)``."""
+
+    @staticmethod
+    def forward(ctx, dt, Bc, Cc, xin, A, h0, C):
+        hs = [h0]
+        y, h = _scan(dt, Bc, Cc, xin, A, h0, C, hs)
+        ctx.C = C
+        ctx.save_for_backward(dt, Bc, Cc, xin, A, torch.stack(hs))
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dt, Bc, Cc, xin, A, hs = ctx.saved_tensors
+        C = ctx.C
+        L = dt.shape[1]
+        if dh is None:
+            dh = torch.zeros_like(hs[0])
+        if dy is None:
+            dy = torch.zeros_like(xin)
+        grads = [torch.empty_like(a) for a in (dt, Bc, Cc, xin)]
+        dA = torch.zeros_like(A)
+        for n in reversed(range(L // C)):
+            s = n * C
+            ins = [a[:, s:s + C].detach().requires_grad_()
+                   for a in (dt, Bc, Cc, xin)]
+            Ad = A.detach().requires_grad_()
+            h = hs[n].detach().requires_grad_()
+            with torch.enable_grad():
+                h_end, y = _ssm_chunk(h, tuple(ins), Ad)
+                got = torch.autograd.grad((y, h_end), (*ins, Ad, h),
+                                          (dy[:, s:s + C], dh))
+            for g, part in zip(grads, got[:4]):
+                g[:, s:s + C] = part
+            dA += got[4]
+            dh = got[5]
+        return (*grads, dA, dh, None)
+
+
 def mamba_fwd(p, x, cfg: ArchConfig, *, chunk: int = 128,
               state: Optional[dict] = None):
     """x: (B, L, d).  With ``state`` and ``L == 1``, one decode step.
@@ -188,12 +251,11 @@ def mamba_fwd(p, x, cfg: ArchConfig, *, chunk: int = 128,
             C -= 1
         h = x.new_zeros((B, di, ds), dtype=cdt) if state is None \
             else state["ssm"].to(cdt)
-        ys = []
-        for s in range(0, L, C):
-            h, y = _ssm_chunk(h, tuple(a[:, s:s + C]
-                                       for a in (dt, Bc, Cc, xin)), A)
-            ys.append(y)
-        y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+        if torch.is_grad_enabled() and any(
+                a.requires_grad for a in (dt, Bc, Cc, xin, A, h)):
+            y, h = SelectiveScan.apply(dt, Bc, Cc, xin, A, h, C)
+        else:
+            y, h = _scan(dt, Bc, Cc, xin, A, h, C)
         new_state = None if state is None else {
             "conv": new_win.to(x.dtype), "ssm": h.float()}
 

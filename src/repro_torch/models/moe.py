@@ -36,8 +36,17 @@ sentinel row, which is cut off).  The gather of expert outputs reads each
 kept slot once; its backward adds more than one term only into the
 sentinel row, a constant whose gradient is discarded.
 
-Expert parallelism over several cards (``expert_specs``, the all-to-alls,
-the multi-rank branches of ``_moe_manual``) waits for the multi-GPU work.
+The expert share (``share=(index, count)``) is one card's part of
+expert parallelism over ``count`` cards: the local half of the reference's
+fused EP branch (``local_buf`` / ``local_out`` in ``_moe_manual(ep=True)``),
+without the all-to-all.  The layer holds experts ``[index * E / count,
+(index + 1) * E / count)`` only, routes the card's tokens over all E
+experts exactly as the whole layer does (the same tables, capacity and aux
+losses), runs the held experts on their capacity rows and returns their
+gated outputs alone; a shared expert is added on share 0.  The shares'
+outputs sum to the whole layer's.  Nothing stands in for the other cards
+or their traffic; the all-to-alls and the multi-rank branches of
+``_moe_manual`` wait for the multi-GPU work.
 """
 from __future__ import annotations
 
@@ -51,14 +60,30 @@ from repro_torch.models.layers import ParamDef, ParamDefs, mlp_defs, mlp_fwd
 DISPATCHES = ("fused", "serialized", "dense")
 
 
-def moe_defs(cfg: ArchConfig) -> ParamDefs:
+def held_experts(m: MoECfg, share) -> range:
+    """The experts that ``share`` (``(index, count)`` or None) holds;
+    ``ValueError`` unless ``count`` divides the experts and ``index`` is
+    one of ``count``."""
+    if share is None:
+        return range(m.n_experts)
+    index, count = share
+    if count < 1 or m.n_experts % count or not 0 <= index < count:
+        raise ValueError(f"expert share {index}/{count} of {m.n_experts} "
+                         "experts: the count must divide them and the index "
+                         "be one of the count")
+    n = m.n_experts // count
+    return range(index * n, (index + 1) * n)
+
+
+def moe_defs(cfg: ArchConfig, share=None) -> ParamDefs:
     m = cfg.moe
     d = cfg.d_model
+    E = len(held_experts(m, share))
     defs: ParamDefs = {
         "router": ParamDef((d, m.n_experts), "small_normal"),
-        "w_gate": ParamDef((m.n_experts, d, m.d_expert)),
-        "w_up": ParamDef((m.n_experts, d, m.d_expert)),
-        "w_down": ParamDef((m.n_experts, m.d_expert, d)),
+        "w_gate": ParamDef((E, d, m.d_expert)),
+        "w_up": ParamDef((E, d, m.d_expert)),
+        "w_down": ParamDef((E, m.d_expert, d)),
     }
     if m.shared_expert:
         defs["shared"] = mlp_defs(d, m.d_expert, "swiglu", False)
@@ -153,18 +178,21 @@ def _capacity(tokens: int, m: MoECfg, n_experts: int) -> int:
     return max(4, ((c + 3) // 4) * 4)
 
 
-def moe_fwd(p, x, cfg: ArchConfig, dispatch: str = "fused"):
-    """MoE FFN layer.  x: (B, L, d).  Returns ``(out, aux_losses)``."""
+def moe_fwd(p, x, cfg: ArchConfig, dispatch: str = "fused", share=None):
+    """MoE FFN layer.  x: (B, L, d).  Returns ``(out, aux_losses)``; with
+    ``share`` the held experts' part of ``out`` (see the module
+    docstring)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch {dispatch!r}: one of {DISPATCHES}")
     m = cfg.moe
+    held = held_experts(m, share)
     B, L, d = x.shape
     x2d = x.reshape(-1, d)
     top_e, top_g, aux = _route(x2d, p["router"], m)
     if dispatch == "dense":
         outs = torch.zeros_like(x2d)
-        for e in range(m.n_experts):          # reference oracle
-            wg, wu, wd = (p[k][e] for k in ("w_gate", "w_up", "w_down"))
+        for i, e in enumerate(held):          # reference oracle
+            wg, wu, wd = (p[k][i] for k in ("w_gate", "w_up", "w_down"))
             if cfg.mlp_type == "swiglu":
                 h = F.silu(x2d @ wg) * (x2d @ wu)
             else:
@@ -177,11 +205,18 @@ def moe_fwd(p, x, cfg: ArchConfig, dispatch: str = "fused"):
         T = B * L
         cap = _capacity(T, m, m.n_experts)
         slot, keep = _dispatch_tables(top_e, top_g, m.n_experts, cap)
-        buf = _scatter_tokens(x2d, slot, keep, m.n_experts, cap, m.top_k)
+        if share is not None:
+            # the held experts' slots, counted from the first held one;
+            # every other assignment goes to the sentinel row
+            lo, hi = held.start * cap, held.stop * cap
+            keep = keep & (slot >= lo) & (slot < hi)
+            slot = torch.where(keep, slot - lo,
+                               torch.full_like(slot, hi - lo))
+        buf = _scatter_tokens(x2d, slot, keep, len(held), cap, m.top_k)
         out_buf = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], buf,
                               cfg.mlp_type)
         out = _gather_outputs(out_buf, slot, keep, top_g, T, m.top_k) \
             .reshape(B, L, d)
-    if m.shared_expert:
+    if m.shared_expert and (share is None or share[0] == 0):
         out = out + mlp_fwd(p["shared"], x, "swiglu")
     return out, aux

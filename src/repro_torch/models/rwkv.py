@@ -80,18 +80,19 @@ def _mix(x, xx, mu):
     return x + (xx - x) * mu.to(x.dtype)[:, None, None, :]
 
 
-def _wkv_scan(r, k, v, w, u, state, block: int = WKV_BLOCK):
-    """Sequential WKV recurrence.  r/k/v/w: (B, L, H, hd) f32, u (H, hd),
-    state (B, H, hd, hd).  Returns (out (B, L, H, hd), final state)."""
-    B, L, H, hd = r.shape
-    r, k, v, w = (a.transpose(0, 1) for a in (r, k, v, w))  # (L,B,H,hd)
+def _wkv_blocks(r, k, v, w, u, S, block, starts=None):
+    """The forward loop over ``(L, B, H, hd)`` inputs from state ``S``:
+    ``(out (L, B, H, hd), final state)``; with ``starts`` (a list) each
+    block's first state is appended to it."""
+    L = r.shape[0]
     ru = r * u
-    S = state
     outs = []
     for s in range(0, L, block):
         T = min(block, L - s)
+        if starts is not None:
+            starts.append(S)
         kv = k[s:s + T, ..., :, None] * v[s:s + T, ..., None, :]
-        states = S.new_empty((T + 1, B, H, hd, hd))
+        states = S.new_empty((T + 1,) + S.shape)
         states[0] = S
         wt = w[s:s + T, ..., None].contiguous()
         for t in range(T):
@@ -100,7 +101,96 @@ def _wkv_scan(r, k, v, w, u, state, block: int = WKV_BLOCK):
             torch.einsum("tbhk,tbhkv->tbhv", ru[s:s + T], kv)
         outs.append(out)
         S = states[T]
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return (torch.cat(outs) if len(outs) > 1 else outs[0]), S
+
+
+class WKVFunction(torch.autograd.Function):
+    """The WKV recurrence with a backward that keeps one block of states.
+
+    The forward is :func:`_wkv_blocks`' loop and saves r, k, v, w, u and
+    the state at each block boundary, never one state a token.  The
+    backward walks the blocks from last to first: it recomputes the
+    block's states ``S_{t-1}`` from its boundary state (the forward's
+    ``addcmul``, so the same bits), then runs the reverse recurrence of
+    ``G_t = dL/dS_t``, per head with key index i and value index j,
+
+        G_{t-1} = w_t (.)_i G_t + r_t (x) g_t,     g_t = dL/do_t,
+
+    one ``addcmul`` a token into a block buffer that first held the
+    outer products ``r_t (x) g_t``, and takes batched over the block
+
+        dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+        dk_t    = G_t . v_t + (r_t u) (v_t . g_t)
+        dv_t    = G_t^T . k_t + ((r_t u) . k_t) g_t
+        dr_t[i] = sum_j S_{t-1}[i,j] g_t[j] + u[i] k_t[i] (v_t . g_t)
+        du[i]   = sum_t r_t[i] k_t[i] (v_t . g_t).
+
+    The block's outer products ``k_t (x) v_t`` live in the same buffer
+    while the states are recomputed, so a backward holds two block
+    buffers, ``(block + 1, B, H, hd, hd)`` float32 each.  Inputs are
+    ``(L, B, H, hd)`` (token-major), ``u`` ``(H, hd)``, ``S0`` ``(B, H,
+    hd, hd)``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0, block):
+        starts = []
+        out, S = _wkv_blocks(r, k, v, w, u, S0, block, starts)
+        ctx.block = block
+        ctx.save_for_backward(r, k, v, w, u, torch.stack(starts))
+        return out, S
+
+    @staticmethod
+    def backward(ctx, g_out, g_S):
+        r, k, v, w, u, starts = ctx.saved_tensors
+        L = r.shape[0]
+        block = ctx.block
+        G = torch.zeros_like(starts[0]) if g_S is None else g_S
+        if g_out is None:
+            g_out = torch.zeros_like(r)
+        dr, dk, dv, dw = (torch.empty_like(a) for a in (r, k, v, w))
+        du = torch.zeros_like(u)
+        ru = r * u
+        for n in reversed(range(starts.shape[0])):
+            s = n * block
+            T = min(block, L - s)
+            rs, ks, vs, ws, rus, gs = (a[s:s + T] for a in
+                                       (r, k, v, w, ru, g_out))
+            wt = ws[..., None].contiguous()
+            states = starts.new_empty((T + 1,) + starts.shape[1:])
+            buf = starts.new_empty((T + 1,) + starts.shape[1:])
+            states[0] = starts[n]
+            torch.mul(ks[..., :, None], vs[..., None, :], out=buf[:T])
+            for t in range(T):
+                torch.addcmul(buf[t], wt[t], states[t], out=states[t + 1])
+            torch.mul(rs[..., :, None], gs[..., None, :], out=buf[:T])
+            buf[T] = G
+            for t in reversed(range(T)):
+                buf[t].addcmul_(wt[t], buf[t + 1])
+            Gt, Sp = buf[1:], states[:T]
+            vg = (vs * gs).sum(-1, keepdim=True)           # (T,B,H,1)
+            rk = (rus * ks).sum(-1, keepdim=True)
+            dw[s:s + T] = torch.einsum("tbhij,tbhij->tbhi", Gt, Sp)
+            dk[s:s + T] = torch.einsum("tbhij,tbhj->tbhi", Gt, vs) + rus * vg
+            dv[s:s + T] = torch.einsum("tbhij,tbhi->tbhj", Gt, ks) + rk * gs
+            dr[s:s + T] = torch.einsum("tbhij,tbhj->tbhi", Sp, gs) + \
+                u * ks * vg
+            du += (rs * ks * vg).sum((0, 1))
+            G = buf[0].clone() if n else buf[0]
+            del states, buf
+        return dr, dk, dv, dw, du, G, None
+
+
+def _wkv_scan(r, k, v, w, u, state, block: int = WKV_BLOCK):
+    """Sequential WKV recurrence.  r/k/v/w: (B, L, H, hd) f32, u (H, hd),
+    state (B, H, hd, hd).  Returns (out (B, L, H, hd), final state).
+    With grad enabled and an input that requires it, through
+    :class:`WKVFunction` (the same forward bits)."""
+    seq = tuple(a.transpose(0, 1) for a in (r, k, v, w))  # (L,B,H,hd)
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (r, k, v, w, u, state)):
+        out, S = WKVFunction.apply(*seq, u, state, block)
+    else:
+        out, S = _wkv_blocks(*seq, u, state, block)
     return out.transpose(0, 1), S
 
 

@@ -24,7 +24,10 @@ unit by unit, each unit under ``torch.utils.checkpoint`` when
 the cast of its weights inside the checkpointed function, as the
 reference's ``unit_fn``.  The embedding gather's gradient sums each
 token's rows in a fixed order (:class:`_GatherRows`), so a training step
-gives the same bits on every run.
+gives the same bits on every run.  Mamba and RWKV layers train through
+their scans' own backwards (``mamba.SelectiveScan``, ``rwkv.WKVFunction``),
+which keep one chunk or block of states; the checkpoint stays whole-unit
+(the reference found per-layer remat no use for Jamba's units).
 
 MoE layers (``spec.moe``) hold ``"moe"`` in place of ``"mlp"`` and run
 :func:`repro_torch.models.moe.moe_fwd` with the model's ``moe_dispatch``
@@ -32,7 +35,10 @@ MoE layers (``spec.moe``) hold ``"moe"`` in place of ``"mlp"`` and run
 its aux losses beside ``x``, and the stack sums ``moe_lb`` / ``moe_z`` in
 the reference's order (over a unit's layers, then over units), also
 through ``checkpoint``.  ``loss_fn`` adds ``0.01 * moe_lb / n_layers +
-1e-3 * moe_z / n_layers`` and reports both terms.
+1e-3 * moe_z / n_layers`` and reports both terms.  ``expert_share=(index,
+count)`` makes every MoE layer one card's share of ``count``-way expert
+parallelism (``moe.moe_fwd(..., share=)``): it holds ``E / count``
+experts.
 
 Layer kinds (``LayerSpec.kind``) are the reference's: ``attn``, ``mamba``
 (:mod:`repro_torch.models.mamba`, Jamba's hybrid units) and ``rwkv``
@@ -50,9 +56,8 @@ di), "ssm": (n, B, di, ds) float32}}``; ``{"rwkv_tm": {"shift_tm": (n, B,
 1, d)}}``, the rest in the compute dtype.  The port writes every cache and
 state in place and returns the same dict (MoE layers hold no state); the
 reference's sharding, ``specs`` and ``_unit_gather_spec`` wait for the
-multi-GPU work.  Training a Mamba or RWKV config raises
-``NotImplementedError`` naming ROADMAP A14b.2 (SSM training), and VLM-prefix
-and encoder-decoder configs raise naming their ROADMAP item.
+multi-GPU work.  VLM-prefix and encoder-decoder configs raise naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -83,7 +88,8 @@ from repro_torch.models.layers import (
 )
 
 
-def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> ParamDefs:
+def _layer_defs(cfg: ArchConfig, spec: LayerSpec,
+                expert_share=None) -> ParamDefs:
     d: ParamDefs = {"ln1": norm_defs(cfg.d_model, cfg.use_bias)}
     if spec.kind == "attn":
         d["attn"] = attn.attn_defs(cfg)
@@ -97,28 +103,29 @@ def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> ParamDefs:
     if spec.kind == "rwkv":
         d["cm"] = rwkv_mod.rwkv_defs(cfg)["cm"]
     elif spec.moe:
-        d["moe"] = moe_mod.moe_defs(cfg)
+        d["moe"] = moe_mod.moe_defs(cfg, expert_share)
     else:
         d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_type,
                             cfg.use_bias)
     return d
 
 
-def unit_defs(cfg: ArchConfig) -> ParamDefs:
-    return {f"layer{i}": _layer_defs(cfg, s)
+def unit_defs(cfg: ArchConfig, expert_share=None) -> ParamDefs:
+    return {f"layer{i}": _layer_defs(cfg, s, expert_share)
             for i, s in enumerate(cfg.pattern_unit)}
 
 
-def model_defs(cfg: ArchConfig) -> ParamDefs:
-    """The reference's stacked declaration of every parameter (raises on
-    a layer kind or an encoder the port does not declare yet)."""
+def model_defs(cfg: ArchConfig, expert_share=None) -> ParamDefs:
+    """The reference's stacked declaration of every parameter, MoE
+    layers holding ``expert_share``'s experts (raises on a layer kind or
+    an encoder the port does not declare yet)."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   "not ported yet (ROADMAP A14: enc-dec)")
     V, d = cfg.padded_vocab, cfg.d_model
     defs: ParamDefs = {
         "embed": ParamDef((V, d), "small_normal"),
-        "units": stack_defs(unit_defs(cfg), cfg.n_units),
+        "units": stack_defs(unit_defs(cfg, expert_share), cfg.n_units),
         "final_norm": norm_defs(d, cfg.use_bias),
     }
     if not cfg.tie_embeddings:
@@ -168,16 +175,6 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
     if cfg.prefix_tokens:
         return "a VLM prefix (ROADMAP A14: VLM)"
     return None
-
-
-def refuse_ssm_training(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` if ``cfg`` has Mamba or RWKV layers:
-    their training is the next slice of the port."""
-    kinds = sorted({s.kind for s in cfg.pattern_unit} & {"mamba", "rwkv"})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training {'/'.join(kinds)} layers is not ported "
-            "yet (ROADMAP A14b.2: SSM training)")
 
 
 def _store(cache: Optional[dict], kind: str, new: Optional[dict]) -> None:
@@ -242,7 +239,7 @@ class LM(nn.Module):
     """Decoder-only language model over a pattern-unit stack."""
 
     def __init__(self, cfg: ArchConfig, device="cuda",
-                 moe_dispatch: str = "fused"):
+                 moe_dispatch: str = "fused", expert_share=None):
         super().__init__()
         why = _unsupported(cfg)
         if why is not None:
@@ -250,17 +247,25 @@ class LM(nn.Module):
         if moe_dispatch not in moe_mod.DISPATCHES:
             raise ValueError(f"moe_dispatch {moe_dispatch!r}: one of "
                              f"{moe_mod.DISPATCHES}")
+        if expert_share is not None:
+            if cfg.moe is None:
+                raise ValueError(f"{cfg.name}: an expert share needs MoE "
+                                 "layers")
+            expert_share = tuple(expert_share)
+            moe_mod.held_experts(cfg.moe, expert_share)
         dev = resolve_device(device)
         self.cfg = cfg
         self.moe_dispatch = moe_dispatch
+        self.expert_share = expert_share
         self.cdt = getattr(torch, cfg.compute_dtype)
         self.pdt = getattr(torch, cfg.param_dtype)
         V, d = cfg.padded_vocab, cfg.d_model
-        self.defs = model_defs(cfg)
+        self.defs = model_defs(cfg, expert_share)
         self.embed = nn.Parameter(torch.empty((V, d), dtype=self.pdt,
                                               device=dev))
         self.layers = nn.ModuleList(
-            _params_module(_layer_defs(cfg, spec), self.pdt, dev)
+            _params_module(_layer_defs(cfg, spec, expert_share), self.pdt,
+                           dev)
             for _ in range(cfg.n_units) for spec in cfg.pattern_unit)
         self.final_norm = _params_module(self.defs["final_norm"], self.pdt,
                                          dev)
@@ -353,7 +358,8 @@ class LM(nn.Module):
                 p["cm"], h, state=None if cache is None else cache["rwkv_cm"])
             _store(cache, "rwkv_cm", ns)
         elif spec.moe:
-            out, aux = moe_mod.moe_fwd(p["moe"], h, cfg, self.moe_dispatch)
+            out, aux = moe_mod.moe_fwd(p["moe"], h, cfg, self.moe_dispatch,
+                                       self.expert_share)
         else:
             out = mlp_fwd(p["mlp"], h, cfg.mlp_type)
         return x + out, aux
@@ -389,7 +395,6 @@ class LM(nn.Module):
         """The stack with grad: each unit casts its own weights, under
         ``checkpoint`` when ``cfg.remat``."""
         cfg = self.cfg
-        refuse_ssm_training(cfg)
         if cfg.remat and cfg.remat_policy != "nothing":
             raise NotImplementedError(
                 f"remat_policy {cfg.remat_policy!r} (the port remats with "

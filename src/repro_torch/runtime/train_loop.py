@@ -13,7 +13,9 @@ contract:
 
 ``ckpt_every <= 0`` writes no checkpoint at all (the port's; the
 reference divides by it): a full-width qwen3-1.7b checkpoint, float32
-parameters and both moments, is 24.4 GB.  A checkpoint holds the
+parameters and both moments, is 24.4 GB.  A model that holds an expert
+share cannot write one (``convert`` raises ``ValueError``): the other
+experts live on other cards.  A checkpoint holds the
 reference's state tree, ``{"params": <stacked
 parameter tree>, "opt": {"step", "m", "v"}}`` (``convert``), with
 ``extra = {"next_step", "data_state"}``: each package resumes the
@@ -119,9 +121,11 @@ def run_training(loop_cfg: TrainLoopConfig, program, data_cfg: DataConfig,
             if loop_cfg.ckpt_every > 0 and (
                     done % loop_cfg.ckpt_every == 0 or
                     done == loop_cfg.total_steps):
-                mgr.save(done, {"params": lm_params_to_jax(params, per_unit),
+                share = model.expert_share
+                mgr.save(done, {"params": lm_params_to_jax(params, per_unit,
+                                                           share),
                                 "opt": adamw_state_to_jax(opt_state,
-                                                          per_unit)},
+                                                          per_unit, share)},
                          extra={"next_step": done,
                                 "data_state": stream.state()})
             if fail_at_step is not None and done == fail_at_step:

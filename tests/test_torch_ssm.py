@@ -20,7 +20,7 @@ every second layer) and ``get_config("rwkv6-3b").reduce()``, both f32:
   teacher-forced decode logits, greedy ``BatchServer`` tokens equal to the
   reference's; the reference's invariant (a prefill then decode steps
   equals a longer prefill) inside the port; the converter round trip;
-  ``launch/serve.py``; SSM training refused.
+  ``launch/serve.py`` (their training: ``tests/test_torch_ssm_train.py``).
 
 Tolerances: 1e-5 of max |value| in f32 (the LM slices' bar: float32
 sums in another order); copies and shifts bitwise.  The reduced jamba
@@ -503,20 +503,6 @@ def test_param_counts_match_reference(jx, arch):
     port = _port_model(jx, arch)
     assert sum(p.numel() for p in port.parameters()) == \
         tsteps.param_count(port.cfg)
-
-
-@pytest.mark.parametrize("arch", ARCHES)
-def test_ssm_training_is_refused(arch):
-    cfg = get_config(arch).reduce()
-    port = build_model(cfg, device="cpu").init(
-        torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 5), dtype=torch.int32)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A14b.2: SSM training"):
-        port.loss_fn({"tokens": toks})
-    with torch.no_grad():                      # an evaluation loss runs
-        loss, _ = port.loss_fn({"tokens": toks})
-    assert torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("arch", ARCHES)
