@@ -23,6 +23,8 @@
         # prints no result lines
     python3 chip_smoke.py --ssm-train          # phases 1, 2 and 22 alone;
         # prints no result lines
+    python3 chip_smoke.py --encdec             # phases 1, 2 and 23 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -121,11 +123,14 @@ Phases, each asserting (any failure exits non-zero with no result line):
 13. ``flash_attention``: the kernel against its plain form and the
     float64 oracle at the serve path's launch shape (BH = 4 x 8, L = S =
     1024, G = 2, hd = 128) in bf16 and f32, non-causal, ragged L = S =
-    1000, hd 64 and hd 16 (L != S); at the serve shape also against the
-    plain form at the bf16 kernel's own tiling (``kernel_tiling``); the
-    serve shape timed in bf16 beside the plain form, SDPA as the
-    yardstick and the bound; ``cuobjdump -sass`` of the built library
-    must show HGMMA (tensor-core) instructions in every bf16 kernel;
+    1000, hd 64 and hd 16 (L != S), and whisper-small's three shapes (G
+    1, hd 64, BH 96: the encoder's L = S = 1500 and the cross attention's
+    L 224 against S 1500, non-causal; the decoder's L = S = 448, causal);
+    at the serve shape also against the plain form at the bf16 kernel's
+    own tiling (``kernel_tiling``); the serve shape and whisper's timed in
+    bf16 beside the plain form, SDPA as the yardstick and the bound;
+    ``cuobjdump -sass`` of the built library must show HGMMA (tensor-core)
+    instructions in every bf16 kernel;
 14. the LM serving path: qwen3-1.7b at full width and depth (28 layers,
     2,031,739,904 parameters, bf16 compute, random weights from a seeded
     generator), ``BatchServer`` serving two waves of 4 requests (1024-token
@@ -217,7 +222,9 @@ Phases, each asserting (any failure exits non-zero with no result line):
     form (autograd through ``flash_attention_plain``) and the float64
     oracle at the training shape (BH = 4 x 8, L = S = 1024, G = 2, hd =
     128) in bf16 and f32, non-causal, ragged L = S = 1000, hd 64 and hd
-    16 (L != S), each error a share of the oracle's max |grad| (2e-2 /
+    16 (L != S), and whisper-small's three shapes (phase 13's; each timed
+    in bf16 beside the plain backward, SDPA's backward and the bound),
+    each error a share of the oracle's max |grad| (2e-2 /
     2e-5 against the plain form, 0.06 / 2e-5 against the oracle); two
     launches bitwise equal; the forward's ``_lse`` entry's out bitwise
     equal to the serving entry's; timed beside the plain form, SDPA's
@@ -308,6 +315,34 @@ Phases, each asserting (any failure exits non-zero with no result line):
     causal, bf16) against its plain backward and the f64 oracle at phase
     19's bars, bitwise on repeat, timed beside SDPA's backward and the
     bound.
+23. the encoder-decoder, whisper-small at full width and depth
+    (278,301,696 parameters, 12 + 12 layers, G 1, hd 64): (a) served
+    through ``launch.steps``' programs, ``make_prefill_step`` and
+    ``make_decode_step`` sharing one bf16-weight model at the reference's
+    init (seeded), 8 requests of 1,500 seeded frames and a 224-token
+    prompt: the prefill program with every kernel counter zeroed just
+    before and read just after (``flash_attention`` 36: 12 encoder, 12
+    decoder self, 12 cross; nothing else), ``EncDec.prefill`` into a
+    448-slot cache (its last logits bitwise the program's), 32 greedy
+    steps of the decode program (no kernel: ``decode_attention`` is an
+    einsum); prefill ms (time to first token), ms a decode step, tok/s,
+    peak memory, a profiled prefill and decode step; every decode step
+    teacher-forced against a no-cache prefill of the same prefix, bf16
+    (5e-2 of max |logit|) and f32 (1e-3), each held where one ulp on the
+    embeddings moves the logits less, else printed and then held on the
+    layer weights redrawn at fan-in scale (random whisper at the
+    reference's init is chaotic: one f32 ulp moves its logits 6.6e-2 of
+    their max); one encoder and one decoder layer in f32 at fan-in scale,
+    prefill and 4 decode steps card vs CPU (1e-4); (b) trained through ``make_train_step`` (8 x (1,500
+    frames + 449 tokens), remat ``"nothing"``, AdamW lr 3e-3 warmup 10,
+    6 steps, no checkpoints) twice: losses, grad norms and a parameter
+    digest bitwise equal and finite, ``flash_attention`` 72 and B7b 36
+    launches a step and nothing else; ms a step, tokens/s, peak memory, a
+    profiled step; one layer each in f32 drawn at fan-in scale, loss and
+    every gradient card vs CPU (1e-4 of each leaf's max; the key biases,
+    whose gradient is zero, of their layer's ``bv``).  Logits are
+    compared over the real vocabulary (51,865 of 51,968 columns: the
+    padded ones hold -1e30).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1894,6 +1929,13 @@ def host_off_vs_double_buffer(system, rounds: int = 6):
 # ---- phase 13: flash_attention at the serve path's shapes ---------------------
 
 BF16_FLOPS = 989e12        # H100 SXM bf16 / fp16 on the tensor cores, dense
+# whisper-small's attention (12 heads of 64 over 12 kv heads, batch 8):
+# (BH, L, S, G, hd, causal) of the encoder over its 1,500 frames, the
+# decoder's cross attention (224 text positions) and its causal self
+# attention at the 448-token text context
+WHISPER_SHAPES = {"enc": (96, 1500, 1500, 1, 64, False),
+                  "cross": (96, 224, 1500, 1, 64, False),
+                  "dec": (96, 448, 448, 1, 64, True)}
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # kernel against plain form
 ORACLE_TOL = {"bfloat16": 0.06, "float32": 2e-5}  # against the f64 oracle
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
@@ -1947,14 +1989,46 @@ def flash_sass_counts(lib_path) -> dict:
     return counts
 
 
+def flash_times(q, k, v, causal, want):
+    """One bf16 case timed: the kernel (CUDA events over 50 launches), the
+    plain form (5), SDPA on the same values in its (N, H, L, E) layout
+    with the kv heads repeated G times (prepared outside the timing; its
+    output checked against ``want``, the plain form's), and the bound:
+    ``{"ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops",
+    "peak"}`` and SDPA's error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    BH, L, G, hd = q.shape
+    S = k.shape[1]
+    nbytes, ops = flash_work(BH, L, S, G, hd, causal, q.element_size())
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), n=50,
+                  warmup=5)
+    t_p = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                  n=5, warmup=1)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k[:, None].expand(BH, G, S, hd).contiguous()
+    vt = v[:, None].expand(BH, G, S, hd).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qt, kt, vt, is_causal=causal).transpose(1, 2)
+    lerr = float((lib.double() - want.double()).abs().max())
+    t_l = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=50,
+                  warmup=5)
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+            "bytes": nbytes, "ops": ops, "peak": peak}, lerr
+
+
 def flash_phase(lib_path):
     """The kernel against its plain form (and the float64 oracle) at the
     serve shape (BH = 4 requests x 8 kv heads, L = S = 1024, G = 2,
-    hd = 128) in bf16 and f32, non-causal, ragged L = S = 1000, and hd 64
-    and 16; at the serve shape also against the plain form at the bf16
-    kernel's tiling; the serve shape in bf16 timed beside the plain form,
-    SDPA as the yardstick and the bound; the bf16 kernels' HGMMA counts
-    from the SASS."""
+    hd = 128) in bf16 and f32, non-causal, ragged L = S = 1000, hd 64
+    and 16, and whisper-small's three attention shapes (``WHISPER_SHAPES``:
+    encoder, cross and decoder self); at the serve shape also against the
+    plain form at the bf16 kernel's tiling; the serve shape and whisper's
+    in bf16 timed beside the plain form, SDPA as the yardstick and the
+    bound; the bf16 kernels' HGMMA counts from the SASS."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
@@ -1975,12 +2049,13 @@ def flash_phase(lib_path):
              ("full", 32, 1024, 1024, 2, 128, False),
              ("ragged", 32, 1000, 1000, 2, 128, True),
              ("hd64", 16, 512, 512, 4, 64, True),
-             ("hd16 full", 8, 256, 300, 2, 16, False)]
+             ("hd16 full", 8, 256, 300, 2, 16, False)] + \
+        [(f"whisper {tag}",) + shape for tag, shape in WHISPER_SHAPES.items()]
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"bfloat16": 0.0, "float32": 0.0}
     print("flash_attention phase: kernel against its plain form (max abs "
           f"err; tolerance {FLASH_TOL}; f64 oracle {ORACLE_TOL})")
-    out = None
+    out, whisper = None, {}
     for tag, BH, L, S, G, hd, causal in cases:
         base = [torch.randn(shape, generator=gen, device="cuda")
                 for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd))]
@@ -2005,6 +2080,21 @@ def flash_phase(lib_path):
             check(oerr <= ORACLE_TOL[name], f"flash_attention {tag} {name}: "
                   f"{oerr} from the f64 oracle")
             errs[name] = max(errs[name], err)
+            if tag.startswith("whisper") and dtype == torch.bfloat16:
+                acc, lerr = flash_times(q, k, v, causal, want)
+                check(lerr <= 2 * FLASH_TOL[name], f"SDPA yardstick at "
+                      f"{tag}: {lerr} from the plain form")
+                print(f"  {tag} bf16: kernel {acc['ms']:.6f} ms, plain "
+                      f"{acc['plain_ms']:.6f} ms, SDPA {acc['library_ms']:.6f}"
+                      f" ms (err vs plain {lerr:.3e}), bound "
+                      f"{acc['bound_ms']:.6f} ms ({acc['ops']} operations, "
+                      f"{acc['bytes']} bytes; "
+                      f"{acc['bound_ms'] / acc['ms']:.4f} of it, "
+                      f"{acc['ops'] / (acc['ms'] * 1e-3) / 1e12:.2f} TFLOP/s)")
+                whisper[tag.split()[1]] = {
+                    key: acc[key] for key in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms")} | {"max_abs_err":
+                                                              err}
             if tag != "serve":
                 continue
             bq, bk = kernel_tiling(G)
@@ -2015,37 +2105,19 @@ def flash_phase(lib_path):
                   f"(bq 128, bk 256) {err:.3e}")
             check(terr <= FLASH_TOL[name], f"flash_attention serve {name}: "
                   f"{terr} from its plain form at the kernel's tiling")
-            nbytes, ops = flash_work(BH, L, S, G, hd, causal,
-                                     q.element_size())
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-            bound = max(nbytes / HBM_BPS, ops / peak) * 1e3
-            t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                          n=50, warmup=5)
-            t_p = cuda_ms(lambda: flash_attention_plain(q, k, v,
-                                                        causal=causal),
-                          n=5, warmup=1)
-            # yardstick: SDPA on the same values in its (N, H, L, E)
-            # layout, kv heads repeated G times (prepared outside the timing)
-            qt = q.transpose(1, 2).contiguous()
-            kt = k[:, None].expand(BH, G, S, hd).contiguous()
-            vt = v[:, None].expand(BH, G, S, hd).contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = sdpa(qt, kt, vt, is_causal=causal).transpose(1, 2)
-            lerr = float((lib.double() - want.double()).abs().max())
+            acc, lerr = flash_times(q, k, v, causal, want)
             check(lerr <= 2 * FLASH_TOL[name], f"SDPA yardstick {name}: "
                   f"{lerr} from the plain form: another function")
-            t_l = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=50,
-                          warmup=5)
-            print(f"  serve {name}: kernel {t_k:.6f} ms, plain {t_p:.6f} ms, "
-                  f"SDPA {t_l:.6f} ms (err vs plain {lerr:.3e}), bound "
-                  f"{bound:.6f} ms ({nbytes} bytes, {ops} operations), "
-                  f"kernel at {ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s")
+            print(f"  serve {name}: kernel {acc['ms']:.6f} ms, plain "
+                  f"{acc['plain_ms']:.6f} ms, SDPA {acc['library_ms']:.6f} ms"
+                  f" (err vs plain {lerr:.3e}), bound {acc['bound_ms']:.6f} "
+                  f"ms ({acc['bytes']} bytes, {acc['ops']} operations), "
+                  f"kernel at {acc['ops'] / (acc['ms'] * 1e-3) / 1e12:.2f} "
+                  f"TFLOP/s")
             if dtype == torch.bfloat16:
-                out = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                       "bound_ms": bound, "bytes": nbytes, "ops": ops,
-                       "peak": peak}
-            del qt, kt, vt, lib
+                out = acc
     out["max_abs_err"] = errs["bfloat16"]
+    out["whisper_shapes"] = whisper
     print(f"flash_attention max abs err against the plain form: bf16 "
           f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}")
     return {"flash_attention": out}
@@ -3631,10 +3703,11 @@ def b7b_phase(lib_path):
              ("full", 32, 1024, 1024, 2, 128, False),
              ("ragged", 32, 1000, 1000, 2, 128, True),
              ("hd64", 16, 512, 512, 4, 64, True),
-             ("hd16 full", 8, 256, 300, 2, 16, False)]
+             ("hd16 full", 8, 256, 300, 2, 16, False)] + \
+        [(f"whisper {tag}",) + shape for tag, shape in WHISPER_SHAPES.items()]
     gen = torch.Generator(device="cuda").manual_seed(19)
     errs = {"bfloat16": 0.0, "float32": 0.0}
-    abs_err = 0.0
+    abs_err, whisper = 0.0, {}
     print("B7b phase: flash_attention_backward against its plain form and "
           f"the f64 oracle (max abs err / max |oracle grad|; tolerance "
           f"{BWD_TOL}; oracle {BWD_ORACLE_TOL})")
@@ -3681,6 +3754,29 @@ def b7b_phase(lib_path):
             print(f"  {tag:9s} {name:8s} BH={BH} L={L} S={S} G={G} hd={hd} "
                   f"causal={causal}: vs plain / vs oracle {'; '.join(line)};"
                   " bitwise on repeat, out == serving out")
+            if tag.startswith("whisper") and dtype == torch.bfloat16:
+                nbytes, ops = flash_bwd_work(BH, L, S, G, hd, causal, 2)
+                bound = max(nbytes / HBM_BPS, ops / BF16_FLOPS) * 1e3
+                t_k = cuda_ms(lambda: fa.flash_attention_backward(
+                    q, k, v, o, dout, lse, causal=causal), n=50, warmup=5)
+                t_p = cuda_ms(lambda: fa.flash_attention_backward_plain(
+                    q, k, v, dout, causal=causal), n=3, warmup=1)
+                t_l, ldq = sdpa_backward(q, k, v, dout, causal)
+                lerr = float((ldq.double() - want[0].double()).abs().max())
+                check(lerr <= 2 * BWD_TOL[name] * float(
+                    oracle[0].abs().max()), f"SDPA backward yardstick at "
+                    f"{tag}: {lerr} from the plain form")
+                print(f"  {tag} bf16: B7b {t_k:.6f} ms, plain backward "
+                      f"{t_p:.6f} ms, SDPA backward {t_l:.6f} ms, bound "
+                      f"{bound:.6f} ms ({ops} operations, {nbytes} bytes; "
+                      f"{bound / t_k:.4f} of it, "
+                      f"{ops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s)")
+                whisper[tag.split()[1]] = {
+                    "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "bound_ms": bound, "max_abs_err": max(
+                        float((a.double() - b.double()).abs().max())
+                        for a, b in zip(got, want))}
+                del ldq
             if tag != "train" or dtype != torch.bfloat16:
                 del oracle, want
                 continue
@@ -3715,6 +3811,7 @@ def b7b_phase(lib_path):
                    "peak": BF16_FLOPS}
             del ldq, oracle, want
     out["max_abs_err"] = abs_err
+    out["whisper_shapes"] = whisper
     print(f"B7b max err against the plain form, of max |grad|: bf16 "
           f"{errs['bfloat16']:.3e}, f32 {errs['float32']:.3e}; max abs "
           f"err bf16 {abs_err:.3e}")
@@ -5429,15 +5526,565 @@ def ssm_train_phase():
                 "rwkv_train_launches": rwkv["flash_attention_backward"]}}
 
 
+# ---- phase 23: whisper-small, the encoder-decoder, served and trained ---------
+
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-small", 278_301_696   # full size
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 8, 224, 32
+WHISPER_MAX_LEN = 448      # whisper's text context
+WHISPER_TRAIN_TEXT = 448   # a training row: 449 tokens, 448 inputs
+WHISPER_ATTN = 36          # B7 launches a prefill: 12 encoder + 12 decoder
+                           # self + 12 cross attention layers
+
+
+def whisper_frames(cfg, batch, seed):
+    """(batch, encoder_seq, d_model) bf16 frame embeddings from a seeded
+    generator on the card (the reference's audio frontend is a stub)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def whisper_rescale(model, std) -> None:
+    """Scale every EncDec layer weight that ``init`` drew by the
+    reference's rule (``1 / sqrt(n)`` for a stack of n layers) to the
+    standard deviation ``std(shape)`` of its unstacked shape."""
+    import torch
+    from repro_torch.models.layers import _flatten
+    from repro_torch.models.transformer import _leaf
+
+    with torch.no_grad():
+        for units, layers in (("enc_units", model.enc_layers),
+                              ("dec_units", model.dec_layers)):
+            for path, d in _flatten(model.defs[units]).items():
+                if d.init == "normal" and d.scale is None:
+                    f = std(d.shape[1:]) * math.sqrt(len(layers))
+                    for layer in layers:
+                        _leaf(layer, path).mul_(f)
+    model.drop_cast()
+
+
+
+def whisper_teacher_forced(model, frames, prompt, gen, max_len):
+    """The cached prefill's logits and each decode step's (feeding
+    ``gen``'s columns) against a no-cache prefill of the same prefix: per
+    position the logit gap of the position's max |logit| over the real
+    vocabulary (the padded columns hold -1e30), and whether the first
+    (cached prefill against no-cache) is bitwise."""
+    import torch
+
+    B, P = prompt.shape
+    V = model.cfg.vocab
+    logits, cache = model.prefill({"frames": frames, "tokens": prompt},
+                                  model.init_cache(B, max_len))
+    out = {"rel": [], "finite": True, "bitwise": None}
+    for t in range(gen.shape[1] + 1):
+        if t:
+            logits, cache = model.decode_step(gen[:, t - 1:t], P + t - 1,
+                                              cache)
+        full, _ = model.prefill({"frames": frames, "tokens": torch.cat(
+            [prompt, gen[:, :t]], dim=1)})
+        if not t:
+            out["bitwise"] = torch.equal(logits, full)
+        logits_v, full_v = logits[:, :V].float(), full[:, :V].float()
+        out["finite"] &= bool(torch.isfinite(logits_v).all()) and \
+            bool(torch.isfinite(full_v).all())
+        scale = full_v.abs().max()
+        check(float(scale) > 0, f"teacher-forced position {t}: the no-cache "
+              "prefill's logits are all zero")
+        out["rel"].append(float((logits_v - full_v).abs().max() / scale))
+    out["worst"] = max(out["rel"])
+    return out
+
+
+def whisper_sensitivity(model, batch) -> float:
+    """How far the no-cache prefill's logits move (of max |logit|, the real
+    vocabulary's) when the token embeddings move by one ulp of the compute
+    dtype."""
+    import torch
+    V = model.cfg.vocab
+    base, _ = model.prefill(batch)
+    real = model._embed
+
+    def nudged(tokens):
+        x = real(tokens)
+        return x * (1 + torch.finfo(x.dtype).eps)
+
+    model._embed = nudged
+    try:
+        moved, _ = model.prefill(batch)
+    finally:
+        del model._embed
+    base = base[:, :V].float()
+    return float((moved[:, :V].float() - base).abs().max()
+                 / base.abs().max())
+
+
+def whisper_tf_check(model, batch, gen, label, tol, hold):
+    """Teacher-forced decode of ``gen`` against no-cache prefills, and the
+    logits' one-ulp sensitivity, on ``model`` at the reference's init:
+    held at ``tol`` where one ulp of the compute dtype on the embeddings
+    moves the logits less, else printed; then, where it was not held, the
+    same on the model's layer weights redrawn at ``1 / sqrt(fan_in)``
+    (``whisper_rescale``), held there at ``tol`` when ``hold`` or where
+    its one-ulp move is under ``tol`` (phase 21's rule for jamba)."""
+    frames, prompt = batch["frames"], batch["tokens"]
+    for scale in ("the reference's init", "fan-in scale"):
+        tf = whisper_teacher_forced(model, frames, prompt, gen,
+                                    WHISPER_MAX_LEN)
+        sens = whisper_sensitivity(model, batch)
+        held = sens <= tol or (scale == "fan-in scale" and hold)
+        print(f"  {label} teacher-forced decode vs no-cache prefill, "
+              f"{gen.shape[1]} decode steps, layer weights at {scale}: max "
+              f"|dlogit| / max |logit| = {tf['worst']:.4e} (per position "
+              f"{[float(f'{r:.3e}') for r in tf['rel']]}); one {label} ulp "
+              f"on the embeddings moves the prefill's logits by {sens:.4e} "
+              f"of max |logit|: "
+              f"{'held at ' + str(tol) if held else 'not held'}")
+        check(tf["finite"] and tf["bitwise"], f"{label} teacher-forced "
+              "logits non-finite, or the cached prefill unlike the no-cache "
+              "one")
+        if held:
+            check(tf["worst"] <= tol, f"{WHISPER_ARCH} {label} decode logits "
+                  f"{tf['worst']} from the prefill's at {scale}")
+        if sens <= tol or scale == "fan-in scale":
+            return
+        whisper_rescale(model, lambda shape: shape[-2] ** -0.5)
+
+
+def whisper_profile(fn, label):
+    """A profiled call: device ms by kernel, kernels, busy share."""
+    prof = _profile(fn, 1)
+    if prof is None:
+        print(f"  {label} profile: device time not measured (no CUDA "
+              "events)")
+        return
+    wall, device, n_kern, busy, by_name = prof
+    flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
+    gemm = sum(t for name, (t, _) in by_name.items()
+               if GEMM_KERNEL.search(name))
+    print(f"  {label} profile (torch.profiler, one call): host wall "
+          f"{wall / 1e3:.4f} ms, device kernel time {device / 1e3:.4f} ms, "
+          f"{n_kern:.0f} kernels, device busy {busy:.4f} of the host wall; "
+          f"flash kernels {flash / 1e3:.4f} ms, GEMMs {gemm / 1e3:.4f} ms, "
+          f"the rest {(device - flash - gemm) / 1e3:.4f} ms")
+    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms {k:7.0f}x "
+              f"{name[:90]}")
+
+
+def whisper_counters():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    return {**kernel_counters(), "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward}
+
+
+def whisper_card_vs_cpu(cfg):
+    """One encoder and one decoder layer at full width in f32, drawn at
+    fan-in scale (as ``whisper_grads_card_vs_cpu``): a prefill of 2 x
+    (1,500 frames + 224 tokens) into a cache and 4 decode steps on the
+    card (B7: 3 launches) against the CPU's plain forms, each call's
+    logits within ``F32_LOGIT_TOL`` of max |logit|.  At the 12-layer
+    model's ``1 / sqrt(12)`` the two read 7.7e-4 apart (an NVIDIA H100
+    80GB HBM3 at 700 W),
+    where one f32 ulp moves the full model's logits by 6.6e-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cfg1 = dataclasses.replace(cfg, encoder_layers=1, n_layers=1,
+                               compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    whisper_rescale(small, lambda shape: shape[-2] ** -0.5)
+    frames = whisper_frames(cfg, 2, 3).float().cpu()
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (2, WHISPER_PROMPT + 4)).astype(np.int32))
+
+    def run(model):
+        dev = model.device
+        out = []
+        before = flash_attention.launches
+        lg, cache = model.prefill(
+            {"frames": frames.to(dev),
+             "tokens": toks[:, :WHISPER_PROMPT].to(dev)},
+            model.init_cache(2, WHISPER_PROMPT + 4))
+        if dev.type == "cuda":
+            check(flash_attention.launches == before + 3, "the f32 card "
+                  "prefill did not launch B7 for each attention layer")
+        out.append(lg.cpu())
+        for t in range(WHISPER_PROMPT, WHISPER_PROMPT + 4):
+            lg, cache = model.decode_step(toks[:, t:t + 1].to(dev), t, cache)
+            out.append(lg.cpu())
+        return out
+
+    on_card = run(small)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    on_cpu = run(small)
+    t_cpu = time.perf_counter() - t_cpu
+    V = cfg.vocab             # the padded columns hold -1e30
+    rels = [float((a[:, :V] - b[:, :V]).abs().max() / b[:, :V].abs().max())
+            for a, b in zip(on_card, on_cpu)]
+    print(f"  1 encoder + 1 decoder layer, f32 at full width, fan-in "
+          f"scale: a 2 x (1500 "
+          f"frames + {WHISPER_PROMPT} tokens) prefill and 4 decode steps, "
+          f"card vs CPU (the CPU's {t_cpu:.2f} s): max |dlogit| / max "
+          f"|logit| per call {[float(f'{r:.3e}') for r in rels]} (tolerance "
+          f"{F32_LOGIT_TOL}, TF32 off)")
+    check(all(bool(torch.isfinite(a).all()) for a in on_card) and
+          max(rels) <= F32_LOGIT_TOL, f"whisper card logits {rels} from "
+          "the CPU's")
+    del small
+    gc_release()
+
+
+def whisper_serve_phase():
+    """whisper-small at full width and depth (278,301,696 parameters) in
+    ``make_prefill_step`` / ``make_decode_step``'s programs (one model,
+    bf16 weights at the reference's init, seeded): 8 requests of 1,500
+    frames and a 224-token prompt.  (a) the prefill program, every kernel
+    counter zeroed just before and read just after (B7 36, nothing
+    else), its logits finite; (b) ``EncDec.prefill`` into a 448-slot cache
+    (its logits bitwise the program's), then 32 greedy steps of the decode
+    program (no kernel); timings, peak memory, a profiled prefill and
+    decode step; teacher-forced decode against no-cache prefills in bf16
+    (``TF_LOGIT_TOL``) and in f32 (``F32_TF_TOL``), by
+    ``whisper_tf_check``'s rule; one encoder and one decoder layer in f32,
+    card vs CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model, get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(WHISPER_ARCH)
+    check(cfg.encoder_layers == cfg.n_layers == 12 and cfg.d_model == 768
+          and cfg.encoder_seq == 1500 and cfg.compute_dtype == "bfloat16",
+          f"{WHISPER_ARCH} changed: {cfg}")
+    t0 = time.perf_counter()
+    prefill_fn, model = make_prefill_step(cfg)
+    decode_fn, same = make_decode_step(cfg, model=model)
+    check(same is model and model.pdt == torch.bfloat16, "the decode "
+          "program does not share the prefill's bf16 model")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == WHISPER_PARAMS, f"{WHISPER_ARCH} has {n_params} "
+          "parameters")
+    print(f"encoder-decoder phase (a): {WHISPER_ARCH}, {n_params} "
+          f"parameters, bf16 weights (the step builders'), init "
+          f"{time.perf_counter() - t0:.2f} s; {WHISPER_BATCH} requests x "
+          f"({cfg.encoder_seq} frames + {WHISPER_PROMPT} tokens)")
+    frames = whisper_frames(cfg, WHISPER_BATCH, 23)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32)) \
+        .cuda()
+    batch = {"frames": frames, "tokens": prompt}
+    counters = whisper_counters()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    logits = prefill_fn(batch)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t1) * 1e3
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["flash_attention"] == WHISPER_ATTN and
+          all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"whisper prefill launches {launches}, expected flash_attention "
+          f"{WHISPER_ATTN} and nothing else")
+    check(logits.shape == (WHISPER_BATCH, cfg.padded_vocab) and
+          bool(torch.isfinite(logits).all()), "whisper prefill logits: "
+          "shape / non-finite")
+
+    cache = model.init_cache(WHISPER_BATCH, WHISPER_MAX_LEN)
+    lg, cache = model.prefill(batch, cache)
+    bitwise = torch.equal(lg, logits)
+    print(f"  prefill program: launches {launches}, first call "
+          f"{first:.3f} ms; the cached prefill's last logits "
+          f"{'==' if bitwise else '!='} the no-cache program's (bitwise; "
+          f"max |d| {float((lg.float() - logits.float()).abs().max()):.3e})")
+    check(bitwise, "the cached prefill's logits differ from the no-cache "
+          "program's")
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    for fn in counters.values():
+        fn.launches = 0
+    fed = []
+    for i in range(WHISPER_NEW):
+        fed.append(tok)
+        lg, cache = decode_fn(tok, WHISPER_PROMPT + i, cache)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    dec_launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(fed, dim=1)
+    check(all(n == 0 for n in dec_launches.values()) and
+          bool(torch.isfinite(lg).all()) and
+          0 <= int(gen.min()) and int(gen.max()) < cfg.vocab,
+          f"whisper decode: launches {dec_launches}, tokens out of range or "
+          "non-finite logits")
+    print(f"  {WHISPER_NEW} greedy decode steps: launches {dec_launches}; "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+    ttft = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_fn(batch)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t1) * 1e3)
+
+    def decode_run():
+        c = model.init_cache(WHISPER_BATCH, WHISPER_MAX_LEN)
+        out, c = model.prefill(batch, c)
+        tk = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(WHISPER_NEW):
+            tk.cpu()
+            out, c = decode_fn(tk, WHISPER_PROMPT + i, c)
+            tk = torch.argmax(out, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t2) * 1e3 / WHISPER_NEW
+
+    steps = [decode_run() for _ in range(3)]
+    ttft_ms, step_ms = sorted(ttft)[2], sorted(steps)[1]
+    print(f"  whisper serving: prefill (time to first token) median "
+          f"{ttft_ms:.4f} ms of {WHISPER_BATCH} requests ({ttft}); decode "
+          f"median {step_ms:.4f} ms a step of {WHISPER_BATCH} rows "
+          f"({steps}), {WHISPER_BATCH * 1e3 / step_ms:.3f} tok/s")
+    whisper_profile(lambda: prefill_fn(batch), "whisper prefill")
+    whisper_profile(lambda: decode_fn(tok, WHISPER_PROMPT, cache),
+                    "whisper decode step")
+    del cache, lg, logits
+
+    whisper_tf_check(model, batch, gen, "bf16", TF_LOGIT_TOL, hold=False)
+    del model, prefill_fn, decode_fn, same
+    gc_release()
+
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32")) \
+        .init(torch.Generator(device="cuda").manual_seed(0))
+    whisper_tf_check(model, {"frames": frames.float(), "tokens": prompt},
+                     gen, "f32", F32_TF_TOL, hold=True)
+    del model
+    gc_release()
+    whisper_card_vs_cpu(cfg)
+    return {"prefill_launches": launches["flash_attention"],
+            "ttft_ms": ttft_ms, "step_ms": step_ms}
+
+
+def whisper_train_counted(cfg, tag, profile=False):
+    """One fresh run of ``make_train_step`` on ``cfg`` (f32 weights at the
+    reference's init from seed 0, remat "nothing", one microbatch, AdamW
+    at launch.train's schedule: lr 3e-3, warmup 10) over ``TRAIN_STEPS``
+    batches of 8 x (1,500 frames + 449 tokens), every kernel counter
+    zeroed just before and read just after.  Returns ``(rows (step, loss,
+    grad norm), parameter digest, step seconds, launches, peak bytes)``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.synthetic import DataConfig, _batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=WHISPER_TRAIN_TEXT,
+                                global_batch=WHISPER_BATCH)
+    prog = make_train_step(cfg, shape, ocfg=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS), microbatches=1)
+    check(prog.microbatches == 1 and cfg.remat and
+          cfg.remat_policy == "nothing", f"train {tag}: not one microbatch "
+          "with remat 'nothing'")
+    prog.model.init(torch.Generator(device="cuda").manual_seed(0))
+    params, opt = prog.params, adamw.init_state(prog.params)
+    data = DataConfig(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_TEXT,
+                      global_batch=WHISPER_BATCH, seed=0)
+
+    def batch_at(step):
+        return {"frames": whisper_frames(cfg, WHISPER_BATCH, 100 + step),
+                "tokens": torch.from_numpy(_batch_at(data, step)).cuda()}
+
+    counters = whisper_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    rows, dts = [], []
+    for step in range(TRAIN_STEPS):
+        batch = batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = prog.step_fn(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        rows.append((step, loss, float(m["grad_norm"])))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    digest = param_digest(params)
+    if profile:
+        batch = batch_at(TRAIN_STEPS)
+        whisper_profile(lambda: prog.step_fn(params, opt, batch),
+                        "whisper training step")
+    del prog, params, opt, m, batch
+    gc_release()
+    return rows, digest, dts, launches, peak
+
+
+def whisper_grads_card_vs_cpu(cfg):
+    """One encoder and one decoder layer at full width in f32, remat on:
+    the loss of 2 x (1,500 frames + 129 tokens) and every gradient on the
+    card (B7 6, B7b 3) against the CPU's plain forms, 1e-4 of each leaf's
+    max; the key biases ``bk``, whose gradient is zero, to 1e-4 of their
+    layer's ``bv`` gradient.  The layer weights are drawn at their fan-in
+    scale, ``1 / sqrt(fan_in)``, as the CPU tests draw theirs: at the
+    12-layer model's ``1 / sqrt(12)`` one f32 ulp on the embeddings moves
+    these gradients by 2.0e-4 of a leaf's max (measured on the CPU at 2 x
+    300 frames; fan-in scale 1.3e-6), and the card read 4.6e-3 against
+    the CPU (an NVIDIA H100 80GB HBM3 at 700 W)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+
+    cfg1 = dataclasses.replace(cfg, encoder_layers=1, n_layers=1,
+                               compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    whisper_rescale(small, lambda shape: shape[-2] ** -0.5)
+    batch = {"frames": whisper_frames(cfg, 2, 4).float().cpu(),
+             "tokens": torch.from_numpy(np.random.RandomState(4).randint(
+                 0, cfg.vocab, (2, 129)).astype(np.int32))}
+    flash_attention.launches = flash_attention_backward.launches = 0
+    loss_c, _ = small.loss_fn({k: v.cuda() for k, v in batch.items()})
+    loss_c.backward()
+    check(flash_attention.launches == 6 and
+          flash_attention_backward.launches == 3, f"the f32 card loss "
+          f"launched B7 {flash_attention.launches} / B7b "
+          f"{flash_attention_backward.launches} times, not 6 / 3")
+    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
+    loss_c = float(loss_c.detach())
+    small.zero_grad(set_to_none=True)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    loss_h, _ = small.loss_fn(batch)
+    loss_h.backward()
+    t_cpu = time.perf_counter() - t_cpu
+    grads_h = {n: p.grad for n, p in small.named_parameters()}
+    worst, worst_name, bk = 0.0, "", 0.0
+    for n, g in grads_h.items():
+        scale = float(g.abs().max())
+        if n.endswith(".bk"):
+            e = float(grads_c[n].abs().max()) / float(
+                grads_h[n[:-2] + "bv"].abs().max())
+            bk = max(bk, e, scale / float(grads_h[n[:-2] + "bv"].abs().max()))
+            continue
+        e = float((grads_c[n] - g).abs().max()) / max(scale, 1e-30)
+        check(math.isfinite(e) and scale > 0, f"f32 grad {n}: {e}, {scale}")
+        if e > worst:
+            worst, worst_name = e, n
+    lrel = abs(loss_c - float(loss_h.detach())) / abs(float(loss_h.detach()))
+    print(f"  1 encoder + 1 decoder layer, f32 at full width, fan-in "
+          f"scale, loss and gradients (2 x (1500 frames + 128 tokens); the "
+          f"CPU's {t_cpu:.2f}"
+          f" s), card vs CPU: loss rel {lrel:.3e}, worst leaf {worst_name} "
+          f"{worst:.3e} of its max |grad|, bk gradients (zero in exact "
+          f"arithmetic) at most {bk:.3e} of bv's (tolerance {GRAD_TOL}, "
+          f"TF32 off)")
+    check(lrel <= GRAD_TOL and worst <= GRAD_TOL and bk <= GRAD_TOL,
+          f"f32 card gradients {worst} ({worst_name}) / loss {lrel} / bk "
+          f"{bk} from the CPU's")
+    del small, grads_c, grads_h
+    gc_release()
+
+
+def whisper_train_phase():
+    """whisper-small at full width and depth trained through
+    ``make_train_step`` (8 x (1,500 frames + 449 tokens), remat
+    "nothing", 6 steps, no checkpoints) twice: losses, grad norms and a
+    parameter digest bitwise equal and finite; B7 72 and B7b 36 launches
+    a step and nothing else; ms a step, tokens/s, peak memory, a profiled
+    step; one layer each in f32, gradients card vs CPU."""
+    from repro_torch import get_config
+
+    cfg = get_config(WHISPER_ARCH)
+    rows_a, digest_a, dts_a, launches, peak = whisper_train_counted(cfg, "a")
+    fwd, bwd = 2 * WHISPER_ATTN * TRAIN_STEPS, WHISPER_ATTN * TRAIN_STEPS
+    print(f"encoder-decoder phase (b): {WHISPER_ARCH} trained at full width "
+          f"and depth, {WHISPER_BATCH} x ({cfg.encoder_seq} frames + "
+          f"{WHISPER_TRAIN_TEXT + 1} tokens), {TRAIN_STEPS} steps; launches "
+          f"{launches}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    for r in rows_a:
+        print(f"  step {r[0]}: loss {r[1]:.6f} grad_norm {r[2]:.6f}")
+    check(launches["flash_attention"] == fwd and
+          launches["flash_attention_backward"] == bwd and
+          all(n == 0 for k, n in launches.items() if not k.startswith("flash")),
+          f"whisper train launches {launches}, expected flash_attention "
+          f"{fwd} (forward + remat recompute), flash_attention_backward "
+          f"{bwd}")
+    check(all(math.isfinite(x) for r in rows_a for x in r[1:]),
+          f"whisper train: non-finite loss / grad norm {rows_a}")
+    rows_b, digest_b, dts_b, _, _ = whisper_train_counted(cfg, "b",
+                                                          profile=True)
+    print(f"  run b: losses, grad norms and parameter digest {digest_b} "
+          f"{'==' if (rows_b, digest_b) == (rows_a, digest_a) else '!='} "
+          f"run a's {digest_a}")
+    check(rows_b == rows_a and digest_b == digest_a,
+          f"whisper train: two fresh runs differ: {rows_a} vs {rows_b}, "
+          f"{digest_a} vs {digest_b}")
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    print(f"  whisper train speed: median {step_ms:.4f} ms a step over "
+          f"steps 1-5 of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
+          f"{WHISPER_BATCH * WHISPER_TRAIN_TEXT / (step_ms * 1e-3):.3f} "
+          f"text tokens/s")
+    whisper_grads_card_vs_cpu(cfg)
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_backward": launches["flash_attention_backward"],
+            "step_ms": step_ms}
+
+
+def encdec_phase():
+    """Phase 23: whisper-small served and trained at full width and
+    depth.  Returns the kernels' whisper entries for the kernels line."""
+    t0 = time.perf_counter()
+    print(f"phase 23 on {card_line()}")
+    served = whisper_serve_phase()
+    print(f"encoder-decoder phase (a): {time.perf_counter() - t0:.1f} s")
+    trained = whisper_train_phase()
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    return {"flash_attention": {
+                "whisper_prefill_launches": served["prefill_launches"],
+                "whisper_train_launches": trained["flash_attention"]},
+            "flash_attention_backward": {
+                "whisper_train_launches":
+                    trained["flash_attention_backward"]}}
+
+
 def main():
     args = sys.argv[1:]
     if args in (["--serve"], ["--drill"], ["--train"], ["--moe"],
-                ["--ssm"], ["--ssm-train"]):
+                ["--ssm"], ["--ssm-train"], ["--encdec"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
-             "| --serve | --drill | --train | --moe | --ssm | --ssm-train]")
+             "| --serve | --drill | --train | --moe | --ssm | --ssm-train "
+             "| --encdec]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -5496,6 +6143,13 @@ def main():
         _build.build(["halo_pack", "halo_signal", "nonbonded",
                       "flash_attention"])
         ssm_train_phase()
+        print(card)
+        return
+    if args == ["--encdec"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        encdec_phase()
         print(card)
         return
     if args and args[0] == "--steps":
@@ -5620,6 +6274,10 @@ def main():
     # jamba-v0.1-52b unit as one card's expert share, B7b at jamba's G = 4
     ssm_train_kernel = ssm_train_phase()
 
+    # 23. the encoder-decoder: whisper-small served through the prefill /
+    # decode step builders and trained at full width and depth
+    encdec_kernel = encdec_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -5701,6 +6359,9 @@ def main():
             **moe_kernel.get(name, {}),
             **ssm_kernel.get(name, {}),
             **ssm_train_kernel.get(name, {}),
+            **encdec_kernel.get(name, {}),
+            **({"whisper_shapes": acc["whisper_shapes"]}
+               if "whisper_shapes" in acc else {}),
             **({"design": designs[name]} if name in designs else {})})
     print("kernel times are one MD step's f32 launches, summed (pack: 3 fwd "
           "+ 3 rev pulses; unpack_add: 3 rev pulses; pair_forces and "
@@ -5729,7 +6390,13 @@ def main():
           "0/8 (B7: forward + remat recompute; B7b: one a step); "
           "flash_attention_backward's jamba_*: B7b at that shape, G 4, timed "
           "and bounded as above; rwkv_train_launches: over one 6-step "
-          "rwkv6-3b training run; "
+          "rwkv6-3b training run; whisper_shapes: B7 / B7b at "
+          "whisper-small's encoder (BH 96, L = S = 1500, full), cross (BH "
+          "96, L 224, S 1500, full) and decoder self (BH 96, L = S = 448, "
+          "causal) shapes, G 1, hd 64, bf16, timed and bounded as above; "
+          "whisper_prefill_launches: one prefill of 8 x (1500 frames + 224 "
+          "tokens); whisper_train_launches: over one 6-step whisper-small "
+          "training run (B7: forward + remat recompute; B7b: 36 a step); "
           "pack_wire / "
           "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "

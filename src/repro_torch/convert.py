@@ -15,6 +15,8 @@ Both layout functions take numpy arrays or torch tensors.
   MoE expert leaf cut to the held experts); :func:`lm_params_to_jax` the
   reverse, the reference's stacked tree of host tensors, which a share
   cannot give (the other experts live on other cards).
+* :func:`encdec_params_from_jax` — a reference ``EncDec``'s parameter
+  tree as the port's ``EncDec`` state dict.
 * :func:`adamw_state_to_jax` / :func:`adamw_state_from_jax` — the port's
   AdamW state (moments keyed by parameter name) against the reference's
   ``{"step", "m", "v"}`` of stacked trees.
@@ -93,6 +95,23 @@ def _refuse_share(expert_share) -> None:
                          "cards")
 
 
+def _walk(tree, prefix=()):
+    """``(path, numpy leaf)`` of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A numpy array as a tensor of its own (bfloat16, which numpy holds
+    as ``ml_dtypes.bfloat16``, through float32: exact)."""
+    if leaf.dtype.name == "bfloat16":
+        return torch.from_numpy(leaf.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(leaf))
+
+
 def lm_params_from_jax(params, expert_share=None) -> dict:
     """The reference ``LM``'s params as the port's ``LM.state_dict()``.
 
@@ -103,17 +122,9 @@ def lm_params_from_jax(params, expert_share=None) -> dict:
     ``[index * E / count, (index + 1) * E / count)`` (``models.moe``).
     """
     out = {}
-
-    def walk(tree, prefix):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from walk(v, prefix + (k,))
-            else:
-                yield prefix + (k,), np.asarray(v)
-
     units = params["units"]
     P = len(units)
-    for path, leaf in walk(units, ()):
+    for path, leaf in _walk(units):
         i = int(path[0][len("layer"):])
         if expert_share is not None and path[-2] == "moe" and \
                 path[-1] in _EXPERT_LEAVES:
@@ -122,10 +133,27 @@ def lm_params_from_jax(params, expert_share=None) -> dict:
             leaf = leaf[:, index * n:(index + 1) * n]
         for u in range(leaf.shape[0]):
             out[".".join((f"layers.{u * P + i}",) + path[1:])] = \
-                torch.from_numpy(np.array(leaf[u]))
-    for path, leaf in walk({k: v for k, v in params.items()
-                            if k != "units"}, ()):
-        out[".".join(path)] = torch.from_numpy(np.array(leaf))
+                _tensor(leaf[u])
+    for path, leaf in _walk({k: v for k, v in params.items()
+                             if k != "units"}):
+        out[".".join(path)] = _tensor(leaf)
+    return out
+
+
+def encdec_params_from_jax(params) -> dict:
+    """The reference ``EncDec``'s params as the port's
+    ``EncDec.state_dict()``: slice ``u`` of each leaf stacked under
+    ``enc_units`` / ``dec_units`` becomes ``enc_layers.{u}`` /
+    ``dec_layers.{u}``; every other leaf keeps its dotted path."""
+    layers = {"enc_units": "enc_layers", "dec_units": "dec_layers"}
+    out = {}
+    for path, leaf in _walk(params):
+        if path[0] in layers:
+            for u in range(leaf.shape[0]):
+                out[".".join((layers[path[0]], str(u)) + path[1:])] = \
+                    _tensor(leaf[u])
+        else:
+            out[".".join(path)] = _tensor(leaf)
     return out
 
 

@@ -29,7 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.runtime.serve_loop import BatchServer, Request, \
-    throughput_stats
+    refuse_encdec, throughput_stats
 
 
 def main_md(args):
@@ -93,6 +93,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduce()
+    refuse_encdec(cfg, "launch.serve")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev,
                         moe_dispatch=args.moe_dispatch).init(

@@ -1,13 +1,15 @@
-"""Training step builder for one card.
+"""Step builders for one card: train, prefill and decode.
 
-Port of the training part of ``src/repro/launch/steps.py``:
-``param_count``, ``active_param_count``, ``auto_microbatches``,
-``TrainProgram`` and ``make_train_step``.  The counts and the step cover
-every config the port declares (dense, MoE, RWKV, the Mamba hybrid);
+Port of ``src/repro/launch/steps.py``: ``param_count``,
+``active_param_count``, ``auto_microbatches``, ``batch_shapes``,
+``TrainProgram``, ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step``.  The counts and the steps cover every config the
+port builds (dense, MoE, RWKV, the Mamba hybrid, the encoder-decoder);
 ``expert_share=(index, count)`` builds every MoE layer as one card's share
 of ``count``-way expert parallelism (``models.moe``), and the counts and
 abstract trees follow it.  The step is the reference's:
-gradients of ``LM.loss_fn`` over ``microbatches`` slices of the batch,
+gradients of the model's ``loss_fn`` over ``microbatches`` slices of
+every batch leaf (``tokens``, and ``frames`` for an encoder-decoder),
 summed in float32 in microbatch order and divided by the count (one
 microbatch: the gradients as they come), the loss the mean of the
 microbatches', ``ce`` the last microbatch's, then one AdamW update.
@@ -20,9 +22,17 @@ holds its model, whose parameters the step updates in place (the
 ``params`` it takes and returns are ``program.params``, the model's
 parameters by name).  ``abstract_params`` / ``abstract_opt`` are the
 reference's stacked trees as ``meta`` tensors, the structure of a
-training checkpoint.  The pod-compressed and ``zero2`` steps (a pod mesh
-axis, ZeRO sharding) and the prefill / decode step builders wait for the
-multi-GPU work (ROADMAP A13).
+training checkpoint.
+
+Serving: :func:`make_prefill_step` and :func:`make_decode_step` build the
+model with ``param_dtype="bfloat16"``, as the reference does for
+inference, and return ``(fn, model)``: ``fn(batch) -> logits`` (the last
+position's, no cache) and ``fn(token, pos, cache) -> (logits, cache)``
+(the cache written in place), both with grad off.  The two may share one
+model (``model=``).  The pod-compressed and ``zero2`` steps (a pod mesh
+axis, ZeRO sharding), the builders' shardings and donation,
+``batch_specs`` and ``input_specs`` wait for the multi-GPU work (ROADMAP
+A13).
 """
 from __future__ import annotations
 
@@ -34,9 +44,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.device import const
+from repro_torch.models.attention import TensorSpec
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.layers import _flatten, _unflatten
-from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import LM, model_defs
+from repro_torch.models.registry import build_model, model_defs
+from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
 
 
@@ -71,6 +83,29 @@ def auto_microbatches(cfg: ArchConfig, shape: ShapeCfg,
     return max(mb, 1)
 
 
+def batch_shapes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
+    """The batch of a ``shape.kind`` step as ``TensorSpec``s (the
+    reference's): ``tokens`` (B, L + 1 to train, B, L to prefill; a
+    prefix's positions taken from L), ``prefix_embeds`` for a VLM prefix,
+    ``frames`` (B, encoder_seq, d) for an encoder-decoder; a decode step's
+    ``tokens`` (B, 1) and ``pos``."""
+    B, L = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), torch.int32),
+                "pos": TensorSpec((), torch.int32)}
+    text, out = L, {}
+    if cfg.prefix_tokens:
+        text = L - cfg.prefix_tokens
+        out["prefix_embeds"] = TensorSpec((B, cfg.prefix_tokens,
+                                           cfg.d_model), torch.bfloat16)
+    if cfg.is_encdec:
+        out["frames"] = TensorSpec((B, cfg.encoder_seq, cfg.d_model),
+                                   torch.bfloat16)
+    out["tokens"] = TensorSpec((B, text + (shape.kind == "train")),
+                               torch.int32)
+    return out
+
+
 def abstract_params(cfg: ArchConfig, expert_share=None) -> dict:
     """The reference's stacked parameter tree as ``meta`` tensors."""
     dt = getattr(torch, cfg.param_dtype)
@@ -90,7 +125,7 @@ def abstract_opt(cfg: ArchConfig, expert_share=None) -> dict:
 @dataclasses.dataclass
 class TrainProgram:
     step_fn: Callable[..., Any]  # (params, opt, batch) -> (params, opt, metrics)
-    model: LM
+    model: LM | EncDec
     abstract_params: Any
     abstract_opt: Any
     microbatches: int
@@ -124,23 +159,24 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
     def train_step(params, opt_state, batch):
         names = list(params)
         leaves = [params[k] for k in names]
-        tokens = batch["tokens"]
         if mb == 1:
             loss, metrics = model.loss_fn(batch)
             grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
             loss = loss.detach()
         else:
-            split = tokens.reshape((mb, tokens.shape[0] // mb) +
-                                   tuple(tokens.shape[1:]))
+            split = {k: x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))
+                     for k, x in batch.items()}
+            dev = batch["tokens"].device
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device) for k, p in params.items()}
-            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(mb):
-                l_i, metrics = model.loss_fn({"tokens": split[i]})
+                l_i, metrics = model.loss_fn({k: x[i]
+                                              for k, x in split.items()})
                 for k, g in zip(names, torch.autograd.grad(l_i, leaves)):
                     grads[k].add_(g.to(torch.float32))
                 lsum = lsum + l_i.detach()
-            div = const(float(mb), torch.float32, tokens.device)
+            div = const(float(mb), torch.float32, dev)
             for g in grads.values():
                 g.div_(div)
             loss = lsum / div
@@ -153,3 +189,45 @@ def make_train_step(cfg: ArchConfig, shape: ShapeCfg,
                         abstract_params=abstract_params(cfg, expert_share),
                         abstract_opt=abstract_opt(cfg, expert_share),
                         microbatches=mb)
+
+
+def _serving_model(cfg: ArchConfig, device, moe_dispatch: str, model):
+    """``cfg``'s model with bfloat16 parameters (the reference serves bf16
+    weights), or ``model`` when given, which must be that model."""
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    if model is None:
+        return build_model(cfg, device=device, moe_dispatch=moe_dispatch)
+    if model.cfg != cfg:
+        raise ValueError(f"a shared model must be {cfg.name} with bfloat16 "
+                         f"parameters; got {model.cfg.name} with "
+                         f"{model.cfg.param_dtype}")
+    return model
+
+
+def make_prefill_step(cfg: ArchConfig, device="cuda",
+                      moe_dispatch: str = "fused", model=None):
+    """``(fn, model)``: ``fn(batch)`` runs ``model.prefill(batch)`` with
+    grad off and returns the last position's logits (B, Vp); ``model`` is
+    ``cfg``'s with bfloat16 parameters, uninitialised (or the one given)."""
+    model = _serving_model(cfg, device, moe_dispatch, model)
+
+    @torch.no_grad()
+    def prefill(batch):
+        return model.prefill(batch)[0]
+
+    return prefill, model
+
+
+def make_decode_step(cfg: ArchConfig, device="cuda",
+                     moe_dispatch: str = "fused", model=None):
+    """``(fn, model)``: ``fn(token, pos, cache)`` runs
+    ``model.decode_step`` with grad off and returns ``(logits (B, Vp),
+    cache)``, the cache written in place; ``model`` as
+    :func:`make_prefill_step`'s."""
+    model = _serving_model(cfg, device, moe_dispatch, model)
+
+    @torch.no_grad()
+    def decode(token, pos, cache):
+        return model.decode_step(token, pos, cache)
+
+    return decode, model

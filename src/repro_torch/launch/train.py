@@ -39,6 +39,7 @@ from repro_torch.data.synthetic import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.optim import adamw
+from repro_torch.runtime.serve_loop import refuse_encdec
 from repro_torch.runtime.train_loop import (TrainLoopConfig, Watchdog,
                                             run_training)
 
@@ -86,6 +87,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduce()
+    refuse_encdec(cfg, "launch.train")
     if args.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     shape = dataclasses.replace(SHAPES["train_4k"], seq_len=args.seq,

@@ -10,10 +10,12 @@ reference's models take a pure-jnp flash attention here "for lowering
 portability" and validate the Pallas kernel, which "implements the same
 contraction", separately; the port runs that kernel
 (``kernels/flash_attention.py``) for CUDA tensors in the case it covers:
-self-attention with ``q_offset == 0``, no ``kv_len_mask``, and L == S when
-causal, which is what prefill and the no-cache stack pass.  Any other case
-on a CUDA tensor raises ``NotImplementedError``; CPU tensors take the
-reference's chunked online softmax in plain PyTorch.  With grad enabled
+attention with ``q_offset == 0``, no ``kv_len_mask``, and L == S when
+causal, which is what prefill, the no-cache stack and encoder-decoder
+cross attention (non-causal, L text positions against S encoder frames)
+pass.  Any other case on a CUDA tensor raises ``NotImplementedError``;
+CPU tensors take the reference's chunked online softmax in plain
+PyTorch.  With grad enabled
 the kernel call is differentiable (``FlashAttentionFunction``: the
 forward's log-sum-exp saved, the backward the hand-written B7b); the CPU
 form is differentiated by autograd, as the reference's by JAX.
@@ -61,19 +63,23 @@ def _chunk(n: int, target: int) -> int:
     return max(c, 1)
 
 
-def _project_qkv(p, x, cfg: ArchConfig, positions):
-    """Self-attention q, k, v (the reference's with ``kv_x = x`` and
-    RoPE on)."""
+def _project_qkv(p, x, kv_x, cfg: ArchConfig, positions, kv_positions,
+                 rope: bool):
+    """q from ``x``, k and v from ``kv_x`` (``x`` itself for
+    self-attention); RoPE at ``positions`` / ``kv_positions`` when
+    ``rope``."""
     B, L = x.shape[0], x.shape[1]
+    S = kv_x.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(x, p["wq"], p.get("bq")).reshape(B, L, hq, hd)
-    k = linear(x, p["wk"], p.get("bk")).reshape(B, L, hkv, hd)
-    v = linear(x, p["wv"], p.get("bv")).reshape(B, L, hkv, hd)
+    k = linear(kv_x, p["wk"], p.get("bk")).reshape(B, S, hkv, hd)
+    v = linear(kv_x, p["wv"], p.get("bv")).reshape(B, S, hkv, hd)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
+    if rope:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -83,9 +89,9 @@ def _kernel_attention(q, k, v, *, causal: bool, q_offset, kv_len_mask):
     S, HK = k.shape[1], k.shape[2]
     if q_offset != 0 or kv_len_mask is not None or (causal and L != S):
         raise NotImplementedError(
-            "blocked_attention on CUDA covers self-attention with "
-            "q_offset == 0, no kv_len_mask and L == S when causal (what "
-            f"prefill passes); got q_offset={q_offset}, kv_len_mask "
+            "blocked_attention on CUDA covers q_offset == 0, no "
+            "kv_len_mask and L == S when causal (what prefill and cross "
+            f"attention pass); got q_offset={q_offset}, kv_len_mask "
             f"{'set' if kv_len_mask is not None else 'None'}, L={L}, S={S}")
     G = H // HK
     qg = q.reshape(B, L, HK, G, hd).permute(0, 2, 1, 3, 4) \
@@ -182,24 +188,25 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def attention_fwd(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
-                  kv_x=None, cache: Optional[dict] = None,
-                  cache_index=None):
-    """Self-attention sub-layer (projection + core + output proj).
+                  rope: bool = True, kv_x=None, kv_positions=None,
+                  cache: Optional[dict] = None, cache_index=None):
+    """Attention sub-layer (projection + core + output proj).
 
     With ``cache`` set, the new K/V are written into it at
     ``cache_index`` IN PLACE (the reference returns an updated copy; the
     port saves the second buffer) and the same dict is returned: L > 1 is
     a prefill (causal attention over the freshly projected prefix), L == 1
-    a decode step over the cache.  Returns (out, cache_or_None).  A
-    ``kv_x`` other than ``x`` (cross attention) raises until the
-    encoder-decoder port.
+    a decode step over the cache.  Without a cache, a ``kv_x`` other than
+    ``x`` is encoder-decoder cross attention (full, non-causal, over
+    ``kv_x``'s S positions); else self-attention with the caller's
+    ``causal``.  The reference's ``repeat_kv`` would follow the
+    projection: on one card it is the identity.  Returns (out,
+    cache_or_None).
     """
     B, L, _ = x.shape
-    if kv_x is not None and kv_x is not x:
-        raise NotImplementedError(
-            "cross attention (encoder-decoder) is not ported yet "
-            "(ROADMAP A14: enc-dec)")
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    kv_x = x if kv_x is None else kv_x
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, x, kv_x, cfg, positions, kv_positions, rope)
 
     new_cache = None
     if cache is not None:
@@ -215,6 +222,8 @@ def attention_fwd(p, x, cfg: ArchConfig, *, positions, causal: bool = True,
             out = blocked_attention(q, k, v, causal=True, q_offset=idx)
         else:
             out = decode_attention(q, kc, vc, idx + 1)
+    elif cache_index is None and kv_x is not x:
+        out = blocked_attention(q, k, v, causal=False)
     else:
         out = blocked_attention(q, k, v, causal=causal)
 

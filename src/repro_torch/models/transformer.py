@@ -56,8 +56,9 @@ di), "ssm": (n, B, di, ds) float32}}``; ``{"rwkv_tm": {"shift_tm": (n, B,
 1, d)}}``, the rest in the compute dtype.  The port writes every cache and
 state in place and returns the same dict (MoE layers hold no state); the
 reference's sharding, ``specs`` and ``_unit_gather_spec`` wait for the
-multi-GPU work.  VLM-prefix and encoder-decoder configs raise naming their
-ROADMAP item.
+multi-GPU work.  VLM-prefix configs raise naming their ROADMAP item;
+encoder-decoder configs build :class:`repro_torch.models.encdec.EncDec`
+(``build_model``), which shares this module's :class:`HeldWeights`.
 """
 from __future__ import annotations
 
@@ -116,12 +117,13 @@ def unit_defs(cfg: ArchConfig, expert_share=None) -> ParamDefs:
 
 
 def model_defs(cfg: ArchConfig, expert_share=None) -> ParamDefs:
-    """The reference's stacked declaration of every parameter, MoE
-    layers holding ``expert_share``'s experts (raises on a layer kind or
-    an encoder the port does not declare yet)."""
+    """The reference ``LM``'s stacked declaration of every parameter, MoE
+    layers holding ``expert_share``'s experts (raises on a layer kind the
+    port does not declare, and on an encoder-decoder config, which
+    ``models.registry.model_defs`` sends to ``models.encdec``)."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported yet (ROADMAP A14: enc-dec)")
+        raise ValueError(f"{cfg.name}: an encoder-decoder config is an "
+                         "EncDec (models.encdec), not an LM")
     V, d = cfg.padded_vocab, cfg.d_model
     defs: ParamDefs = {
         "embed": ParamDef((V, d), "small_normal"),
@@ -170,8 +172,6 @@ def _add_aux(acc: dict, aux: dict) -> dict:
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
     """Why the port cannot build ``cfg`` yet (None when it can)."""
-    if cfg.is_encdec:
-        return "encoder-decoder (ROADMAP A14: enc-dec)"
     if cfg.prefix_tokens:
         return "a VLM prefix (ROADMAP A14: VLM)"
     return None
@@ -235,7 +235,50 @@ def _leaf(root: nn.Module, path) -> torch.Tensor:
     return node
 
 
-class LM(nn.Module):
+def head_logits(final_norm, x, head, cfg: ArchConfig):
+    """The reference's ``_logits``: ``final_norm`` (uncast), ``@ head``,
+    the padded vocabulary's columns at -1e30."""
+    x = norm_fwd(final_norm, x, cfg.norm_eps)
+    logits = x @ head
+    V, Vp = cfg.vocab, cfg.padded_vocab
+    if Vp != V:
+        bias = torch.where(torch.arange(Vp, device=x.device) < V, 0.0, -1e30)
+        logits = logits + bias.to(logits.dtype)
+    return logits
+
+
+class HeldWeights(nn.Module):
+    """What the ``LM`` and the ``EncDec`` share: parameters held in
+    ``param_dtype``, compute-dtype copies kept for serving in ``_cast``
+    (dropped by ``init``, ``load_state_dict`` and ``.to()``; after editing
+    a weight in place, call :meth:`drop_cast`), and the embedding
+    gather."""
+
+    _cast = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def drop_cast(self) -> None:
+        """Forget the compute-dtype copies (made again at the next call)."""
+        self._cast = None
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self.drop_cast()
+        return out
+
+    def _apply(self, fn, *args, **kwargs):
+        self.drop_cast()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _embed(self, tokens):
+        flat = _GatherRows.apply(self.embed, tokens.reshape(-1).long())
+        return flat.reshape(*tokens.shape, -1).to(self.cdt)
+
+
+class LM(HeldWeights):
     """Decoder-only language model over a pattern-unit stack."""
 
     def __init__(self, cfg: ArchConfig, device="cuda",
@@ -274,11 +317,6 @@ class LM(nn.Module):
         else:
             self.lm_head = nn.Parameter(torch.empty((d, V), dtype=self.pdt,
                                                     device=dev))
-        self._cast = None
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
 
     # ---- params ------------------------------------------------------------
 
@@ -297,19 +335,6 @@ class LM(nn.Module):
                 _leaf(self, path).copy_(value)
         self.drop_cast()
         return self
-
-    def drop_cast(self) -> None:
-        """Forget the compute-dtype copies (made again at the next call)."""
-        self._cast = None
-
-    def load_state_dict(self, *args, **kwargs):
-        out = super().load_state_dict(*args, **kwargs)
-        self.drop_cast()
-        return out
-
-    def _apply(self, fn, *args, **kwargs):
-        self.drop_cast()
-        return super()._apply(fn, *args, **kwargs)
 
     def _cast_head(self):
         head = self.lm_head if self.lm_head is not None else self.embed.T
@@ -417,21 +442,10 @@ class LM(nn.Module):
 
     # ---- public entry points -------------------------------------------------
 
-    def _embed(self, tokens):
-        flat = _GatherRows.apply(self.embed, tokens.reshape(-1).long())
-        return flat.reshape(*tokens.shape, -1).to(self.cdt)
-
     def _logits(self, x):
         head = self._cast_head() if torch.is_grad_enabled() \
             else self._compute_params()[1]
-        x = norm_fwd(self.final_norm, x, self.cfg.norm_eps)
-        logits = x @ head
-        V, Vp = self.cfg.vocab, self.cfg.padded_vocab
-        if Vp != V:
-            bias = torch.where(torch.arange(Vp, device=x.device) < V,
-                               0.0, -1e30)
-            logits = logits + bias.to(logits.dtype)
-        return logits
+        return head_logits(self.final_norm, x, head, self.cfg)
 
     def loss_fn(self, batch):
         """Token-mean cross entropy (z-loss 1e-4) of ``batch["tokens"]``

@@ -46,14 +46,26 @@ def masked_tokens(decoded, budgets) -> int:
                    for d, b in zip(decoded, budgets)))
 
 
+def refuse_encdec(cfg, what: str) -> None:
+    """Raise ``NotImplementedError`` for an encoder-decoder ``cfg``: the
+    serving and training loops feed tokens only, as the reference's do."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{what} feeds tokens only, and {cfg.name} also needs frames: "
+            "drive an encoder-decoder through launch.steps' "
+            "make_train_step, make_prefill_step and make_decode_step")
+
+
 class BatchServer:
     """Serves waves of up to ``batch_size`` requests on ``model``'s device
-    through its ``prefill`` / ``decode_step`` entry points."""
+    through its ``prefill`` / ``decode_step`` entry points (token models:
+    an encoder-decoder raises ``NotImplementedError``)."""
 
     def __init__(self, model, batch_size: int, max_len: int,
                  temperature: float = 0.0, seed: int = 0,
                  wave_timeout_s: Optional[float] = None,
                  watchdog: Optional[Watchdog] = None):
+        refuse_encdec(model.cfg, "BatchServer")
         self.model = model
         self.B = batch_size
         self.max_len = max_len

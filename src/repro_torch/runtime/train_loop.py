@@ -36,6 +36,7 @@ from repro_torch.convert import (adamw_state_from_jax, adamw_state_to_jax,
 from repro_torch.data.synthetic import DataConfig, SyntheticStream
 from repro_torch.optim import adamw
 from repro_torch.resilience.policy import Watchdog
+from repro_torch.runtime.serve_loop import refuse_encdec
 
 __all__ = ["Watchdog", "TrainLoopConfig", "run_training"]
 
@@ -64,8 +65,10 @@ def run_training(loop_cfg: TrainLoopConfig, program, data_cfg: DataConfig,
     ``lambda: program.model.init(gen)``).  ``fail_at_step`` raises just
     after that step completes (BEFORE its checkpoint).  History entries:
     ``step``, ``loss``, ``grad_norm``, ``dt`` (seconds), and with MoE
-    ``ce``, ``moe_lb`` and ``moe_z``.
+    ``ce``, ``moe_lb`` and ``moe_z``.  The stream holds tokens only, so an
+    encoder-decoder program raises ``NotImplementedError``.
     """
+    refuse_encdec(program.model.cfg, "run_training")
     mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep,
                             async_save=loop_cfg.async_save)
     watchdog = watchdog or Watchdog()

@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models.encdec import EncDec
 from repro_torch.resilience import Watchdog, WaveTimeout
 from repro_torch.runtime.serve_loop import (Request, masked_tokens,
                                             throughput_stats)
@@ -495,13 +496,19 @@ def test_params_round_trip_through_the_converter(served):
     assert torch.equal(sd["layers.1.attn.wq"], torch.from_numpy(stacked[1].copy()))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-small", "A14: enc-dec"), ("internvl2-26b", "A14: VLM")])
+@pytest.mark.parametrize("arch,item", [("internvl2-26b", "A14: VLM")])
 def test_unported_configs_raise_naming_their_item(arch, item):
-    """Building an encoder-decoder or VLM config raises."""
+    """Building a VLM config raises."""
     cfg = get_config(arch).reduce()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         build_model(cfg, device="cpu")
+
+
+def test_encoder_decoder_config_builds_an_encdec():
+    """whisper-small builds the port's EncDec (tests/test_torch_encdec.py
+    holds it against the reference)."""
+    model = build_model(get_config("whisper-small").reduce(), device="cpu")
+    assert isinstance(model, EncDec) and model.cfg.is_encdec
 
 
 def test_launcher_serves_reduced_on_cpu_and_refuses_md(capsys):

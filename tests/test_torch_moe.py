@@ -577,25 +577,23 @@ def test_converter_round_trips_moe_leaves(jx, arch):
 
 def test_active_param_count_matches_reference_for_every_config(jx):
     """Every config's count equals the reference's (declarations only, no
-    allocation), or, for a family the port does not declare yet (the
-    encoder-decoder), raises naming its ROADMAP item rather than counting
-    other layers."""
+    allocation), the encoder-decoder's too."""
     counted = []
     for arch in ARCH_IDS:
         cfg, jcfg = get_config(arch), jx.get_config(arch)
         if cfg.is_encdec:
-            for count in (tsteps.param_count, tsteps.active_param_count):
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP A14: enc-dec"):
-                    count(cfg)
+            for count in ("param_count", "active_param_count"):
+                assert getattr(tsteps, count)(cfg) == \
+                    getattr(jx.steps, count)(jcfg) == 278_301_696, arch
+            counted.append(cfg.name)
             continue
         assert tsteps.param_count(cfg) == jx.steps.param_count(jcfg), arch
         assert tsteps.active_param_count(cfg) == \
             jx.steps.active_param_count(jcfg), arch
         counted.append(cfg.name)
     assert {OLMOE, LLAMA4, "qwen3-1.7b", "internvl2-26b", "rwkv6-3b",
-            "jamba-v0.1-52b"} <= set(counted)
-    assert len(counted) == 9
+            "jamba-v0.1-52b", "whisper-small"} <= set(counted)
+    assert len(counted) == 10
     rwkv, jamba = get_config("rwkv6-3b"), get_config("jamba-v0.1-52b")
     assert tsteps.param_count(rwkv) == \
         tsteps.active_param_count(rwkv) == 3_073_313_280
