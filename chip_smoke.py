@@ -25,6 +25,10 @@
         # prints no result lines
     python3 chip_smoke.py --encdec             # phases 1, 2 and 23 alone;
         # prints no result lines
+    python3 chip_smoke.py --vlm                # phases 1, 2 and 24 alone;
+        # prints no result lines
+    python3 chip_smoke.py --dryrun             # phases 1, 2 and 25 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -231,9 +235,11 @@ Phases, each asserting (any failure exits non-zero with no result line):
     backward and the bound; (b) qwen3-1.7b at full width and depth
     trained through ``launch.train.main`` (batch 4 x seq 1024, AdamW as
     the launcher sets it, 6 steps): two fresh runs bitwise equal (losses,
-    grad norms, a digest of every parameter), a run with a checkpoint
-    every 3 steps killed after step 4 by ``--fail-at-step`` and resumed,
-    equal to them; ``flash_attention`` / B7b launches = 28 layers x
+    grad norms, a digest of every parameter); at full width cut to 1
+    layer (``--n-layers 1``: the checkpoint's I/O, 24.4 GB at full depth,
+    took 211 s of a 1,186 s smoke), a run with a checkpoint every 3 steps
+    killed after step 4 by ``--fail-at-step`` and resumed, equal to an
+    uninterrupted 1-layer run; ``flash_attention`` / B7b launches = layers x
     (forward + remat recompute) / 28 x microbatches x steps; (c) a 2-layer
     full-width f32 model's loss and every gradient on the card (kernels)
     against the CPU (plain forms), 1e-4 of each leaf's max, TF32 off;
@@ -343,6 +349,42 @@ Phases, each asserting (any failure exits non-zero with no result line):
     whose gradient is zero, of their layer's ``bv``).  Logits are
     compared over the real vocabulary (51,865 of 51,968 columns: the
     padded ones hold -1e30).
+24. VLM prefixes, internvl2-26b (48 layers, d 6144, 48 q heads over 8 kv
+    heads: G = 6, hd 128, 256 prefix rows): (a) B7 at its prefill shape
+    (BH = 4 x 8, L = S = 512, G 6, causal, bf16) against its plain form
+    and the f64 oracle at phase 13's bars and bitwise on repeat, B7b at the
+    same shape against its plain backward and the oracle at phase 19's,
+    each timed beside its plain form, SDPA (its backward) and the bound;
+    (b) served at full width and depth (19,862,722,560 parameters, bf16
+    weights at the reference's init, seeded) through ``make_prefill_step``
+    / ``make_decode_step`` sharing one model, 4 requests of 256 seeded
+    prefix rows and a 256-token prompt: the prefill program with every
+    kernel counter zeroed just before and read just after
+    (``flash_attention`` 48, nothing else), ``LM.prefill`` into a 544-slot
+    cache (bitwise the program's), 32 greedy decode steps from slot 512
+    (no kernel); prefill ms, ms a decode step, tok/s, peak memory, a
+    profiled prefill and decode step; 8 teacher-forced decode steps
+    against no-cache prefills in bf16 (5e-2 of max |logit|, held where one
+    bf16 ulp on the embeddings moves the logits less, else printed and
+    held on the layer weights redrawn at fan-in scale); two layers in f32
+    at fan-in scale, a 2 x (256 + 64) prefill and 4 decode steps card vs
+    CPU (1e-4); (c) trained at full width on 4 of 48 layers (2,699,089,920
+    parameters; f32 weights alone are 79.5 GB at full depth) through
+    ``make_train_step`` with batches carrying ``prefix_embeds`` (2 x (256
+    prefix rows + 513 tokens), remat ``"nothing"``, AdamW lr 3e-3 warmup
+    10, 6 steps) twice: losses, grad norms and a parameter digest bitwise
+    equal and finite, ``flash_attention`` 8 and B7b 4 launches a step and
+    nothing else; ms a step, tokens/s, peak memory, a profiled step; one
+    layer in f32 at fan-in scale, loss and every gradient card vs CPU
+    (1e-4 of each leaf's max).
+25. the dry run (``python -m repro_torch.launch.dryrun``) on the card:
+    every halo cell (virtual meshes (4,1,1), (4,4,1) and (4,4,4) at local
+    (8,8,8), feat 4, on the four backends, and the 3-D mesh at widths 2 /
+    two pulses), each with the bytes its forward exchange moved equal to
+    the plan's forward bytes, its kernel launches and one forward's device
+    time (CUDA events); a dense and a pruned MD cell (800 atoms on 2x2x2,
+    6 steps); every LM cell of ``--all`` built on ``meta`` with the card's
+    allocated memory unchanged.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -3548,6 +3590,7 @@ def drill_phase(system):
 # ---- phase 19: train qwen3-1.7b at full width through the kernels and B7b ----
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_EVERY, TRAIN_KILL = 4, 1024, 6, 3, 4
+KILL_LAYERS = 1            # the killed-and-resumed run's depth (full width)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}      # of max |grad|, vs plain
 BWD_ORACLE_TOL = {"bfloat16": 0.06, "float32": 2e-5}  # of max |grad|, vs f64
 GRAD_TOL = 1e-4            # 2-layer f32 card vs CPU, of each leaf's max
@@ -3839,16 +3882,18 @@ def train_phase(b7b):
     batch 4 x seq 1024, AdamW as the launcher sets it, 6 steps, every
     drive with the kernel counters zeroed just before and read just after;
     two fresh runs bitwise equal (losses, grad norms, a digest of every
-    parameter); a run with a checkpoint every 3 steps killed after step 4
-    and resumed from its step-3 checkpoint, equal to them; launch counts
-    against layers x (forward + remat recompute) x microbatches x steps;
-    then a 2-layer full-width f32 model's loss and every gradient on the
-    card against the CPU; ms a step, tokens/s, peak memory and a profiled
-    step.  One checkpoint is 24.4 GB (f32 parameters and both moments) and
-    the card's machine takes at most 45 GiB of disk writes a call, so only
-    the killed run writes one (step 3); the fresh runs and the resumed
-    part run with ``--ckpt-every 0`` (no checkpoints), which changes no
-    number of a step."""
+    parameter); at full width cut to ``KILL_LAYERS`` (its checkpoint 8.1
+    GB against 24.4 GB at full depth, whose write and restore took 211 s
+    of a 1,186 s smoke on an NVIDIA H100 80GB HBM3 at 700 W), a run with a
+    checkpoint every 3 steps killed after step 4 and resumed from its
+    step-3 checkpoint, equal to an uninterrupted run at that depth; launch
+    counts against layers x (forward + remat recompute) x microbatches x
+    steps; then a 2-layer full-width f32 model's loss and every gradient
+    on the card against the CPU; ms a step, tokens/s, peak memory and a
+    profiled step.  The card's machine takes at most 45 GiB of disk writes
+    a call, so only the killed run writes a checkpoint (step 3); the other
+    runs and the resumed part run with ``--ckpt-every 0`` (no
+    checkpoints), which changes no number of a step."""
     import dataclasses
     import gc
     import shutil
@@ -3888,10 +3933,10 @@ def train_phase(b7b):
         launches = {name: fn.launches for name, fn in counters.items()}
         return res, launches, wall
 
-    def expect(launches, steps, tag):
+    def expect(launches, steps, tag, layers=cfg.n_layers):
         mb = 1
-        fwd = cfg.n_layers * 2 * mb * steps      # forward + remat recompute
-        bwd = cfg.n_layers * mb * steps
+        fwd = layers * 2 * mb * steps            # forward + remat recompute
+        bwd = layers * mb * steps
         check(launches["flash_attention"] == fwd and
               launches["flash_attention_backward"] == bwd,
               f"train {tag}: launches {launches}, expected flash_attention "
@@ -3970,25 +4015,33 @@ def train_phase(b7b):
           f"train: two fresh runs differ: {hist_a} vs {hist_b}, "
           f"{digest_a} vs {digest_b}")
 
+    cut = ["--n-layers", str(KILL_LAYERS)]
+    res_d, launches_d, wall_d = drive("d", extra=cut)
+    expect(launches_d, TRAIN_STEPS, "d", KILL_LAYERS)
+    hist_d, digest_d, _ = summary(res_d)
+    del res_d
+    release()
     res_k, launches_k, wall_k = drive("c", TRAIN_EVERY,
-                                      ["--fail-at-step", str(TRAIN_KILL)])
+                                      cut + ["--fail-at-step",
+                                             str(TRAIN_KILL)])
     check(res_k is None, "train c: the run was not killed")
     release()
-    expect(launches_k, TRAIN_KILL, "c killed")
-    res_r, launches_r, wall_r = drive("c")
-    expect(launches_r, TRAIN_STEPS - TRAIN_EVERY, "c resumed")
+    expect(launches_k, TRAIN_KILL, "c killed", KILL_LAYERS)
+    res_r, launches_r, wall_r = drive("c", extra=cut)
+    expect(launches_r, TRAIN_STEPS - TRAIN_EVERY, "c resumed", KILL_LAYERS)
     hist_r, digest_r, _ = summary(res_r)
     del res_r
     release()
     shutil.rmtree(work, ignore_errors=True)
-    print(f"  run c, a checkpoint every {TRAIN_EVERY}, killed after step "
-          f"{TRAIN_KILL} ({wall_k:.2f} s: 4 steps and one 24.4 GB save) and "
-          f"resumed from step {TRAIN_EVERY} ({wall_r:.2f} s: restore and 3 "
-          f"steps): steps "
+    print(f"  run d, {KILL_LAYERS} layer at full width, uninterrupted "
+          f"({wall_d:.2f} s), digest {digest_d}; run c, the same with a "
+          f"checkpoint every {TRAIN_EVERY}, killed after step {TRAIN_KILL} "
+          f"({wall_k:.2f} s: 4 steps and one save) and resumed from step "
+          f"{TRAIN_EVERY} ({wall_r:.2f} s: restore and 3 steps): steps "
           f"{[h[0] for h in hist_r]}, digest {digest_r}")
-    check(hist_r == hist_a[TRAIN_EVERY:] and digest_r == digest_a,
+    check(hist_r == hist_d[TRAIN_EVERY:] and digest_r == digest_d,
           f"train: the resumed run differs: {hist_r} vs "
-          f"{hist_a[TRAIN_EVERY:]}, {digest_r} vs {digest_a}")
+          f"{hist_d[TRAIN_EVERY:]}, {digest_r} vs {digest_d}")
     steady = sorted(dts_a[1:] + dts_b[1:])
     step_ms = steady[len(steady) // 2] * 1e3
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3)
@@ -5565,24 +5618,26 @@ def whisper_rescale(model, std) -> None:
 
 
 
-def whisper_teacher_forced(model, frames, prompt, gen, max_len):
-    """The cached prefill's logits and each decode step's (feeding
-    ``gen``'s columns) against a no-cache prefill of the same prefix: per
-    position the logit gap of the position's max |logit| over the real
-    vocabulary (the padded columns hold -1e30), and whether the first
-    (cached prefill against no-cache) is bitwise."""
+def teacher_forced(model, batch, gen, max_len, first):
+    """The cached prefill of ``batch`` (its ``tokens`` and the model's
+    other leaves: frames, prefix rows) and each decode step's logits
+    (feeding ``gen``'s columns from cache slot ``first``, where the prompt
+    ends) against a no-cache prefill of the same inputs: per position the
+    logit gap of the position's max |logit| over the real vocabulary (the
+    padded columns hold -1e30), and whether the first (cached prefill
+    against no-cache) is bitwise."""
     import torch
 
-    B, P = prompt.shape
+    prompt = batch["tokens"]
     V = model.cfg.vocab
-    logits, cache = model.prefill({"frames": frames, "tokens": prompt},
-                                  model.init_cache(B, max_len))
+    logits, cache = model.prefill(batch, model.init_cache(prompt.shape[0],
+                                                          max_len))
     out = {"rel": [], "finite": True, "bitwise": None}
     for t in range(gen.shape[1] + 1):
         if t:
-            logits, cache = model.decode_step(gen[:, t - 1:t], P + t - 1,
+            logits, cache = model.decode_step(gen[:, t - 1:t], first + t - 1,
                                               cache)
-        full, _ = model.prefill({"frames": frames, "tokens": torch.cat(
+        full, _ = model.prefill({**batch, "tokens": torch.cat(
             [prompt, gen[:, :t]], dim=1)})
         if not t:
             out["bitwise"] = torch.equal(logits, full)
@@ -5597,7 +5652,7 @@ def whisper_teacher_forced(model, frames, prompt, gen, max_len):
     return out
 
 
-def whisper_sensitivity(model, batch) -> float:
+def logit_sensitivity(model, batch) -> float:
     """How far the no-cache prefill's logits move (of max |logit|, the real
     vocabulary's) when the token embeddings move by one ulp of the compute
     dtype."""
@@ -5620,39 +5675,39 @@ def whisper_sensitivity(model, batch) -> float:
                  / base.abs().max())
 
 
-def whisper_tf_check(model, batch, gen, label, tol, hold):
-    """Teacher-forced decode of ``gen`` against no-cache prefills, and the
-    logits' one-ulp sensitivity, on ``model`` at the reference's init:
-    held at ``tol`` where one ulp of the compute dtype on the embeddings
-    moves the logits less, else printed; then, where it was not held, the
-    same on the model's layer weights redrawn at ``1 / sqrt(fan_in)``
-    (``whisper_rescale``), held there at ``tol`` when ``hold`` or where
-    its one-ulp move is under ``tol`` (phase 21's rule for jamba)."""
-    frames, prompt = batch["frames"], batch["tokens"]
+def tf_check(model, batch, gen, label, tol, *, arch, max_len, first, refan,
+             hold=True):
+    """Teacher-forced decode of ``gen`` from slot ``first`` against
+    no-cache prefills (``teacher_forced``), and the logits' one-ulp
+    sensitivity, on ``model`` at the reference's init: held at ``tol``
+    where one ulp of the compute dtype on the embeddings moves the logits
+    less, else printed; then, where it was not held, the same on the
+    model's layer weights redrawn at ``1 / sqrt(fan_in)`` (``refan``),
+    held there at ``tol`` when ``hold`` or where its one-ulp move is under
+    ``tol`` (phase 21's rule for jamba)."""
     for scale in ("the reference's init", "fan-in scale"):
-        tf = whisper_teacher_forced(model, frames, prompt, gen,
-                                    WHISPER_MAX_LEN)
-        sens = whisper_sensitivity(model, batch)
+        tf = teacher_forced(model, batch, gen, max_len, first)
+        sens = logit_sensitivity(model, batch)
         held = sens <= tol or (scale == "fan-in scale" and hold)
         print(f"  {label} teacher-forced decode vs no-cache prefill, "
-              f"{gen.shape[1]} decode steps, layer weights at {scale}: max "
-              f"|dlogit| / max |logit| = {tf['worst']:.4e} (per position "
-              f"{[float(f'{r:.3e}') for r in tf['rel']]}); one {label} ulp "
-              f"on the embeddings moves the prefill's logits by {sens:.4e} "
-              f"of max |logit|: "
+              f"{gen.shape[1]} decode steps from slot {first}, layer weights "
+              f"at {scale}: max |dlogit| / max |logit| = {tf['worst']:.4e} "
+              f"(per position {[float(f'{r:.3e}') for r in tf['rel']]}); one "
+              f"{label} ulp on the embeddings moves the prefill's logits by "
+              f"{sens:.4e} of max |logit|: "
               f"{'held at ' + str(tol) if held else 'not held'}")
         check(tf["finite"] and tf["bitwise"], f"{label} teacher-forced "
               "logits non-finite, or the cached prefill unlike the no-cache "
               "one")
         if held:
-            check(tf["worst"] <= tol, f"{WHISPER_ARCH} {label} decode logits "
+            check(tf["worst"] <= tol, f"{arch} {label} decode logits "
                   f"{tf['worst']} from the prefill's at {scale}")
         if sens <= tol or scale == "fan-in scale":
             return
-        whisper_rescale(model, lambda shape: shape[-2] ** -0.5)
+        refan(model)
 
 
-def whisper_profile(fn, label):
+def call_profile(fn, label):
     """A profiled call: device ms by kernel, kernels, busy share."""
     prof = _profile(fn, 1)
     if prof is None:
@@ -5673,52 +5728,43 @@ def whisper_profile(fn, label):
               f"{name[:90]}")
 
 
-def whisper_counters():
+def attn_counters():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_backward)
     return {**kernel_counters(), "flash_attention": flash_attention,
             "flash_attention_backward": flash_attention_backward}
 
 
-def whisper_card_vs_cpu(cfg):
-    """One encoder and one decoder layer at full width in f32, drawn at
-    fan-in scale (as ``whisper_grads_card_vs_cpu``): a prefill of 2 x
-    (1,500 frames + 224 tokens) into a cache and 4 decode steps on the
-    card (B7: 3 launches) against the CPU's plain forms, each call's
-    logits within ``F32_LOGIT_TOL`` of max |logit|.  At the 12-layer
-    model's ``1 / sqrt(12)`` the two read 7.7e-4 apart (an NVIDIA H100
-    80GB HBM3 at 700 W),
-    where one f32 ulp moves the full model's logits by 6.6e-2."""
-    import dataclasses
-
-    import numpy as np
+def logits_card_vs_cpu(small, batch, text, first, attn, label):
+    """``small`` (f32, built on the card) fed ``batch`` (CPU tensors: its
+    ``tokens``, ``text`` + 4 columns, and the model's other leaves): a
+    prefill of the first ``text`` tokens into a cache of ``first`` + 4
+    slots and 4 decode steps from slot ``first`` on the card (``attn`` B7
+    launches a prefill), then on the CPU (the plain forms); each call's
+    logits within ``F32_LOGIT_TOL`` of max |logit| over the real
+    vocabulary (the padded columns hold -1e30).  Leaves ``small`` on the
+    CPU."""
     import torch
-    from repro_torch import build_model
     from repro_torch.kernels.flash_attention import flash_attention
 
-    cfg1 = dataclasses.replace(cfg, encoder_layers=1, n_layers=1,
-                               compute_dtype="float32")
-    small = build_model(cfg1).init(
-        torch.Generator(device="cuda").manual_seed(1))
-    whisper_rescale(small, lambda shape: shape[-2] ** -0.5)
-    frames = whisper_frames(cfg, 2, 3).float().cpu()
-    toks = torch.from_numpy(np.random.RandomState(3).randint(
-        0, cfg.vocab, (2, WHISPER_PROMPT + 4)).astype(np.int32))
+    toks = batch["tokens"]
 
     def run(model):
         dev = model.device
         out = []
         before = flash_attention.launches
         lg, cache = model.prefill(
-            {"frames": frames.to(dev),
-             "tokens": toks[:, :WHISPER_PROMPT].to(dev)},
-            model.init_cache(2, WHISPER_PROMPT + 4))
+            {**{k: v.to(dev) for k, v in batch.items()},
+             "tokens": toks[:, :text].to(dev)},
+            model.init_cache(toks.shape[0], first + 4))
         if dev.type == "cuda":
-            check(flash_attention.launches == before + 3, "the f32 card "
-                  "prefill did not launch B7 for each attention layer")
+            check(flash_attention.launches == before + attn, f"{label}: the "
+                  "f32 card prefill did not launch B7 for each attention "
+                  "layer")
         out.append(lg.cpu())
-        for t in range(WHISPER_PROMPT, WHISPER_PROMPT + 4):
-            lg, cache = model.decode_step(toks[:, t:t + 1].to(dev), t, cache)
+        for t in range(4):
+            lg, cache = model.decode_step(
+                toks[:, text + t:text + t + 1].to(dev), first + t, cache)
             out.append(lg.cpu())
         return out
 
@@ -5727,18 +5773,44 @@ def whisper_card_vs_cpu(cfg):
     t_cpu = time.perf_counter()
     on_cpu = run(small)
     t_cpu = time.perf_counter() - t_cpu
-    V = cfg.vocab             # the padded columns hold -1e30
+    V = small.cfg.vocab
     rels = [float((a[:, :V] - b[:, :V]).abs().max() / b[:, :V].abs().max())
             for a, b in zip(on_card, on_cpu)]
-    print(f"  1 encoder + 1 decoder layer, f32 at full width, fan-in "
-          f"scale: a 2 x (1500 "
-          f"frames + {WHISPER_PROMPT} tokens) prefill and 4 decode steps, "
-          f"card vs CPU (the CPU's {t_cpu:.2f} s): max |dlogit| / max "
-          f"|logit| per call {[float(f'{r:.3e}') for r in rels]} (tolerance "
-          f"{F32_LOGIT_TOL}, TF32 off)")
+    print(f"  {label}, card vs CPU (the CPU's {t_cpu:.2f} s): max |dlogit| / "
+          f"max |logit| per call {[float(f'{r:.3e}') for r in rels]} "
+          f"(tolerance {F32_LOGIT_TOL}, TF32 off)")
     check(all(bool(torch.isfinite(a).all()) for a in on_card) and
-          max(rels) <= F32_LOGIT_TOL, f"whisper card logits {rels} from "
+          max(rels) <= F32_LOGIT_TOL, f"{label}: card logits {rels} from "
           "the CPU's")
+
+
+def whisper_card_vs_cpu(cfg):
+    """One encoder and one decoder layer at full width in f32, drawn at
+    fan-in scale (as ``whisper_grads_card_vs_cpu``): a prefill of 2 x
+    (1,500 frames + 224 tokens) into a cache and 4 decode steps on the
+    card (B7: 3 launches) against the CPU's plain forms
+    (``logits_card_vs_cpu``).  At the 12-layer model's ``1 / sqrt(12)``
+    the two read 7.7e-4 apart (an NVIDIA H100 80GB HBM3 at 700 W), where
+    one f32 ulp moves the full model's logits by 6.6e-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+
+    cfg1 = dataclasses.replace(cfg, encoder_layers=1, n_layers=1,
+                               compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    whisper_rescale(small, lambda shape: shape[-2] ** -0.5)
+    batch = {"frames": whisper_frames(cfg, 2, 3).float().cpu(),
+             "tokens": torch.from_numpy(np.random.RandomState(3).randint(
+                 0, cfg.vocab, (2, WHISPER_PROMPT + 4)).astype(np.int32))}
+    logits_card_vs_cpu(
+        small, batch, WHISPER_PROMPT, WHISPER_PROMPT, 3,
+        f"1 encoder + 1 decoder layer, f32 at full width, fan-in scale: a "
+        f"2 x (1500 frames + {WHISPER_PROMPT} tokens) prefill and 4 decode "
+        f"steps")
     del small
     gc_release()
 
@@ -5754,7 +5826,7 @@ def whisper_serve_phase():
     program (no kernel); timings, peak memory, a profiled prefill and
     decode step; teacher-forced decode against no-cache prefills in bf16
     (``TF_LOGIT_TOL``) and in f32 (``F32_TF_TOL``), by
-    ``whisper_tf_check``'s rule; one encoder and one decoder layer in f32,
+    ``tf_check``'s rule; one encoder and one decoder layer in f32,
     card vs CPU."""
     import dataclasses
 
@@ -5786,7 +5858,7 @@ def whisper_serve_phase():
         0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32)) \
         .cuda()
     batch = {"frames": frames, "tokens": prompt}
-    counters = whisper_counters()
+    counters = attn_counters()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5861,19 +5933,23 @@ def whisper_serve_phase():
           f"{ttft_ms:.4f} ms of {WHISPER_BATCH} requests ({ttft}); decode "
           f"median {step_ms:.4f} ms a step of {WHISPER_BATCH} rows "
           f"({steps}), {WHISPER_BATCH * 1e3 / step_ms:.3f} tok/s")
-    whisper_profile(lambda: prefill_fn(batch), "whisper prefill")
-    whisper_profile(lambda: decode_fn(tok, WHISPER_PROMPT, cache),
-                    "whisper decode step")
+    call_profile(lambda: prefill_fn(batch), "whisper prefill")
+    call_profile(lambda: decode_fn(tok, WHISPER_PROMPT, cache),
+                 "whisper decode step")
     del cache, lg, logits
 
-    whisper_tf_check(model, batch, gen, "bf16", TF_LOGIT_TOL, hold=False)
+    whisper_tf = dict(arch=WHISPER_ARCH, max_len=WHISPER_MAX_LEN,
+                      first=WHISPER_PROMPT, refan=lambda m: whisper_rescale(
+                          m, lambda shape: shape[-2] ** -0.5))
+    tf_check(model, batch, gen, "bf16", TF_LOGIT_TOL, hold=False,
+             **whisper_tf)
     del model, prefill_fn, decode_fn, same
     gc_release()
 
     model = build_model(dataclasses.replace(cfg, compute_dtype="float32")) \
         .init(torch.Generator(device="cuda").manual_seed(0))
-    whisper_tf_check(model, {"frames": frames.float(), "tokens": prompt},
-                     gen, "f32", F32_TF_TOL, hold=True)
+    tf_check(model, {"frames": frames.float(), "tokens": prompt}, gen,
+             "f32", F32_TF_TOL, **whisper_tf)
     del model
     gc_release()
     whisper_card_vs_cpu(cfg)
@@ -5881,24 +5957,21 @@ def whisper_serve_phase():
             "ttft_ms": ttft_ms, "step_ms": step_ms}
 
 
-def whisper_train_counted(cfg, tag, profile=False):
-    """One fresh run of ``make_train_step`` on ``cfg`` (f32 weights at the
-    reference's init from seed 0, remat "nothing", one microbatch, AdamW
-    at launch.train's schedule: lr 3e-3, warmup 10) over ``TRAIN_STEPS``
-    batches of 8 x (1,500 frames + 449 tokens), every kernel counter
+def train_counted(cfg, tag, shape, text, leaves_at, label, profile=False):
+    """One fresh run of ``make_train_step`` on ``cfg`` and ``shape`` (f32
+    weights at the reference's init from seed 0, remat "nothing", one
+    microbatch, AdamW at launch.train's schedule: lr 3e-3, warmup 10) over
+    ``TRAIN_STEPS`` batches of ``shape.global_batch`` rows of ``text`` + 1
+    tokens from the synthetic stream, each with the other leaves
+    ``leaves_at(step)`` gives (frames, prefix rows), every kernel counter
     zeroed just before and read just after.  Returns ``(rows (step, loss,
-    grad norm), parameter digest, step seconds, launches, peak bytes)``."""
-    import dataclasses
-
+    grad norm), parameter digest, step seconds, launches, peak bytes,
+    parameters)``."""
     import torch
-    from repro_torch.configs import SHAPES
     from repro_torch.data.synthetic import DataConfig, _batch_at
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
 
-    shape = dataclasses.replace(SHAPES["train_4k"],
-                                seq_len=WHISPER_TRAIN_TEXT,
-                                global_batch=WHISPER_BATCH)
     prog = make_train_step(cfg, shape, ocfg=adamw.AdamWConfig(
         lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS), microbatches=1)
     check(prog.microbatches == 1 and cfg.remat and
@@ -5906,14 +5979,15 @@ def whisper_train_counted(cfg, tag, profile=False):
           "with remat 'nothing'")
     prog.model.init(torch.Generator(device="cuda").manual_seed(0))
     params, opt = prog.params, adamw.init_state(prog.params)
-    data = DataConfig(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_TEXT,
-                      global_batch=WHISPER_BATCH, seed=0)
+    n_params = sum(p.numel() for p in params.values())
+    data = DataConfig(vocab=cfg.vocab, seq_len=text,
+                      global_batch=shape.global_batch, seed=0)
 
     def batch_at(step):
-        return {"frames": whisper_frames(cfg, WHISPER_BATCH, 100 + step),
+        return {**leaves_at(step),
                 "tokens": torch.from_numpy(_batch_at(data, step)).cuda()}
 
-    counters = whisper_counters()
+    counters = attn_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -5933,19 +6007,114 @@ def whisper_train_counted(cfg, tag, profile=False):
     digest = param_digest(params)
     if profile:
         batch = batch_at(TRAIN_STEPS)
-        whisper_profile(lambda: prog.step_fn(params, opt, batch),
-                        "whisper training step")
+        call_profile(lambda: prog.step_fn(params, opt, batch),
+                     f"{label} training step")
     del prog, params, opt, m, batch
     gc_release()
-    return rows, digest, dts, launches, peak
+    return rows, digest, dts, launches, peak, n_params
+
+
+def grads_card_vs_cpu(small, batch, b7, b7b, label):
+    """The loss of ``batch`` (CPU tensors) and every gradient of ``small``
+    (f32, built on the card, remat on) on the card (``b7`` B7 and ``b7b``
+    B7b launches) against the CPU's plain forms, ``GRAD_TOL`` of each
+    leaf's max; key biases ``bk``, whose gradient is zero in exact
+    arithmetic (softmax ignores a shift of every key's logit), to
+    ``GRAD_TOL`` of their layer's ``bv`` gradient.  Leaves ``small`` on
+    the CPU."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+
+    flash_attention.launches = flash_attention_backward.launches = 0
+    loss_c, _ = small.loss_fn({k: v.cuda() for k, v in batch.items()})
+    loss_c.backward()
+    check(flash_attention.launches == b7 and
+          flash_attention_backward.launches == b7b, f"{label}: the f32 card "
+          f"loss launched B7 {flash_attention.launches} / B7b "
+          f"{flash_attention_backward.launches} times, not {b7} / {b7b}")
+    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
+    loss_c = float(loss_c.detach())
+    small.zero_grad(set_to_none=True)
+    small.to("cpu")
+    t_cpu = time.perf_counter()
+    loss_h, _ = small.loss_fn(batch)
+    loss_h.backward()
+    t_cpu = time.perf_counter() - t_cpu
+    grads_h = {n: p.grad for n, p in small.named_parameters()}
+    worst, worst_name, bk = 0.0, "", None
+    for n, g in grads_h.items():
+        scale = float(g.abs().max())
+        if n.endswith(".bk"):
+            bv = float(grads_h[n[:-2] + "bv"].abs().max())
+            bk = max(bk or 0.0, float(grads_c[n].abs().max()) / bv,
+                     scale / bv)
+            continue
+        e = float((grads_c[n] - g).abs().max()) / max(scale, 1e-30)
+        check(math.isfinite(e) and scale > 0, f"f32 grad {n}: {e}, {scale}")
+        if e > worst:
+            worst, worst_name = e, n
+    lrel = abs(loss_c - float(loss_h.detach())) / abs(float(loss_h.detach()))
+    bk_text = "" if bk is None else (
+        f", bk gradients (zero in exact arithmetic) at most {bk:.3e} of bv's")
+    print(f"  {label}, card vs CPU (the CPU's {t_cpu:.2f} s): loss rel "
+          f"{lrel:.3e}, worst leaf {worst_name} {worst:.3e} of its max "
+          f"|grad|{bk_text} (tolerance {GRAD_TOL}, TF32 off)")
+    check(lrel <= GRAD_TOL and worst <= GRAD_TOL and (bk or 0.0) <= GRAD_TOL,
+          f"{label}: f32 card gradients {worst} ({worst_name}) / loss {lrel} "
+          f"/ bk {bk} from the CPU's")
+    del grads_c, grads_h
+
+
+def train_twice(cfg, shape, text, leaves_at, label, attn, heading,
+                n_params=None):
+    """Two fresh ``train_counted`` runs, the second followed by a profiled
+    step: losses, grad norms and a parameter digest bitwise equal and
+    finite; ``attn`` B7b launches a step and twice as many of B7 (forward
+    + remat recompute), nothing else; ``n_params`` parameters where given;
+    ms a step (the median of steps 1-5 of both runs) and text tokens/s.
+    ``heading`` opens the printout.  Returns ``(launches, step ms, peak
+    bytes)``."""
+    def run(tag, profile=False):
+        out = train_counted(cfg, tag, shape, text, leaves_at, label, profile)
+        check(n_params is None or out[-1] == n_params,
+              f"{label} train {tag}: {out[-1]} parameters")
+        return out
+
+    rows_a, digest_a, dts_a, launches, peak, _ = run("a")
+    fwd, bwd = 2 * attn * TRAIN_STEPS, attn * TRAIN_STEPS
+    print(f"{heading}, {TRAIN_STEPS} steps; launches {launches}; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for r in rows_a:
+        print(f"  step {r[0]}: loss {r[1]:.6f} grad_norm {r[2]:.6f}")
+    check(launches["flash_attention"] == fwd and
+          launches["flash_attention_backward"] == bwd and
+          all(n == 0 for k, n in launches.items() if not k.startswith("flash")),
+          f"{label} train launches {launches}, expected flash_attention "
+          f"{fwd} (forward + remat recompute), flash_attention_backward "
+          f"{bwd}")
+    check(all(math.isfinite(x) for r in rows_a for x in r[1:]),
+          f"{label} train: non-finite loss / grad norm {rows_a}")
+    rows_b, digest_b, dts_b, _, _, _ = run("b", profile=True)
+    print(f"  run b: losses, grad norms and parameter digest {digest_b} "
+          f"{'==' if (rows_b, digest_b) == (rows_a, digest_a) else '!='} "
+          f"run a's {digest_a}")
+    check(rows_b == rows_a and digest_b == digest_a,
+          f"{label} train: two fresh runs differ: {rows_a} vs {rows_b}, "
+          f"{digest_a} vs {digest_b}")
+    steady = sorted(dts_a[1:] + dts_b[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    print(f"  {label} train speed: median {step_ms:.4f} ms a step over "
+          f"steps 1-5 of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
+          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
+          f"{shape.global_batch * text / (step_ms * 1e-3):.3f} text tokens/s")
+    return launches, step_ms, peak
 
 
 def whisper_grads_card_vs_cpu(cfg):
     """One encoder and one decoder layer at full width in f32, remat on:
     the loss of 2 x (1,500 frames + 129 tokens) and every gradient on the
-    card (B7 6, B7b 3) against the CPU's plain forms, 1e-4 of each leaf's
-    max; the key biases ``bk``, whose gradient is zero, to 1e-4 of their
-    layer's ``bv`` gradient.  The layer weights are drawn at their fan-in
+    card (B7 6, B7b 3) against the CPU's plain forms
+    (``grads_card_vs_cpu``).  The layer weights are drawn at their fan-in
     scale, ``1 / sqrt(fan_in)``, as the CPU tests draw theirs: at the
     12-layer model's ``1 / sqrt(12)`` one f32 ulp on the embeddings moves
     these gradients by 2.0e-4 of a leaf's max (measured on the CPU at 2 x
@@ -5956,8 +6125,6 @@ def whisper_grads_card_vs_cpu(cfg):
     import numpy as np
     import torch
     from repro_torch import build_model
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_backward)
 
     cfg1 = dataclasses.replace(cfg, encoder_layers=1, n_layers=1,
                                compute_dtype="float32")
@@ -5967,91 +6134,37 @@ def whisper_grads_card_vs_cpu(cfg):
     batch = {"frames": whisper_frames(cfg, 2, 4).float().cpu(),
              "tokens": torch.from_numpy(np.random.RandomState(4).randint(
                  0, cfg.vocab, (2, 129)).astype(np.int32))}
-    flash_attention.launches = flash_attention_backward.launches = 0
-    loss_c, _ = small.loss_fn({k: v.cuda() for k, v in batch.items()})
-    loss_c.backward()
-    check(flash_attention.launches == 6 and
-          flash_attention_backward.launches == 3, f"the f32 card loss "
-          f"launched B7 {flash_attention.launches} / B7b "
-          f"{flash_attention_backward.launches} times, not 6 / 3")
-    grads_c = {n: p.grad.cpu() for n, p in small.named_parameters()}
-    loss_c = float(loss_c.detach())
-    small.zero_grad(set_to_none=True)
-    small.to("cpu")
-    t_cpu = time.perf_counter()
-    loss_h, _ = small.loss_fn(batch)
-    loss_h.backward()
-    t_cpu = time.perf_counter() - t_cpu
-    grads_h = {n: p.grad for n, p in small.named_parameters()}
-    worst, worst_name, bk = 0.0, "", 0.0
-    for n, g in grads_h.items():
-        scale = float(g.abs().max())
-        if n.endswith(".bk"):
-            e = float(grads_c[n].abs().max()) / float(
-                grads_h[n[:-2] + "bv"].abs().max())
-            bk = max(bk, e, scale / float(grads_h[n[:-2] + "bv"].abs().max()))
-            continue
-        e = float((grads_c[n] - g).abs().max()) / max(scale, 1e-30)
-        check(math.isfinite(e) and scale > 0, f"f32 grad {n}: {e}, {scale}")
-        if e > worst:
-            worst, worst_name = e, n
-    lrel = abs(loss_c - float(loss_h.detach())) / abs(float(loss_h.detach()))
-    print(f"  1 encoder + 1 decoder layer, f32 at full width, fan-in "
-          f"scale, loss and gradients (2 x (1500 frames + 128 tokens); the "
-          f"CPU's {t_cpu:.2f}"
-          f" s), card vs CPU: loss rel {lrel:.3e}, worst leaf {worst_name} "
-          f"{worst:.3e} of its max |grad|, bk gradients (zero in exact "
-          f"arithmetic) at most {bk:.3e} of bv's (tolerance {GRAD_TOL}, "
-          f"TF32 off)")
-    check(lrel <= GRAD_TOL and worst <= GRAD_TOL and bk <= GRAD_TOL,
-          f"f32 card gradients {worst} ({worst_name}) / loss {lrel} / bk "
-          f"{bk} from the CPU's")
-    del small, grads_c, grads_h
+    grads_card_vs_cpu(small, batch, 6, 3,
+                      "1 encoder + 1 decoder layer, f32 at full width, "
+                      "fan-in scale, loss and gradients (2 x (1500 frames + "
+                      "128 tokens))")
+    del small
     gc_release()
 
 
 def whisper_train_phase():
     """whisper-small at full width and depth trained through
     ``make_train_step`` (8 x (1,500 frames + 449 tokens), remat
-    "nothing", 6 steps, no checkpoints) twice: losses, grad norms and a
-    parameter digest bitwise equal and finite; B7 72 and B7b 36 launches
-    a step and nothing else; ms a step, tokens/s, peak memory, a profiled
-    step; one layer each in f32, gradients card vs CPU."""
+    "nothing", 6 steps, no checkpoints) twice by ``train_twice``: B7 72
+    and B7b 36 launches a step; one layer each in f32, gradients card vs
+    CPU."""
+    import dataclasses
+
     from repro_torch import get_config
+    from repro_torch.configs import SHAPES
 
     cfg = get_config(WHISPER_ARCH)
-    rows_a, digest_a, dts_a, launches, peak = whisper_train_counted(cfg, "a")
-    fwd, bwd = 2 * WHISPER_ATTN * TRAIN_STEPS, WHISPER_ATTN * TRAIN_STEPS
-    print(f"encoder-decoder phase (b): {WHISPER_ARCH} trained at full width "
-          f"and depth, {WHISPER_BATCH} x ({cfg.encoder_seq} frames + "
-          f"{WHISPER_TRAIN_TEXT + 1} tokens), {TRAIN_STEPS} steps; launches "
-          f"{launches}; peak device memory {peak} bytes "
-          f"({peak / 2**30:.3f} GiB)")
-    for r in rows_a:
-        print(f"  step {r[0]}: loss {r[1]:.6f} grad_norm {r[2]:.6f}")
-    check(launches["flash_attention"] == fwd and
-          launches["flash_attention_backward"] == bwd and
-          all(n == 0 for k, n in launches.items() if not k.startswith("flash")),
-          f"whisper train launches {launches}, expected flash_attention "
-          f"{fwd} (forward + remat recompute), flash_attention_backward "
-          f"{bwd}")
-    check(all(math.isfinite(x) for r in rows_a for x in r[1:]),
-          f"whisper train: non-finite loss / grad norm {rows_a}")
-    rows_b, digest_b, dts_b, _, _ = whisper_train_counted(cfg, "b",
-                                                          profile=True)
-    print(f"  run b: losses, grad norms and parameter digest {digest_b} "
-          f"{'==' if (rows_b, digest_b) == (rows_a, digest_a) else '!='} "
-          f"run a's {digest_a}")
-    check(rows_b == rows_a and digest_b == digest_a,
-          f"whisper train: two fresh runs differ: {rows_a} vs {rows_b}, "
-          f"{digest_a} vs {digest_b}")
-    steady = sorted(dts_a[1:] + dts_b[1:])
-    step_ms = steady[len(steady) // 2] * 1e3
-    print(f"  whisper train speed: median {step_ms:.4f} ms a step over "
-          f"steps 1-5 of runs a and b ({[round(d * 1e3, 3) for d in dts_a]}, "
-          f"{[round(d * 1e3, 3) for d in dts_b]} ms), "
-          f"{WHISPER_BATCH * WHISPER_TRAIN_TEXT / (step_ms * 1e-3):.3f} "
-          f"text tokens/s")
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=WHISPER_TRAIN_TEXT,
+                                global_batch=WHISPER_BATCH)
+    launches, step_ms, _ = train_twice(
+        cfg, shape, WHISPER_TRAIN_TEXT,
+        lambda step: {"frames": whisper_frames(cfg, WHISPER_BATCH,
+                                               100 + step)},
+        "whisper", WHISPER_ATTN,
+        f"encoder-decoder phase (b): {WHISPER_ARCH} trained at full width "
+        f"and depth, {WHISPER_BATCH} x ({cfg.encoder_seq} frames + "
+        f"{WHISPER_TRAIN_TEXT + 1} tokens)")
     whisper_grads_card_vs_cpu(cfg)
     return {"flash_attention": launches["flash_attention"],
             "flash_attention_backward": launches["flash_attention_backward"],
@@ -6075,16 +6188,396 @@ def encdec_phase():
                     trained["flash_attention_backward"]}}
 
 
+# ---- phase 24: VLM prefixes (internvl2-26b) ----------------------------------
+
+VLM_ARCH, VLM_PARAMS = "internvl2-26b", 19_862_722_560   # full size
+VLM_BATCH, VLM_PROMPT, VLM_NEW = 4, 256, 32   # + the config's 256 prefix rows
+VLM_TF_STEPS = 8           # teacher-forced decode steps checked
+VLM_TRAIN_LAYERS, VLM_TRAIN_PARAMS = 4, 2_699_089_920   # f32 state fits
+VLM_TRAIN_BATCH, VLM_TRAIN_TEXT = 2, 512     # + 256 prefix rows a row
+VLM_CUT_TEXT = 64          # text tokens of the 1-2 layer card-vs-CPU cuts
+
+
+def vlm_prefix(cfg, batch, seed, rows=None):
+    """(batch, rows or prefix_tokens, d_model) bf16 patch embeddings from a
+    seeded generator on the card (the reference's vision frontend is a
+    stub)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, rows or cfg.prefix_tokens, cfg.d_model),
+                       generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def vlm_flash_phase():
+    """B7 and B7b at internvl2-26b's attention shape (48 q heads over 8 kv
+    heads: G = 6, the first group count that is no power of two; BH = 4 x
+    8, L = S = 512: the 256 prefix rows and 256 prompt tokens, hd 128,
+    causal, bf16): B7 against its plain form and the f64 oracle at phase
+    13's bars, B7b against its plain backward and the f64 oracle at phase
+    19's, bitwise on repeat, each timed beside its plain form, SDPA (its
+    backward) and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    BH, L, S, G, hd = 32, 512, 512, 6, 128
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((BH, L, G, hd), (BH, S, hd), (BH, S, hd)))
+    got = fa.flash_attention(q, k, v, causal=True)
+    again = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got.double() - want.double()).abs().max())
+    oerr = float((got.double() - ref.flash_attention_ref(
+        q, k, v, causal=True)).abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.equal(got, again) and
+          err <= FLASH_TOL["bfloat16"] and oerr <= ORACLE_TOL["bfloat16"],
+          f"B7 at internvl's G = 6 shape: {err} from its plain form, {oerr} "
+          f"from the f64 oracle, bitwise on repeat {torch.equal(got, again)}")
+    b7, _ = flash_times(q, k, v, True, want)
+    b7["max_abs_err"] = err
+    print(f"VLM phase (a): B7 at internvl2-26b's prefill shape (BH {BH}, L "
+          f"= S = {L}, G {G}, hd {hd}, causal, bf16, {b7['ops'] / 1e9:.2f} "
+          f"GFLOP, {b7['bytes'] / 1e6:.3f} MB): vs plain {err:.3e}, vs f64 "
+          f"oracle {oerr:.3e}, bitwise on repeat; kernel {b7['ms']:.6f} ms, "
+          f"plain {b7['plain_ms']:.6f} ms, SDPA {b7['library_ms']:.6f} ms, "
+          f"bound {b7['bound_ms']:.6f} ms "
+          f"({'bytes' if b7['bytes'] / HBM_BPS >= b7['ops'] / BF16_FLOPS else 'operations'}"
+          f"; {b7['bound_ms'] / b7['ms']:.4f} of it; "
+          f"{b7['ops'] / (b7['ms'] * 1e-3) / 1e12:.2f} TFLOP/s)")
+    del got, again, want, q, k, v
+    b7b, text = b7b_at("internvl's G = 6 shape", BH, L, S, G, hd, 24)
+    print(f"  B7b at internvl2-26b's training shape (the same): {text}")
+    return {"flash_attention": {k: b7[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")},
+            "flash_attention_backward": b7b}
+
+
+def vlm_card_vs_cpu(cfg):
+    """Two layers at full width in f32, drawn at fan-in scale: a prefill
+    of 2 x (256 prefix rows + 64 tokens) into a cache and 4 decode steps
+    from slot P + L on the card (B7: 2 launches, G = 6) against the CPU's
+    plain forms (``logits_card_vs_cpu``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    small = build_model(cfg2).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    draw_at_fan_in(small)
+    P, T = cfg.prefix_tokens, VLM_CUT_TEXT
+    batch = {"prefix_embeds": vlm_prefix(cfg, 2, 3).float().cpu(),
+             "tokens": torch.from_numpy(np.random.RandomState(3).randint(
+                 0, cfg.vocab, (2, T + 4)).astype(np.int32))}
+    logits_card_vs_cpu(
+        small, batch, T, P + T, 2,
+        f"2 layers, f32 at full width, fan-in scale: a 2 x ({P} prefix rows "
+        f"+ {T} tokens) prefill and 4 decode steps from slot {P + T}")
+    del small
+    gc_release()
+
+
+def vlm_serve_phase():
+    """internvl2-26b at full width and depth (19,862,722,560 parameters,
+    bf16 weights at the reference's init, seeded) through
+    ``make_prefill_step`` / ``make_decode_step`` sharing one model: 4
+    requests of 256 seeded prefix rows and a 256-token prompt.  The
+    prefill program with every kernel counter zeroed just before and read
+    just after (B7 48, G = 6, nothing else); ``LM.prefill`` into a 544-slot
+    cache (its last logits bitwise the program's), then 32 greedy steps
+    of the decode program from slot 512 (no kernel); timings, peak memory,
+    a profiled prefill and decode step; bf16 teacher-forced decode
+    against no-cache prefills by ``tf_check``'s rule; two layers in
+    f32, card vs CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(VLM_ARCH)
+    check(cfg.n_layers == 48 and cfg.d_model == 6144 and
+          cfg.n_heads // cfg.n_kv_heads == 6 and cfg.prefix_tokens == 256
+          and cfg.padded_vocab == 92_672, f"{VLM_ARCH} changed: {cfg}")
+    P, T = cfg.prefix_tokens, VLM_PROMPT
+    max_len = P + T + VLM_NEW
+    t0 = time.perf_counter()
+    prefill_fn, model = make_prefill_step(cfg)
+    decode_fn, same = make_decode_step(cfg, model=model)
+    check(same is model and model.pdt == torch.bfloat16, "the decode "
+          "program does not share the prefill's bf16 model")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == VLM_PARAMS, f"{VLM_ARCH} has {n_params} parameters")
+    print(f"VLM phase (b): {VLM_ARCH}, {n_params} parameters, bf16 weights "
+          f"(the step builders'), init {time.perf_counter() - t0:.2f} s; "
+          f"{VLM_BATCH} requests x ({P} prefix rows + {T} tokens), "
+          f"{VLM_NEW} new tokens, a {max_len}-slot cache")
+    prefix = vlm_prefix(cfg, VLM_BATCH, 24)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (VLM_BATCH, T)).astype(np.int32)).cuda()
+    batch = {"prefix_embeds": prefix, "tokens": prompt}
+    counters = attn_counters()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    logits = prefill_fn(batch)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t1) * 1e3
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(launches["flash_attention"] == cfg.n_layers and
+          all(n == 0 for k, n in launches.items() if k != "flash_attention"),
+          f"internvl prefill launches {launches}, expected flash_attention "
+          f"{cfg.n_layers} and nothing else")
+    check(logits.shape == (VLM_BATCH, cfg.padded_vocab) and
+          bool(torch.isfinite(logits).all()), "internvl prefill logits: "
+          "shape / non-finite")
+
+    cache = model.init_cache(VLM_BATCH, max_len)
+    lg, cache = model.prefill(batch, cache)
+    bitwise = torch.equal(lg, logits)
+    print(f"  prefill program: launches {launches}, first call "
+          f"{first:.3f} ms; the cached prefill's last logits "
+          f"{'==' if bitwise else '!='} the no-cache program's (bitwise)")
+    check(bitwise, "the cached prefill's logits differ from the no-cache "
+          "program's")
+    tok = torch.argmax(lg[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
+    for fn in counters.values():
+        fn.launches = 0
+    fed = []
+    for i in range(VLM_NEW):
+        fed.append(tok)
+        lg, cache = decode_fn(tok, P + T + i, cache)
+        tok = torch.argmax(lg[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    dec_launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.cat(fed, dim=1)
+    check(all(n == 0 for n in dec_launches.values()) and
+          bool(torch.isfinite(lg).all()) and
+          0 <= int(gen.min()) and int(gen.max()) < cfg.vocab,
+          f"internvl decode: launches {dec_launches}, tokens out of range "
+          "or non-finite logits")
+    print(f"  {VLM_NEW} greedy decode steps from slot {P + T}: launches "
+          f"{dec_launches}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+
+    ttft = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_fn(batch)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t1) * 1e3)
+
+    def decode_run():
+        c = model.init_cache(VLM_BATCH, max_len)
+        out, c = model.prefill(batch, c)
+        tk = torch.argmax(out[:, :cfg.vocab], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for i in range(VLM_NEW):
+            tk.cpu()
+            out, c = decode_fn(tk, P + T + i, c)
+            tk = torch.argmax(out[:, :cfg.vocab], dim=-1) \
+                .to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t2) * 1e3 / VLM_NEW
+
+    steps = [decode_run() for _ in range(2)]
+    ttft_ms, step_ms = sorted(ttft)[1], min(steps)
+    print(f"  internvl serving: prefill (time to first token) median "
+          f"{ttft_ms:.4f} ms of {VLM_BATCH} requests ({ttft}); decode "
+          f"{step_ms:.4f} ms a step of {VLM_BATCH} rows (the faster of "
+          f"{steps}), {VLM_BATCH * 1e3 / step_ms:.3f} tok/s")
+    call_profile(lambda: prefill_fn(batch), "internvl prefill")
+    call_profile(lambda: decode_fn(tok, P + T, cache),
+                 "internvl decode step")
+    del cache, lg, logits
+
+    tf_check(model, batch, gen[:, :VLM_TF_STEPS], "bf16", TF_LOGIT_TOL,
+             arch=VLM_ARCH, max_len=P + T + VLM_TF_STEPS, first=P + T,
+             refan=draw_at_fan_in)
+    del model, prefill_fn, decode_fn, same
+    gc_release()
+    vlm_card_vs_cpu(cfg)
+    return {"prefill_launches": launches["flash_attention"],
+            "ttft_ms": ttft_ms, "step_ms": step_ms, "peak": peak}
+
+
+def vlm_grads_card_vs_cpu(cfg):
+    """One layer at full width in f32, drawn at fan-in scale, remat on: the
+    loss of 2 x (256 prefix rows + 65 tokens) and every gradient on the
+    card (B7 2, B7b 1, G = 6) against the CPU's plain forms
+    (``grads_card_vs_cpu``, phase 19's bar)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import build_model
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1, compute_dtype="float32")
+    small = build_model(cfg1).init(
+        torch.Generator(device="cuda").manual_seed(1))
+    draw_at_fan_in(small)
+    batch = {"prefix_embeds": vlm_prefix(cfg, 2, 4).float().cpu(),
+             "tokens": torch.from_numpy(np.random.RandomState(4).randint(
+                 0, cfg.vocab, (2, VLM_CUT_TEXT + 1)).astype(np.int32))}
+    grads_card_vs_cpu(small, batch, 2, 1,
+                      f"1 layer, f32 at full width, fan-in scale, loss and "
+                      f"gradients (2 x ({cfg.prefix_tokens} prefix rows + "
+                      f"{VLM_CUT_TEXT} tokens))")
+    del small
+    gc_release()
+
+
+def vlm_train_phase():
+    """internvl2-26b at full width cut to 4 of its 48 layers (f32
+    weights alone are 79.5 GB at full depth) trained through
+    ``make_train_step`` with a batch that carries ``prefix_embeds`` (2 x
+    (256 prefix rows + 513 tokens), remat "nothing", 6 steps, no
+    checkpoints) twice by ``train_twice``: B7 4 x 2 and B7b 4 launches a
+    step (G = 6); one layer in f32, gradients card vs CPU."""
+    import dataclasses
+
+    from repro_torch import get_config
+    from repro_torch.configs import SHAPES
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              n_layers=VLM_TRAIN_LAYERS)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=cfg.prefix_tokens + VLM_TRAIN_TEXT,
+                                global_batch=VLM_TRAIN_BATCH)
+    launches, step_ms, peak = train_twice(
+        cfg, shape, VLM_TRAIN_TEXT,
+        lambda step: {"prefix_embeds": vlm_prefix(cfg, VLM_TRAIN_BATCH,
+                                                  100 + step)},
+        "internvl", VLM_TRAIN_LAYERS,
+        f"VLM phase (c): {VLM_ARCH} trained at full width, "
+        f"{VLM_TRAIN_LAYERS} of 48 layers ({VLM_TRAIN_PARAMS} parameters), "
+        f"{VLM_TRAIN_BATCH} x ({cfg.prefix_tokens} prefix rows + "
+        f"{VLM_TRAIN_TEXT + 1} tokens)", n_params=VLM_TRAIN_PARAMS)
+    vlm_grads_card_vs_cpu(cfg)
+    return {"flash_attention": launches["flash_attention"],
+            "flash_attention_backward": launches["flash_attention_backward"],
+            "step_ms": step_ms, "peak": peak}
+
+
+def vlm_phase():
+    """Phase 24: B7 / B7b at internvl2-26b's G = 6 shape, internvl2-26b
+    served at full width and depth and trained at full width on 4 of 48
+    layers.  Returns the kernels' internvl entries for the kernels
+    line."""
+    t0 = time.perf_counter()
+    print(f"phase 24 on {card_line()}")
+    kern = vlm_flash_phase()
+    print(f"VLM phase (a): {time.perf_counter() - t0:.1f} s")
+    served = vlm_serve_phase()
+    print(f"VLM phase (b): {time.perf_counter() - t0:.1f} s")
+    trained = vlm_train_phase()
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    return {"flash_attention": {
+                "internvl_shape": kern["flash_attention"],
+                "internvl_prefill_launches": served["prefill_launches"],
+                "internvl_train_launches": trained["flash_attention"]},
+            "flash_attention_backward": {
+                "internvl_shape": kern["flash_attention_backward"],
+                "internvl_train_launches":
+                    trained["flash_attention_backward"]}}
+
+
+# ---- phase 25: the dry run ---------------------------------------------------
+
+def dryrun_phase():
+    """Phase 25: ``repro_torch.launch.dryrun`` on the card.  Every halo
+    cell (the 1-D, 2-D and 3-D virtual meshes x the four backends, then
+    the 3-D mesh at widths 2 / two pulses) with the bytes its forward
+    exchange moved equal to the plan's forward bytes, its launches (pallas:
+    B1 a decomposed dim; signal: B3, or B4 with two pulses) and one
+    forward's device time; a dense and a pruned MD cell (800 atoms on
+    2x2x2, 6 steps; the pruned one with the pallas halo: B1 / B2 / B5 /
+    B6); every LM cell of ``--all`` built on ``meta`` with the card's
+    allocated memory unchanged.  Records go to ``build/dryrun_smoke``."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    print(f"phase 25 on {card_line()}")
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    halo = dryrun.run_halo_cells(force=True, out=out) + \
+        dryrun.run_halo_cells(force=True, width=2, pulses=2, out=out,
+                              dds=["3d"])
+    check(len(halo) == 16, f"{len(halo)} halo cells")
+    for r in halo:
+        tag = f"halo {r['dd']} {r['backend']} w{r['width']} p{r['pulses']}"
+        check(r["ok"] and r["moved_bytes"] == r["plan_fwd_bytes"] and
+              r["fwd_device_ms"] is not None, f"{tag}: {r.get('error')}")
+        want = {"pallas": "pack", "signal": "fused_pulses"
+                if r["pulses"] > 1 else "put_signal"}.get(r["backend"])
+        check(want is None or r["launches"][want] > 0,
+              f"{tag}: launches {r['launches']}")
+        print(f"  {tag}: moved {r['moved_bytes']} B a domain (the plan's "
+              f"{r['plan_fwd_bytes']}) over {r['devices']} domains; "
+              f"launches {r['launches']}; one fwd {r['fwd_device_ms']:.6f} "
+              f"ms of device time (CUDA events, 20 calls)")
+    md = [dryrun.run_md_cells("dense", force=True, out=out),
+          dryrun.run_md_cells("pallas", force=True, halo_backend="pallas",
+                              out=out)]
+    for r in md:
+        check(r["ok"] and r["n_atoms_conserved"] and
+              math.isfinite(r["pe_final"]), f"MD cell {r['force_backend']}: "
+              f"{r.get('error')}")
+        print(f"  MD cell {r['force_backend']} / {r['backend']} halo: "
+              f"pe_final {r['pe_final']}, prune ratio "
+              f"{r['pair_stats']['prune_ratio']:.4f}, launches "
+              f"{r['launches']}, {r['wall_s']} s")
+    check(md[1]["launches"]["pair_forces"] > 0 and
+          md[1]["launches"]["scatter_accum"] > 0 and
+          md[1]["launches"]["pack"] > 0, f"the pruned MD cell launched "
+          f"{md[1]['launches']}")
+    del halo, md
+    gc_release()             # the MD cells' engines (reference cycles)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    lm = dryrun.run_cells(ARCH_IDS, list(SHAPES), force=True, out=out)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(len(lm) == len(ARCH_IDS) * len(SHAPES) and
+          all(r["ok"] for r in lm) and after == before,
+          f"LM cells: {[r for r in lm if not r['ok']][:1]}, allocated "
+          f"{before} -> {after}")
+    built = [r for r in lm if not r.get("skipped")]
+    print(f"  {len(lm)} LM cells ({len(built)} built on meta, "
+          f"{len(lm) - len(built)} skipped), the card's allocated memory "
+          f"{before} -> {after} bytes; cells on one card: "
+          f"{sorted((r['arch'], r['shape']) for r in built if r['fits_one_card'])}")
+    dryrun.summarize(out)
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s on {card_line()}")
+    return {"lm_cells": len(lm)}
+
+
 def main():
     args = sys.argv[1:]
     if args in (["--serve"], ["--drill"], ["--train"], ["--moe"],
-                ["--ssm"], ["--ssm-train"], ["--encdec"]):
+                ["--ssm"], ["--ssm-train"], ["--encdec"], ["--vlm"],
+                ["--dryrun"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
              "| --serve | --drill | --train | --moe | --ssm | --ssm-train "
-             "| --encdec]")
+             "| --encdec | --vlm | --dryrun]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -6150,6 +6643,20 @@ def main():
         _build.build(["halo_pack", "halo_signal", "nonbonded",
                       "flash_attention"])
         encdec_phase()
+        print(card)
+        return
+    if args == ["--vlm"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        vlm_phase()
+        print(card)
+        return
+    if args == ["--dryrun"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        dryrun_phase()
         print(card)
         return
     if args and args[0] == "--steps":
@@ -6278,6 +6785,13 @@ def main():
     # decode step builders and trained at full width and depth
     encdec_kernel = encdec_phase()
 
+    # 24. VLM prefixes: B7 / B7b at internvl2-26b's G = 6 shape, internvl
+    # served at full width and depth and trained at full width (4 layers)
+    vlm_kernel = vlm_phase()
+
+    # 25. the dry run: halo, MD and LM cells of launch.dryrun on the card
+    dryrun_phase()
+
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",
                 "put_signal": "src/repro/kernels/halo_pack.py:165",
@@ -6360,6 +6874,7 @@ def main():
             **ssm_kernel.get(name, {}),
             **ssm_train_kernel.get(name, {}),
             **encdec_kernel.get(name, {}),
+            **vlm_kernel.get(name, {}),
             **({"whisper_shapes": acc["whisper_shapes"]}
                if "whisper_shapes" in acc else {}),
             **({"design": designs[name]} if name in designs else {})})
@@ -6397,6 +6912,12 @@ def main():
           "whisper_prefill_launches: one prefill of 8 x (1500 frames + 224 "
           "tokens); whisper_train_launches: over one 6-step whisper-small "
           "training run (B7: forward + remat recompute; B7b: 36 a step); "
+          "internvl_shape: B7 / B7b at internvl2-26b's prefill shape (BH "
+          "32, L = S = 512, G 6, hd 128, causal, bf16), timed and bounded "
+          "as above; internvl_prefill_launches: one prefill of 4 x (256 "
+          "prefix rows + 256 tokens) at full depth; "
+          "internvl_train_launches: over one 6-step training run at 4 of 48 "
+          "layers (B7: forward + remat recompute; B7b: 4 a step); "
           "pack_wire / "
           "put_signal_wire "
           "(the wire forms, B1w / B3w): one f64 step's 3 forward launches, "

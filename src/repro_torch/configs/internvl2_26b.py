@@ -1,8 +1,10 @@
 """InternVL2-26B LM backbone (InternLM2-20B) [arXiv:2404.16821; hf].
 
-[vlm]: the InternViT-6B vision frontend is a STUB — ``input_specs()``
-provides precomputed patch embeddings (256 visual tokens) prepended to the
-text sequence; the transformer backbone below is modeled in full.
+[vlm]: the InternViT-6B vision frontend is a STUB — the batch of
+``launch.steps.input_specs()`` carries ``prefix_embeds``, precomputed patch
+embeddings (256 visual tokens) that ``LM.loss_fn`` / ``LM.prefill`` put
+before the text sequence; the transformer backbone below is modeled in
+full.
 """
 from repro_torch.configs.base import ArchConfig, LayerSpec
 

@@ -41,16 +41,27 @@ Region = Tuple[int, ...]
 # small helpers
 # --------------------------------------------------------------------------
 
+def delivered(recv: torch.Tensor) -> torch.Tensor:
+    """Counts ``recv``, what one neighbour transfer delivered to every
+    domain, in ``delivered.bytes`` and returns it.  The rolls below and
+    the signal backend's puts call it; the dry run reads the count."""
+    delivered.bytes += recv.numel() * recv.element_size()
+    return recv
+
+
+delivered.bytes = 0
+
+
 def recv_from_next(x: torch.Tensor, d: int) -> torch.Tensor:
     """``ppermute`` with ``_perm_fwd``: domain i receives domain i+1's
     data along domain dim ``d`` (periodic)."""
-    return torch.roll(x, -1, dims=d)
+    return delivered(torch.roll(x, -1, dims=d))
 
 
 def recv_from_prev(x: torch.Tensor, d: int) -> torch.Tensor:
     """``ppermute`` with ``_perm_rev``: domain i receives domain i-1's
     data along domain dim ``d`` (periodic)."""
-    return torch.roll(x, 1, dims=d)
+    return delivered(torch.roll(x, 1, dims=d))
 
 
 def _split_high(x: torch.Tensor, axis: int, width: int):

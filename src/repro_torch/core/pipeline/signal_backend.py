@@ -140,14 +140,16 @@ class SignalBackend(PallasBackend):
             shape = ext.shape
             src = self._rows2d(ext, nd, d)
             if len(pulses) == 1:
-                recvs = [halo_pack.put_signal(
+                recvs = [_halo.delivered(halo_pack.put_signal(
                     src, padded[0, :counts[0]], mesh, lead + d, -1,
-                    signal=words, wire_dtype=wire).to(ext.dtype)]
+                    signal=words, wire_dtype=wire)).to(ext.dtype)]
             else:
                 out = halo_pack.fused_pulses(src, padded, src.shape[1],
                                              mesh, lead + d,
                                              words=fused_words)
-                recvs = [out[:, k, :counts[k]] for k in range(len(pulses))]
+                # the rows each pulse's map names, not the padding rows
+                recvs = [_halo.delivered(out[:, k, :counts[k]])
+                         for k in range(len(pulses))]
             for pulse, rows in zip(pulses, recvs):
                 slab = rows.reshape(shape[:nd + d] + (pulse.width,)
                                     + shape[nd + d + 1:])
@@ -168,9 +170,9 @@ class SignalBackend(PallasBackend):
             d, w, off = pulse.dim, pulse.width, pulse.offset
             shape = out.shape
             # fused pack + put to the +1 neighbour: the force-return pulse
-            recv = halo_pack.put_signal(self._rows2d(out, nd, d),
-                                        maps.pack_idx, plan.block_dims,
-                                        plan.lead + d, +1, signal=words)
+            recv = _halo.delivered(halo_pack.put_signal(
+                self._rows2d(out, nd, d), maps.pack_idx, plan.block_dims,
+                plan.lead + d, +1, signal=words))
             body = out.narrow(nd + d, 0, shape[nd + d] - w)
             # unpack as a slab accumulate, as the reference does
             slab = recv.reshape(shape[:nd + d] + (w,) + shape[nd + d + 1:])

@@ -15,14 +15,16 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a :class:`torch.device`; raises if it is a CUDA
-    device and CUDA is not available."""
+    device and CUDA is not available.  ``"meta"`` builds shapes without
+    storage (the dry run's models); nothing runs there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}: cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}: cuda, cpu or "
+                         "meta")
     if dev.type == "cuda" and dev.index is None:
         # tensors report their index: compare like with like
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -29,21 +29,30 @@ model with ``param_dtype="bfloat16"``, as the reference does for
 inference, and return ``(fn, model)``: ``fn(batch) -> logits`` (the last
 position's, no cache) and ``fn(token, pos, cache) -> (logits, cache)``
 (the cache written in place), both with grad off.  The two may share one
-model (``model=``).  The pod-compressed and ``zero2`` steps (a pod mesh
-axis, ZeRO sharding), the builders' shardings and donation,
-``batch_specs`` and ``input_specs`` wait for the multi-GPU work (ROADMAP
-A13).
+model (``model=``).  A VLM batch carries ``prefix_embeds`` (B, P, d)
+beside ``tokens``: the train step splits it across microbatches with the
+other leaves, the prefill passes it to the model, and decode goes on at
+slot P + L.
+
+Shapes without storage: :func:`make_ctx` gives the single-card stand-in
+for the reference's ``ShardingCtx`` (:class:`CardCtx`: one device, no
+batch, sequence or FSDP axes, ``dp`` 1); :func:`batch_specs` returns the
+reference's ``(shapes, specs)`` with the device as every leaf's
+placement, and :func:`input_specs` adds a decode step's cache, its model
+built on the ``meta`` device.  The pod-compressed and ``zero2`` steps (a
+pod mesh axis, ZeRO sharding), FSDP, and the builders' shardings and
+donation wait for the multi-GPU work.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
-from repro_torch.device import const
+from repro_torch.device import const, resolve_device
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.layers import _flatten, _unflatten
@@ -83,6 +92,32 @@ def auto_microbatches(cfg: ArchConfig, shape: ShapeCfg,
     return max(mb, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class CardCtx:
+    """The single-card stand-in for the reference's ``ShardingCtx``: the
+    device every tensor lies on, no batch, sequence or FSDP axes."""
+    device: torch.device
+    batch_axes: Tuple[str, ...] = ()
+    seq_axes: Tuple[str, ...] = ()
+    fsdp_axis: Optional[str] = None
+
+    @property
+    def dp(self) -> int:
+        return 1
+
+
+def make_ctx(cfg: ArchConfig, shape: ShapeCfg, device="cuda",
+             fsdp: Optional[bool] = None) -> CardCtx:
+    """The context of one (arch, shape) cell on ``device`` (``"meta"``
+    for shapes alone).  FSDP shards over a data axis, which one card does
+    not have: ``fsdp=True`` raises."""
+    if fsdp:
+        raise NotImplementedError(
+            f"{cfg.name} x {shape.name}: FSDP shards parameters over a data "
+            "axis, which needs a multi-GPU mesh")
+    return CardCtx(device=resolve_device(device))
+
+
 def batch_shapes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
     """The batch of a ``shape.kind`` step as ``TensorSpec``s (the
     reference's): ``tokens`` (B, L + 1 to train, B, L to prefill; a
@@ -104,6 +139,33 @@ def batch_shapes(cfg: ArchConfig, shape: ShapeCfg) -> Dict[str, Any]:
     out["tokens"] = TensorSpec((B, text + (shape.kind == "train")),
                                torch.int32)
     return out
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeCfg, ctx: CardCtx):
+    """``(shapes, specs)``: :func:`batch_shapes` and, for each leaf, its
+    placement, which on one card is ``ctx.device``."""
+    shapes = batch_shapes(cfg, shape)
+    return shapes, {k: ctx.device for k in shapes}
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCfg, ctx: CardCtx) -> dict:
+    """Every abstract input of the cell's step: ``{"batch": (shapes,
+    specs)}`` and, for a decode step, ``"cache": (shapes, specs)``, the
+    model's cache for ``global_batch`` rows of ``seq_len`` slots (its
+    model built on the ``meta`` device, so nothing is allocated)."""
+    out = {"batch": batch_specs(cfg, shape, ctx)}
+    if shape.kind == "decode":
+        model = build_model(cfg, device="meta")
+        cache = model.cache_shapes(shape.global_batch, shape.seq_len)
+        out["cache"] = (cache, _placed(cache, ctx.device))
+    return out
+
+
+def _placed(tree, device):
+    """``tree``'s structure with ``device`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, device) for k, v in tree.items()}
+    return device
 
 
 def abstract_params(cfg: ArchConfig, expert_share=None) -> dict:

@@ -56,9 +56,20 @@ di), "ssm": (n, B, di, ds) float32}}``; ``{"rwkv_tm": {"shift_tm": (n, B,
 1, d)}}``, the rest in the compute dtype.  The port writes every cache and
 state in place and returns the same dict (MoE layers hold no state); the
 reference's sharding, ``specs`` and ``_unit_gather_spec`` wait for the
-multi-GPU work.  VLM-prefix configs raise naming their ROADMAP item;
-encoder-decoder configs build :class:`repro_torch.models.encdec.EncDec`
-(``build_model``), which shares this module's :class:`HeldWeights`.
+multi-GPU work.  Encoder-decoder configs build
+:class:`repro_torch.models.encdec.EncDec` (``build_model``), which shares
+this module's :class:`HeldWeights`.
+
+VLM prefixes (``cfg.prefix_tokens``, the reference's stubbed vision
+frontend): ``loss_fn`` and ``prefill`` take ``batch["prefix_embeds"]`` (B,
+P, d), cast it to the compute dtype and put it before the token
+embeddings, so positions run over ``P + L``; ``loss_fn`` drops the P
+prefix rows before the logits, and ``prefill`` fills the cache from slot 0
+over ``P + L``, so the first decode step's slot is ``P + L``.  The prefix
+is an input: only parameters are differentiated.  A VLM config served or
+trained without a prefix runs its text alone (the reference's
+``BatchServer`` does so too; its ``run_training`` needs the prefix from
+``batch_to_inputs``, since its step's shardings name it).
 """
 from __future__ import annotations
 
@@ -170,13 +181,6 @@ def _add_aux(acc: dict, aux: dict) -> dict:
     return out
 
 
-def _unsupported(cfg: ArchConfig) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet (None when it can)."""
-    if cfg.prefix_tokens:
-        return "a VLM prefix (ROADMAP A14: VLM)"
-    return None
-
-
 def _store(cache: Optional[dict], kind: str, new: Optional[dict]) -> None:
     """Write a layer's new state into its cache slice in place (cast to
     the cache's dtype, as the reference's ``n.astype(c.dtype)``)."""
@@ -284,9 +288,6 @@ class LM(HeldWeights):
     def __init__(self, cfg: ArchConfig, device="cuda",
                  moe_dispatch: str = "fused", expert_share=None):
         super().__init__()
-        why = _unsupported(cfg)
-        if why is not None:
-            raise NotImplementedError(f"{cfg.name}: {why} is not ported yet")
         if moe_dispatch not in moe_mod.DISPATCHES:
             raise ValueError(f"moe_dispatch {moe_dispatch!r}: one of "
                              f"{moe_mod.DISPATCHES}")
@@ -447,24 +448,35 @@ class LM(HeldWeights):
             else self._compute_params()[1]
         return head_logits(self.final_norm, x, head, self.cfg)
 
+    def _inputs(self, tokens, prefix):
+        """The stack's input: the tokens' embeddings after ``prefix`` (B,
+        P, d) cast to the compute dtype, when given; and positions
+        ``arange(P + L)``."""
+        x = self._embed(tokens)
+        if prefix is not None:
+            x = torch.cat([prefix.to(self.cdt), x], dim=1)
+        B, L, _ = x.shape
+        return x, torch.arange(L, device=x.device).expand(B, L)
+
     def loss_fn(self, batch):
         """Token-mean cross entropy (z-loss 1e-4) of ``batch["tokens"]``
-        (B, L+1): inputs ``[:, :-1]``, labels ``[:, 1:]``; with MoE plus
-        ``0.01 * moe_lb / n_layers + 1e-3 * moe_z / n_layers``.  Returns
-        ``(loss, {"ce", and with MoE "moe_lb", "moe_z"})``; differentiable
-        while grad is enabled."""
-        if batch.get("prefix_embeds") is not None:
-            raise NotImplementedError("prefix embeddings (ROADMAP A14: VLM)")
+        (B, L+1): inputs ``[:, :-1]``, labels ``[:, 1:]``, after
+        ``batch["prefix_embeds"]`` (B, P, d) when given, whose P rows the
+        loss drops before the logits; with MoE plus ``0.01 * moe_lb /
+        n_layers + 1e-3 * moe_z / n_layers``.  Returns ``(loss, {"ce", and
+        with MoE "moe_lb", "moe_z"})``; differentiable while grad is
+        enabled."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = self._embed(tokens[:, :-1])
+        prefix = batch.get("prefix_embeds")
+        x, positions = self._inputs(tokens[:, :-1], prefix)
         labels = tokens[:, 1:]
-        B, L, _ = x.shape
-        positions = torch.arange(L, device=x.device).expand(B, L)
         if torch.is_grad_enabled():
             x, aux = self._train_stack(x, positions)
         else:
             x, aux = self._run_stack(x, positions)
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
         loss = cross_entropy(self._logits(x), labels)
         metrics = {"ce": loss}
         if cfg.moe is not None:
@@ -478,12 +490,12 @@ class LM(HeldWeights):
     def prefill(self, batch, cache=None):
         """Prefill logits for the LAST position (optionally filling the
         cache from slot 0).  ``batch["tokens"]`` (B, L) int32 or int64 on
-        the model's device.  Returns (logits (B, Vp), cache or None)."""
-        if batch.get("prefix_embeds") is not None:
-            raise NotImplementedError("prefix embeddings (ROADMAP A14: VLM)")
-        x = self._embed(batch["tokens"])
-        B, L, _ = x.shape
-        positions = torch.arange(L, device=x.device).expand(B, L)
+        the model's device, after ``batch["prefix_embeds"]`` (B, P, d)
+        when given (the cache's first P + L slots are then filled, and
+        decode goes on at slot P + L).  Returns (logits (B, Vp), cache or
+        None)."""
+        x, positions = self._inputs(batch["tokens"],
+                                    batch.get("prefix_embeds"))
         if cache is None:
             x, _ = self._run_stack(x, positions)
             return self._logits(x[:, -1:])[:, 0], None

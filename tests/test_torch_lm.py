@@ -44,6 +44,7 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.encdec import EncDec
+from repro_torch.models.transformer import LM
 from repro_torch.resilience import Watchdog, WaveTimeout
 from repro_torch.runtime.serve_loop import (Request, masked_tokens,
                                             throughput_stats)
@@ -498,10 +499,17 @@ def test_params_round_trip_through_the_converter(served):
 
 @pytest.mark.parametrize("arch,item", [("internvl2-26b", "A14: VLM")])
 def test_unported_configs_raise_naming_their_item(arch, item):
-    """Building a VLM config raises."""
+    """No config is left unported: the last one, a VLM config (``item``),
+    builds an ``LM`` whose prefill takes its prefix
+    (tests/test_torch_vlm.py holds it against the reference)."""
     cfg = get_config(arch).reduce()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert isinstance(model, LM) and cfg.prefix_tokens, item
+    logits, _ = model.prefill({
+        "tokens": torch.zeros((1, 3), dtype=torch.int32),
+        "prefix_embeds": torch.zeros((1, cfg.prefix_tokens, cfg.d_model))})
+    assert logits.shape == (1, cfg.padded_vocab), item
 
 
 def test_encoder_decoder_config_builds_an_encdec():

@@ -219,11 +219,22 @@ def test_loss_and_every_gradient_match_reference(jx, remat):
 
 
 def test_loss_fn_refuses_prefix_embeds():
+    """A prefix is not refused but taken, as the reference takes it for
+    any config: it moves the loss of the same tokens, and gets no
+    gradient (tests/test_torch_vlm.py holds the VLM path against the
+    reference)."""
     port = build_model(_port_cfg(), device="cpu").init(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14: VLM"):
-        port.loss_fn({"tokens": torch.zeros((1, 5), dtype=torch.int32),
-                      "prefix_embeds": torch.zeros((1, 2, 64))})
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (1, 5)).astype(np.int32))
+    prefix = torch.zeros((1, 2, 64), requires_grad=True)
+    with_prefix, _ = port.loss_fn({"tokens": tokens,
+                                   "prefix_embeds": prefix})
+    alone, _ = port.loss_fn({"tokens": tokens})
+    assert bool(torch.isfinite(with_prefix))
+    assert float(with_prefix) != float(alone)
+    grads = torch.autograd.grad(with_prefix, list(port.parameters()))
+    assert all(g is not None for g in grads) and prefix.grad is None
 
 
 def test_loss_after_prefill_gets_a_fresh_model_s_gradients():
