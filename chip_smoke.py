@@ -29,6 +29,8 @@
         # prints no result lines
     python3 chip_smoke.py --dryrun             # phases 1, 2 and 25 alone;
         # prints no result lines
+    python3 chip_smoke.py --examples           # phases 1, 2 and 26 alone;
+        # prints no result lines
 
 The MD engine issues each block as a CUDA graph by default on the card
 (``capture="block"``: the first block of a shape runs eagerly, the next
@@ -244,7 +246,13 @@ Phases, each asserting (any failure exits non-zero with no result line):
     full-width f32 model's loss and every gradient on the card (kernels)
     against the CPU (plain forms), 1e-4 of each leaf's max, TF32 off;
     (d) ms a step, tokens/s, peak memory, a profiled step, B7b's device us
-    a launch beside SDPA's backward.
+    a launch beside SDPA's backward; (e) ``remat_policy="dots"`` in run
+    a's model (``dots_steps``): one step from the same state under each
+    policy, losses, grad norms and a parameter digest bitwise equal, then
+    steps in turns (nothing, dots, dots, nothing) with their ms, tokens/s,
+    launches (``flash_attention`` 56 and B7b 28 a step under both: B7 is
+    recomputed, the kept products are not) and peak memory, and a profiled
+    step of each (device ms, kernels, GEMMs).
 20. Mixture-of-Experts (olmoe-1b-7b: 16 q and 16 kv heads, 64 experts,
     top-8): (a) B7 at its prefill shape (BH = 4 x 16, L = S = 1024, G = 1,
     hd = 128, causal, bf16) against its plain form and the f64 oracle at
@@ -385,6 +393,17 @@ Phases, each asserting (any failure exits non-zero with no result line):
     time (CUDA events); a dense and a pruned MD cell (800 atoms on 2x2x2,
     6 steps); every LM cell of ``--all`` built on ``meta`` with the card's
     allocated memory unchanged.
+26. the rest of the single-card port (``examples_phase``): ``python -m
+    repro_torch.analysis`` (the hazard linter and the schedule verifier)
+    exits 0 on the card's machine; B7 / B7b in float32 at head_dim 96
+    (qwen3-100m's) against their plain forms; the four examples of
+    ``examples/torch`` through their ``main`` on the card: quickstart,
+    md_halo_demo at 1, 2, 4 and 8 domains and with the bfloat16 wire,
+    serve_batch (B7 in each prefill), train_lm reduced and
+    ``--full-100m`` (B7 and B7b in every step), each with its launches
+    and seconds.
+
+Each phase's seconds are printed on a line of its own.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -393,6 +412,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -431,6 +451,14 @@ def cuda_ms(fn, n: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+@contextlib.contextmanager
+def timed(label: str):
+    """Prints ``label: seconds`` on a line of its own after the block."""
+    t0 = time.perf_counter()
+    yield
+    print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -3705,21 +3733,23 @@ def b7b_at(label, BH, L, S, G, hd, seed):
 def b7b_sass(lib_path):
     """``cuobjdump -sass`` of B7b: HGMMA in every bf16 dK / dV and dQ
     kernel at every head_dim, no atomic instruction in any backward
-    kernel (either dtype)."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    kernel (either dtype; the f32 kernels also at head_dim 96)."""
+    from repro_torch.kernels.flash_attention import F32_HEAD_DIMS, HEAD_DIMS
     sass = {key: c for key, c in flash_sass_counts(lib_path).items()
             if key[0].startswith("flash_bwd")}
-    kerns = ("flash_bwd_prep_bf16", "flash_bwd_dkdv_bf16",
-             "flash_bwd_dq_bf16", "flash_bwd_delta_f32", "flash_bwd_dkdv_f32",
-             "flash_bwd_dq_f32")
+    kerns = {k: F32_HEAD_DIMS if k.endswith("f32") else HEAD_DIMS
+             for k in ("flash_bwd_prep_bf16", "flash_bwd_dkdv_bf16",
+                       "flash_bwd_dq_bf16", "flash_bwd_delta_f32",
+                       "flash_bwd_dkdv_f32", "flash_bwd_dq_f32")}
     print("B7b SASS (cuobjdump -sass): HGMMA / atomic instructions per "
           "kernel, by head_dim: " + "; ".join(
               f"{kern} " + ", ".join(
                   f"{hd}: {sass[kern, hd]['HGMMA']} / "
                   f"{sass[kern, hd]['atomic']}"
-                  for hd in HEAD_DIMS if (kern, hd) in sass)
-              for kern in kerns))
-    check(sorted(sass) == sorted((k, hd) for k in kerns for hd in HEAD_DIMS),
+                  for hd in dims if (kern, hd) in sass)
+              for kern, dims in kerns.items()))
+    check(sorted(sass) == sorted((k, hd) for k, dims in kerns.items()
+                                 for hd in dims),
           f"B7b SASS: kernels {sorted(sass)}")
     check(all(sass[kern, hd]["HGMMA"] > 0 for hd in HEAD_DIMS
               for kern in ("flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16")),
@@ -3997,6 +4027,7 @@ def train_phase(b7b):
                                    key=lambda kv: -kv[1][0])[:12]:
             print(f"    kernel {t / device:7.4f} {t / 1e3:10.4f} ms "
                   f"{k:7.0f}x {name[:90]}")
+    dots_steps(prog, params, opt, batch, counters)
     del prog, params, opt, batch, res_a
     release()
     shutil.rmtree(work / "a", ignore_errors=True)
@@ -4096,6 +4127,109 @@ def train_phase(b7b):
     return {"flash_attention": launches_a["flash_attention"],
             "flash_attention_backward":
                 launches_a["flash_attention_backward"]}
+
+
+def _gemm(name: str) -> bool:
+    """A cuBLAS / CUTLASS matrix-product kernel, by its name."""
+    return "flash" not in name and any(
+        k in name.lower() for k in ("gemm", "xmma", "nvjet", "cutlass"))
+
+
+def dots_steps(prog, params, opt, batch, counters):
+    """``remat_policy="dots"`` against ``"nothing"`` in phase 19's model
+    (run a's program after its steps, its batch): one step from the same
+    state under each policy (a device copy of params, m and v restores
+    it), losses, grad norms and a parameter digest bitwise equal; then,
+    the copy freed, steps in turns (nothing, dots, dots, nothing: the
+    first two are the compared ones) for ms a step, tokens/s, launches a
+    step and peak memory (of the last two only: the copy's bytes are not
+    the step's), and a profiled step of each (device ms, kernels, GEMMs).
+    Returns the launches of a ``"dots"`` step."""
+    import dataclasses
+
+    import torch
+
+    model = prog.model
+    base = model.cfg
+    check(base.remat and base.remat_policy == "nothing",
+          f"dots: phase 19's model is not remat 'nothing': {base}")
+    B, L1 = batch["tokens"].shape
+    tokens = B * (L1 - 1)
+    state = {"params": params, "opt": opt}
+
+    def step(policy):
+        model.cfg = dataclasses.replace(base, remat_policy=policy)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, o, m = prog.step_fn(state["params"], state["opt"], batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        state.update(params=p, opt=o)
+        return {"policy": policy, "ms": ms,
+                "peak": torch.cuda.max_memory_allocated(),
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "launches": {k: fn.launches for k, fn in counters.items()
+                             if fn.launches}}
+
+    copy = {"p": {k: v.detach().clone() for k, v in params.items()},
+            "m": {k: v.clone() for k, v in opt["m"].items()},
+            "v": {k: v.clone() for k, v in opt["v"].items()},
+            "step": opt["step"].clone()}
+    n1 = step("nothing")
+    n1["digest"] = param_digest(state["params"])
+    with torch.no_grad():
+        for k, v in copy["p"].items():
+            state["params"][k].copy_(v)
+        for part in ("m", "v"):
+            for k, v in copy[part].items():
+                state["opt"][part][k].copy_(v)
+    state["opt"] = dict(state["opt"], step=copy["step"])
+    del copy
+    d1 = step("dots")
+    d1["digest"] = param_digest(state["params"])
+    print(f"  remat_policy dots vs nothing, one step of run a's model from "
+          f"the same state: loss {d1['loss']!r} / {n1['loss']!r}, grad norm "
+          f"{d1['grad_norm']!r} / {n1['grad_norm']!r}, parameter digest "
+          f"{d1['digest']} / {n1['digest']}")
+    check((d1["loss"], d1["grad_norm"], d1["digest"]) ==
+          (n1["loss"], n1["grad_norm"], n1["digest"]),
+          "dots: the step is not bitwise the 'nothing' step")
+    d2, n2 = step("dots"), step("nothing")
+    n_layers = base.n_layers
+    for r in (n1, d1, d2, n2):
+        check(r["launches"] == {"flash_attention": 2 * n_layers,
+                                "flash_attention_backward": n_layers},
+              f"dots: a {r['policy']} step launched {r['launches']}, not "
+              f"flash_attention {2 * n_layers} (forward + recompute) and "
+              f"B7b {n_layers}")
+    card = card_line()
+    for pol, runs, peak in (("nothing", (n1, n2), n2["peak"]),
+                            ("dots", (d1, d2), d2["peak"])):
+        ms = [r["ms"] for r in runs]
+        print(f"  remat_policy {pol}: ms a step {ms[0]:.4f} / {ms[1]:.4f} "
+              f"(turns n, d, d, n), {tokens / (min(ms) * 1e-3):.3f} tokens/s "
+              f"at the faster, launches a step {runs[1]['launches']}, peak "
+              f"device memory {peak} bytes ({peak / 2**30:.3f} GiB) on {card}")
+    print(f"  remat_policy dots: peak {d2['peak'] - n2['peak']:+d} bytes "
+          f"against nothing")
+    for pol in ("nothing", "dots"):
+        model.cfg = dataclasses.replace(base, remat_policy=pol)
+        prof = _profile(lambda: prog.step_fn(state["params"], state["opt"],
+                                             batch), 1)
+        if prof is None:
+            print(f"  remat_policy {pol} profile: device time not measured")
+            continue
+        wall, device, n_kern, busy, by_name = prof
+        g = [(t, k) for name, (t, k) in by_name.items() if _gemm(name)]
+        print(f"  remat_policy {pol} profile (torch.profiler, one step): "
+              f"host wall {wall / 1e3:.4f} ms, device {device / 1e3:.4f} ms "
+              f"in {n_kern:.0f} kernels, busy {busy:.4f}; GEMMs "
+              f"{sum(k for _, k in g):.0f} kernels, "
+              f"{sum(t for t, _ in g) / 1e3:.4f} ms on {card}")
+    model.cfg = base
 
 
 # ---- phase 20: Mixture-of-Experts, olmoe-1b-7b served and trained -----------
@@ -6567,17 +6701,179 @@ def dryrun_phase():
     return {"lm_cells": len(lm)}
 
 
+# ---- phase 26: the linter and the examples on the card -----------------------
+
+EXAMPLES = ROOT / "examples" / "torch"
+HD96 = (32, 64, 64, 2, 96)        # qwen3-100m: BH = 8 x 4 kv heads, L, S, G
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase():
+    """The rest of the single-card port: (a) ``python -m
+    repro_torch.analysis`` on this machine, which has no JAX: the hazard
+    linter over ``src/repro_torch`` and the schedule-verifier grids, exit
+    0; (b) B7 / B7b in float32 at head_dim 96 (``HD96``, qwen3-100m's
+    attention) against their plain forms, causal and full, at phase 13 /
+    19's f32 bars; (c) the examples of ``examples/torch`` through their
+    ``main`` at their own default sizes, every kernel counter zeroed just
+    before and read just after each: quickstart (8 domains, serialized and
+    fused: no kernel), md_halo_demo at 1, 2, 4 and 8 domains and at 8 with
+    the bfloat16 wire, serve_batch (reduced qwen3, 8 requests in waves of
+    4: flash_attention 2 layers x 2 waves), train_lm reduced (120 steps,
+    flash_attention and B7b 2 a step) and ``--full-100m`` (qwen3-100m at
+    its full width and depth, cut to 120 of its 300 steps, 8 and 8 a step,
+    remat off), each with its seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_plain)
+
+    t0 = time.perf_counter()
+    card = card_line()
+    # (a) the analysis CLI
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis"],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    tail = proc.stdout.strip().splitlines()[-2:]
+    print(f"examples phase: python -m repro_torch.analysis exit "
+          f"{proc.returncode} in {time.perf_counter() - t:.1f} s: {tail}")
+    check(proc.returncode == 0 and "lint: 0 finding(s)" in proc.stdout
+          and ", 0 unsafe, 0 rejected" in proc.stdout,
+          f"analysis: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+    # (b) B7 / B7b, float32, head_dim 96
+    BH, L, S, G, hd = HD96
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q = torch.randn(BH, L, G, hd, generator=gen, device="cuda")
+    k, v = (torch.randn(BH, S, hd, generator=gen, device="cuda")
+            for _ in range(2))
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    flash_attention.launches = flash_attention_backward.launches = 0
+    for causal in (True, False):
+        out = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        e_fwd = float((out - want).abs().max() / want.abs().max())
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        grads = torch.autograd.grad(flash_attention(qq, kk, vv,
+                                                    causal=causal),
+                                    (qq, kk, vv), dout)
+        plain = flash_attention_backward_plain(q, k, v, dout, causal=causal)
+        e_bwd = max(float((g - w).abs().max() / w.abs().max())
+                    for g, w in zip(grads, plain))
+        print(f"  B7 / B7b f32 at head_dim 96 (BH {BH}, L = S = {L}, G {G}, "
+              f"{'causal' if causal else 'full'}): {e_fwd:.3e} / "
+              f"{e_bwd:.3e} of the plain forms' max (tolerance 2e-5)")
+        check(e_fwd <= 2e-5 and e_bwd <= 2e-5,
+              f"B7 / B7b at head_dim 96: {e_fwd}, {e_bwd}")
+    check((flash_attention.launches, flash_attention_backward.launches) ==
+          (4, 2), "B7 / B7b at head_dim 96 launched "
+          f"{flash_attention.launches} / {flash_attention_backward.launches}"
+          " times, not 4 / 2")
+    # timed (causal) beside the plain forms, SDPA (kv heads repeated) and
+    # the bound: f32 FMAs, half the (L, S) products causal; B7b's five
+    # products against B7's two
+    sdpa_in = [q.transpose(1, 2)] + \
+        [x[:, None].expand(BH, G, S, hd) for x in (k, v)]
+    flops = 2 * BH * G * L * S * hd
+    # each input read once, each output written once (f32)
+    fwd_bytes = 4 * (2 * q.numel() + 2 * k.numel())
+    bwd_bytes = 4 * (4 * q.numel() + 4 * k.numel())
+    out, lse = fa._forward(q, k, v, True, with_lse=True)
+    for label, fn, plain, lib, ops, nbytes in (
+            ("B7", lambda: fa._forward(q, k, v, True, with_lse=False),
+             lambda: flash_attention_plain(q, k, v),
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 *sdpa_in, is_causal=True), flops, fwd_bytes),
+            ("B7b", lambda: flash_attention_backward(q, k, v, out, dout, lse),
+             lambda: flash_attention_backward_plain(q, k, v, dout),
+             None, 2.5 * flops, bwd_bytes)):
+        ms = cuda_ms(fn, n=50)
+        plain_ms = cuda_ms(plain, n=5, warmup=1)
+        lib_ms = cuda_ms(lib, n=50) if lib else None
+        bound = max(nbytes / HBM_BPS, ops / FP32_FLOPS) * 1e3
+        print(f"  {label} f32 at head_dim 96, causal: {ms:.6f} ms a launch, "
+              f"plain {plain_ms:.6f} ms, SDPA {lib_ms} ms, bound "
+              f"{bound:.6f} ms on {card}")
+
+    # (c) the examples
+    counters = {**kernel_counters(), "flash_attention": flash_attention,
+                "flash_attention_backward": flash_attention_backward}
+
+    def run(tag, fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        print(f"  example {tag}: {secs:.2f} s, launches {launches} on {card}")
+        return res, launches
+
+    res, launches = run("quickstart", lambda: _example("quickstart").main())
+    stats, wire, energy = res
+    drift = {b: float(E.max() - E.min()) / 1200 for b, E in energy.items()}
+    check(not launches and stats["total_bytes"] > 0 and
+          wire["wire_bytes"] > 0 and all(np.isfinite(E).all()
+                                         for E in energy.values()) and
+          all(d < 5e-3 for d in drift.values()),
+          f"quickstart: {launches}, {stats}, drift a atom {drift}")
+    demo = _example("md_halo_demo")
+    for n in (1, 2, 4, 8):
+        res, launches = run(f"md_halo_demo --domains {n}",
+                            lambda: demo.main(n_domains=n))
+        check(set(res) == {"serialized", "fused"} and not launches and
+              all(0 < dt < 1 for dt in res.values()),
+              f"md_halo_demo at {n} domains: {res}, {launches}")
+    res, launches = run("md_halo_demo --wire bfloat16",
+                        lambda: demo.main(wire_dtype="bfloat16"))
+    check(not launches and all(0 < dt < 1 for dt in res.values()),
+          f"md_halo_demo wire: {res}, {launches}")
+    done, launches = run("serve_batch", lambda: _example("serve_batch")
+                         .main())
+    check(launches == {"flash_attention": 2 * 2} and len(done) == 8 and
+          all(r.out_tokens.shape == (12,) for r in done),
+          f"serve_batch: {launches}")
+    train = _example("train_lm")
+    # --full-100m cut from its 300 steps to 120: its 1.3 GB checkpoint
+    # every 40 steps took most of the phase's 100 s (PR 32, call 4)
+    for full, layers, steps in ((False, 2, 120), (True, 8, 120)):
+        tag = "train_lm --full-100m" if full else "train_lm"
+        hist, launches = run(tag, lambda: train.main(full=full,
+                                                     total_steps=steps))
+        losses = [h["loss"] for h in hist]
+        check(launches == {"flash_attention": layers * steps,
+                           "flash_attention_backward": layers * steps},
+              f"{tag}: launches {launches}, not {layers} x {steps} each")
+        check(len(losses) == steps and all(np.isfinite(losses)) and
+              losses[-1] < losses[0], f"{tag}: losses {losses}")
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main():
     args = sys.argv[1:]
     if args in (["--serve"], ["--drill"], ["--train"], ["--moe"],
                 ["--ssm"], ["--ssm-train"], ["--encdec"], ["--vlm"],
-                ["--dryrun"]):
+                ["--dryrun"], ["--examples"]):
         pass
     elif args and (len(args) != 2
                    or args[0] not in ("--kernels", "--steps")):
         fail("usage: chip_smoke.py [--kernels CHECKOUT | --steps CHECKOUT "
              "| --serve | --drill | --train | --moe | --ssm | --ssm-train "
-             "| --encdec | --vlm | --dryrun]")
+             "| --encdec | --vlm | --dryrun | --examples]")
     src = Path(args[1]).resolve() / "src" if len(args) == 2 else SRC
     if not (src / "repro_torch" / "csrc" / "halo_pack.cu").is_file():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -6659,6 +6955,13 @@ def main():
         dryrun_phase()
         print(card)
         return
+    if args == ["--examples"]:
+        from repro_torch.kernels import _build
+        _build.build(["halo_pack", "halo_signal", "nonbonded",
+                      "flash_attention"])
+        examples_phase()
+        print(card)
+        return
     if args and args[0] == "--steps":
         from repro_torch.kernels import _build
         _build.build(["halo_pack", "halo_signal", "nonbonded"])
@@ -6698,58 +7001,71 @@ def main():
     # 3. kernels at the main path's shapes, on the main path's state
     import numpy as np
     from repro_torch import HaloSpec, MDEngine, make_grappa_like, make_md_mesh
-    system = make_grappa_like(45_000, seed=0)
-    eng = MDEngine(system, make_md_mesh(8),
-                   HaloSpec(AXES, (1, 1, 1), backend="pallas"))
-    cf, ci, _force, _diag = eng.rebin_fn(*eng.init_state())
-    per_kernel = kernel_phase(eng, cf, ci)
-    del eng, cf, ci, _force
+    with timed("phase 3"):
+        system = make_grappa_like(45_000, seed=0)
+        eng = MDEngine(system, make_md_mesh(8),
+                       HaloSpec(AXES, (1, 1, 1), backend="pallas"))
+        cf, ci, _force, _diag = eng.rebin_fn(*eng.init_state())
+        per_kernel = kernel_phase(eng, cf, ci)
+        del eng, cf, ci, _force
 
     # 4. small reference
-    reference_phase()
+    with timed("phase 4"):
+        reference_phase()
 
     # 5. the main path
-    launches = main_path_phase()
+    with timed("phase 5"):
+        launches = main_path_phase()
 
     # 6. where a steady step spends device time
-    profile_phase()
+    with timed("phase 6"):
+        profile_phase()
 
     # 7. the pruned kernels at the tier shapes of the first pruned block
-    nb_kernel = nb_kernel_phase(system)
+    with timed("phase 7"):
+        nb_kernel = nb_kernel_phase(system)
 
     # 8. the pruned main path (and nstprune=5)
-    pruned_launches = pruned_path_phase(system)
+    with timed("phase 8"):
+        pruned_launches = pruned_path_phase(system)
 
     # 9. where a steady pruned step spends device time
-    pruned_profile_phase(system)
+    with timed("phase 9"):
+        pruned_profile_phase(system)
 
     # 10. the signal kernels at the signal path's shapes
-    sig_kernel = signal_kernel_phase(system)
+    with timed("phase 10"):
+        sig_kernel = signal_kernel_phase(system)
 
     # 11. the signal main path (double buffer, fused rebin, two pulses,
     # pruned), each bitwise against serialized / off
-    sig_launches, w2_launches = signal_path_phase(system)
+    with timed("phase 11"):
+        sig_launches, w2_launches = signal_path_phase(system)
 
     # 12. where a steady signal / double_buffer step spends device time,
     # and its host time against off
-    signal_profile_phase(system)
-    host_off_vs_double_buffer(system)
+    with timed("phase 12"):
+        signal_profile_phase(system)
+        host_off_vs_double_buffer(system)
     del system
 
     # 13. flash_attention at the serve path's shapes
-    flash_kernel = flash_phase(built["flash_attention"].path)
+    with timed("phase 13"):
+        flash_kernel = flash_phase(built["flash_attention"].path)
 
     # 14. qwen3-1.7b served at full width through the kernel
-    serve_launches = serve_phase()
+    with timed("phase 14"):
+        serve_launches = serve_phase()
 
     # 15. compressed halo payloads: grappa-45k in f64, every wire format
     # through the pallas, signal and serialized paths
-    system64 = make_grappa_like(45_000, seed=0, dtype=np.float64)
-    wire_kernel = wire_kernel_phase(system64)
-    wire_runs = wire_path_phase(system64)
-    wire_drift_phase(system64)
-    wire_profile(system64)
-    wire_speed(system64)
+    with timed("phase 15"):
+        system64 = make_grappa_like(45_000, seed=0, dtype=np.float64)
+        wire_kernel = wire_kernel_phase(system64)
+        wire_runs = wire_path_phase(system64)
+        wire_drift_phase(system64)
+        wire_profile(system64)
+        wire_speed(system64)
 
     # 16. every MD cell through its step graphs against capture="off"
     t16 = time.perf_counter()
@@ -6766,7 +7082,8 @@ def main():
     # 19. training: B7b at the training shapes, then qwen3-1.7b trained at
     # full width (determinism, kill / resume), a 2-layer f32 card-vs-CPU
     # gradient check
-    b7b_kernel = b7b_phase(built["flash_attention"].path)
+    with timed("phase 19 (B7b)"):
+        b7b_kernel = b7b_phase(built["flash_attention"].path)
     train_launches = train_phase(b7b_kernel["flash_attention_backward"])
 
     # 20. Mixture-of-Experts: B7 / B7b at olmoe's G = 1 shape, olmoe-1b-7b
@@ -6791,6 +7108,10 @@ def main():
 
     # 25. the dry run: halo, MD and LM cells of launch.dryrun on the card
     dryrun_phase()
+
+    # 26. the rest of the single-card port: the analysis CLI, B7 / B7b at
+    # head_dim 96, the examples
+    examples_phase()
 
     replaces = {"pack": "src/repro/kernels/halo_pack.py:57",
                 "unpack_add": "src/repro/kernels/halo_pack.py:105",

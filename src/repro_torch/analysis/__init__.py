@@ -1,7 +1,12 @@
-"""Static comm-schedule verifier of the port (no linter: that checks JAX
-code).  :func:`gate_pipeline_build` and :func:`gate_md_build` are the
-build-time gates of ``StepPipeline.build`` and ``MDEngine.__init__``."""
+"""Static analysis of the port: the comm-schedule verifier and the
+hazard linter for its PyTorch and CUDA sources (:mod:`.lint`; both run
+by ``python -m repro_torch.analysis``).  :func:`gate_pipeline_build` and
+:func:`gate_md_build` are the build-time gates of ``StepPipeline.build``
+and ``MDEngine.__init__``."""
 from repro_torch.analysis.grids import full_grid, pr4_grid, pr5_prune_grid
+from repro_torch.analysis.lint import (RULES, Diagnostic, Rule,
+                                       iter_source_files, lint_file,
+                                       lint_paths)
 from repro_torch.analysis.schedule_verifier import (
     VERIFY_MODES,
     CommEvent,
@@ -29,4 +34,6 @@ __all__ = [
     "extract_events", "gate_md_build", "gate_pipeline_build",
     "gate_schedule", "probe_steps", "verify_build", "verify_schedule",
     "full_grid", "pr4_grid", "pr5_prune_grid",
+    "RULES", "Rule", "Diagnostic", "lint_file", "lint_paths",
+    "iter_source_files",
 ]

@@ -120,8 +120,10 @@ def bin_to_cells(pos, feats_f, feats_i, layout: CellLayout, domain_index):
     Pf = feats_f.shape[-1]
     Pi = feats_i.shape[-1]
     src_f = torch.cat([pos, feats_f], dim=-1)
-    src_f = torch.gather(src_f, 1, order[..., None].expand(-1, -1, 3 + Pf))
-    src_i = torch.gather(feats_i, 1, order[..., None].expand(-1, -1, Pi))
+    # binning moves MD state, which is never differentiated
+    rows = order[..., None]
+    src_f = torch.gather(src_f, 1, rows.expand(-1, -1, 3 + Pf))  # noqa: RT006
+    src_i = torch.gather(feats_i, 1, rows.expand(-1, -1, Pi))  # noqa: RT006
     cell_f = torch.zeros((B, n_cells * K + 1, 3 + Pf), dtype=dtype, device=dev)
     cell_i = torch.full((B, n_cells * K + 1, Pi), -1, dtype=feats_i.dtype,
                         device=dev)

@@ -35,20 +35,23 @@ def fmod_floor(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _take_rows(flag, pool_f, pool_i, cap: int):
-    """Compact up to ``cap`` flagged rows of each domain into a buffer."""
+    """Compact up to ``cap`` flagged rows of each domain into a buffer
+    (migration moves MD state, which is never differentiated: its gathers
+    have no backward)."""
     key = torch.where(flag, 0, 1).to(torch.int32)
     order = torch.sort(key, dim=-1, stable=True).indices
     sel = order[..., :cap]
-    sel_valid = torch.gather(flag, -1, sel)
+    sel_valid = torch.gather(flag, -1, sel)  # noqa: RT006
     Ff, Fi = pool_f.shape[-1], pool_i.shape[-1]
+    rows = sel[..., None]
     buf_f = torch.where(sel_valid[..., None],
-                        torch.gather(pool_f, -2, sel[..., None].expand(
-                            *sel.shape, Ff)),
+                        torch.gather(  # noqa: RT006
+                            pool_f, -2, rows.expand(*sel.shape, Ff)),
                         torch.zeros((), dtype=pool_f.dtype,
                                     device=pool_f.device))
     buf_i = torch.where(sel_valid[..., None],
-                        torch.gather(pool_i, -2, sel[..., None].expand(
-                            *sel.shape, Fi)),
+                        torch.gather(  # noqa: RT006
+                            pool_i, -2, rows.expand(*sel.shape, Fi)),
                         torch.full((), -1, dtype=pool_i.dtype,
                                    device=pool_i.device))
     # sel holds distinct rows, so the scatter has no collisions
@@ -58,23 +61,25 @@ def _take_rows(flag, pool_f, pool_i, cap: int):
 
 
 def _merge_rows(pool_f, pool_i, buf_f, buf_i):
-    """Place received atoms into empty pool slots; count losses."""
+    """Place received atoms into empty pool slots; count losses (MD
+    state: the gathers have no backward)."""
     empty = pool_i[..., 0] < 0
     key = torch.where(empty, 0, 1).to(torch.int32)
     order = torch.sort(key, dim=-1, stable=True).indices
     m = buf_f.shape[-2]
     dst = order[..., :m]
     incoming = buf_i[..., 0] >= 0
-    ok = incoming & torch.gather(empty, -1, dst)
+    free = torch.gather(empty, -1, dst)  # noqa: RT006
+    ok = incoming & free
     Ff, Fi = pool_f.shape[-1], pool_i.shape[-1]
     dst_f = dst[..., None].expand(*dst.shape, Ff)
     dst_i = dst[..., None].expand(*dst.shape, Fi)
     # dst holds distinct rows, so the scatters have no collisions
     pool_f = pool_f.scatter(-2, dst_f, torch.where(
-        ok[..., None], buf_f, torch.gather(pool_f, -2, dst_f)))
+        ok[..., None], buf_f, torch.gather(pool_f, -2, dst_f)))  # noqa: RT006
     pool_i = pool_i.scatter(-2, dst_i, torch.where(
-        ok[..., None], buf_i, torch.gather(pool_i, -2, dst_i)))
-    lost = torch.sum(incoming & ~torch.gather(empty, -1, dst), dim=-1)
+        ok[..., None], buf_i, torch.gather(pool_i, -2, dst_i)))  # noqa: RT006
+    lost = torch.sum(incoming & ~free, dim=-1)
     return pool_f, pool_i, lost
 
 

@@ -401,7 +401,8 @@ class MDEngine:
         plus the ``cell_i`` index bytes and occupancy-adjusted bytes."""
         K = self.layout.capacity
         gz, gy, gx = self.layout.global_cells
-        occupancy = self.system.n_atoms / float(gz * gy * gx * K)
+        occupancy = (  # host numbers: no tensor
+            self.system.n_atoms / float(gz * gy * gx * K))  # noqa: RT005
         return self.plan.publish_stats(self.obs,
                                        self.layout.cells_per_domain,
                                        index_elems=2 * K, index_itemsize=4,

@@ -1,5 +1,6 @@
-"""Velocity-Verlet diagnostics on the virtual mesh, and the fixed-order
-sum every per-step metric is reduced with.
+"""Velocity-Verlet diagnostics on the virtual mesh, the reference's
+optional velocity rescale, and the fixed-order sum every per-step metric
+is reduced with.
 
 Arrays carry ``lead`` batch dims (the MD server's replica lanes; none on
 a solo run), then the three domain dims; each function sums a domain's
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.device import const
 
 ND = 3   # domain dims (Dz, Dy, Dx)
 CHUNK = 128
@@ -69,3 +72,30 @@ def momentum(vel, valid, mass: float, lead: int = 0):
     # the component dim in front of the summed ones
     p_local = mass * fixed_sum(masked.movedim(-1, lead + ND), lead + ND + 1)
     return fixed_sum(p_local.movedim(-1, lead), lead + 1)
+
+
+def n_atoms_global(valid, lead: int = 0):
+    """Atoms held over every domain, one count a lane (int64)."""
+    return fixed_sum(valid.to(torch.int64), lead)
+
+
+def temperature(ke, n_atoms, dof_per_atom: int = 3):
+    """``2 ke / (dof n)`` (``n`` clamped to 1), in ``ke``'s dtype."""
+    n = torch.maximum(n_atoms, torch.ones((), dtype=n_atoms.dtype,
+                                          device=n_atoms.device))
+    return 2.0 * ke / (dof_per_atom * n).to(ke.dtype)
+
+
+def velocity_rescale(vel, valid, mass, target_T, tau_steps: float,
+                     lead: int = 0):
+    """Weak Berendsen-style rescale toward ``target_T``: each lane's held
+    velocities times ``sqrt(1 + (target_T / T - 1) / tau_steps)``."""
+    ke = kinetic_energy(vel, valid, mass, lead)
+    T = temperature(ke, n_atoms_global(valid, lead))
+    dt, dev = T.dtype, T.device
+    one = const(1.0, dt, dev)
+    ratio = torch.div(const(float(target_T), dt, dev),
+                      torch.maximum(T, const(1e-8, dt, dev)))
+    lam = torch.sqrt(one + (ratio - one) / const(float(tau_steps), dt, dev))
+    lam = lam.reshape(lam.shape + (1,) * (vel.dim() - lead))
+    return torch.where(valid[..., None], vel * lam, vel)

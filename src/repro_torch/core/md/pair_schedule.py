@@ -252,19 +252,20 @@ def _pair_geometry(sched: PairSchedule, ext_f, ext_i, idx):
     counts_p = torch.cat([counts, zero_col], dim=1)
     lvl_p = torch.cat([lvl_cell, zero_col], dim=1)
 
+    # pruning reads geometry and integer counts: never differentiated
     def box(t, cells):
-        cells = torch.clamp(cells, 0, ne - 1)
-        return torch.gather(t, 1, cells[..., None].expand(-1, -1, 3))
+        rows = torch.clamp(cells, 0, ne - 1)[..., None]
+        return torch.gather(t, 1, rows.expand(-1, -1, 3))  # noqa: RT006
 
     zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
     gap = torch.maximum(zero, torch.maximum(box(lo, ca) - box(hi, cb),
                                             box(lo, cb) - box(hi, ca)))
     d2 = torch.sum(gap * gap, dim=-1)
     d2 = torch.where(idx >= M, _scalar(_BIG, d2), d2)
-    lvl = torch.maximum(torch.gather(lvl_p, 1, ca),
-                        torch.gather(lvl_p, 1, cb))
-    return (d2, same, lvl, torch.gather(counts_p, 1, ca),
-            torch.gather(counts_p, 1, cb))
+    lvl = torch.maximum(torch.gather(lvl_p, 1, ca),  # noqa: RT006
+                        torch.gather(lvl_p, 1, cb))  # noqa: RT006
+    return (d2, same, lvl, torch.gather(counts_p, 1, ca),  # noqa: RT006
+            torch.gather(counts_p, 1, cb))  # noqa: RT006
 
 
 def _pack_by_level(keep, lvl, L: int, base=None):
@@ -277,13 +278,13 @@ def _pack_by_level(keep, lvl, L: int, base=None):
     key = torch.where(keep, L - lvl, L + 1).to(torch.int32)
     order = torch.sort(key, dim=-1, stable=True).indices
     hist = torch.zeros((B, L + 1), dtype=torch.int32, device=keep.device)
-    hist.scatter_add_(1, torch.where(keep, lvl, 0).long(),
+    hist.scatter_add_(1, torch.where(keep, lvl, 0).long(),  # noqa: RT006
                       torch.ones_like(key))
     cum = torch.flip(torch.cumsum(torch.flip(hist[:, 1:], [1]), dim=1,
                                   dtype=torch.int32), [1])
     if base is None:
         return order.to(torch.int32), cum
-    return torch.gather(base, 1, order).to(torch.int32), cum
+    return torch.gather(base, 1, order).to(torch.int32), cum  # noqa: RT006
 
 
 def prune_local(sched: PairSchedule, ext_f: torch.Tensor, ext_i: torch.Tensor,
@@ -432,9 +433,11 @@ def padded_coords(ext_f: torch.Tensor) -> torch.Tensor:
 
 
 def gather_tier(f2p: torch.Tensor, t: TierBatch):
-    """A tier's ``(N, k, 4)`` A and B batches from :func:`padded_coords`."""
+    """A tier's ``(N, k, 4)`` A and B batches from :func:`padded_coords`
+    (the forces' inputs: never differentiated)."""
     fk = f2p[:, :t.k]
-    return fk.index_select(0, t.cell_a), fk.index_select(0, t.cell_b)
+    a = fk.index_select(0, t.cell_a)  # noqa: RT006
+    return a, fk.index_select(0, t.cell_b)  # noqa: RT006
 
 
 def _eval_schedule(ext_f, ff: ForceField, batches: Sequence[TierBatch]):

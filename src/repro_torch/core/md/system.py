@@ -93,8 +93,8 @@ def make_grappa_like(n_atoms: int, density: float = 0.78,
     replicas simply run more dilute.
     """
     rng = np.random.RandomState(seed)
-    # cubic box from density
-    L = ((box_atoms or n_atoms) / density) ** (1.0 / 3.0)
+    # cubic box from density (host numbers: no tensor)
+    L = ((box_atoms or n_atoms) / density) ** (1.0 / 3.0)  # noqa: RT005
     box = np.array([L, L, L], dtype=np.float64)
 
     # simple-cubic lattice with jitter, then trim to n_atoms

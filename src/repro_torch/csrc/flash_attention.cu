@@ -1,6 +1,6 @@
 // Flash attention (causal or full, grouped-query) for Hopper (sm_90a),
 // bfloat16 on the tensor cores and float32 on the CUDA cores, head_dim 16,
-// 32, 64 or 128.
+// 32, 64 or 128 (and 96 in float32).
 //
 // Replaces the TPU kernel of the JAX package:
 //   flash_attention_*  <- src/repro/kernels/flash_attention.py:76
@@ -1900,8 +1900,10 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 }
 
 // launch(std::integral_constant<int, hd>) for a head_dim the kernels are
-// built for, else cudaErrorInvalidValue.
-template <typename Launch>
+// built for, else cudaErrorInvalidValue.  The float32 kernels (F32) also
+// take 96: their column loops step by 32 lanes and 4-float words, which
+// 96 divides; the bf16 tiles need a power of two.
+template <bool F32, typename Launch>
 int by_head_dim(int64_t hd, Launch&& launch) {
   switch (hd) {
     case 16:
@@ -1910,6 +1912,11 @@ int by_head_dim(int64_t hd, Launch&& launch) {
       return launch(std::integral_constant<int, 32>{});
     case 64:
       return launch(std::integral_constant<int, 64>{});
+    case 96:
+      if constexpr (F32)
+        return launch(std::integral_constant<int, 96>{});
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
     case 128:
       return launch(std::integral_constant<int, 128>{});
     default:
@@ -1928,7 +1935,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int64_t L, int64_t G, int64_t S,
                                    int64_t hd, int causal, float scale,
                                    void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<true>(hd, [&](auto HD) {
     return launch_f32<decltype(HD)::value>(q, k, v, o, nullptr, BH, L, G, S,
                                            causal, scale, stream);
   });
@@ -1939,7 +1946,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int64_t L, int64_t G, int64_t S,
                                     int64_t hd, int causal, float scale,
                                     void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<false>(hd, [&](auto HD) {
     return launch_bf16<decltype(HD)::value>(q, k, v, o, nullptr, BH, L, G, S,
                                             causal, scale, stream);
   });
@@ -1950,7 +1957,7 @@ extern "C" int flash_attention_lse_f32(const void* q, const void* k,
                                        int64_t BH, int64_t L, int64_t G,
                                        int64_t S, int64_t hd, int causal,
                                        float scale, void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<true>(hd, [&](auto HD) {
     return launch_f32<decltype(HD)::value>(q, k, v, o, lse, BH, L, G, S,
                                            causal, scale, stream);
   });
@@ -1961,7 +1968,7 @@ extern "C" int flash_attention_lse_bf16(const void* q, const void* k,
                                         int64_t BH, int64_t L, int64_t G,
                                         int64_t S, int64_t hd, int causal,
                                         float scale, void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<false>(hd, [&](auto HD) {
     return launch_bf16<decltype(HD)::value>(q, k, v, o, lse, BH, L, G, S,
                                             causal, scale, stream);
   });
@@ -1974,7 +1981,7 @@ extern "C" int flash_attention_bwd_f32(
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
     int causal, float scale, void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<true>(hd, [&](auto HD) {
     return launch_bwd_f32<decltype(HD)::value>(
         q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
         stream);
@@ -1986,7 +1993,7 @@ extern "C" int flash_attention_bwd_bf16(
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int64_t BH, int64_t L, int64_t G, int64_t S, int64_t hd,
     int causal, float scale, void* stream) {
-  return by_head_dim(hd, [&](auto HD) {
+  return by_head_dim<false>(hd, [&](auto HD) {
     return launch_bwd_bf16<decltype(HD)::value>(
         q, k, v, o, dout, lse, delta, dq, dk, dv, BH, L, G, S, causal, scale,
         stream);

@@ -9,6 +9,7 @@ tests pass ``device="cpu"`` explicitly).
 from __future__ import annotations
 
 import functools
+import subprocess
 
 import torch
 
@@ -46,3 +47,20 @@ def const(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if isinstance(value, tuple):
         return torch.tensor(value, dtype=dtype, device=device)
     return torch.full((), value, dtype=dtype, device=device)
+
+
+def card_label(device) -> str:
+    """What a time measured on ``device`` was measured on: a CUDA card's
+    name and power limit as ``nvidia-smi --query-gpu=name,power.limit``
+    gives them (a card may be set below its maximum power and then runs
+    slower under load), else the device type."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    proc = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return proc.stdout.strip()

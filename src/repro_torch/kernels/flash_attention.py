@@ -10,8 +10,8 @@ point).
 The layout is the reference's: q (BH, L, G, hd) grouped queries, k and v
 (BH, S, hd), BH = batch * kv heads, G = q heads per kv head; the output is
 (BH, L, G, hd) in q's dtype.  Types are float32 and bfloat16, head_dim 16,
-32, 64 or 128; anything else raises, on either device, as does a
-non-contiguous input.
+32, 64 or 128, and 96 in float32 (qwen3-100m's); anything else raises, on
+either device, as does a non-contiguous input.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`flash_attention_plain`, the Pallas algorithm in PyTorch.  The
@@ -40,7 +40,8 @@ from repro_torch.kernels._launch import (F32, I32, I64, PTR, refused, stream,
                                          unsupported)
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)           # both dtypes
+F32_HEAD_DIMS = (16, 32, 64, 96, 128)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The bf16 kernel's blocking: KERNEL_ROWS rows of the (L*G, hd) query per
 # block, kv tiles of KERNEL_BK keys (csrc/flash_attention.cu, kBlockRows
@@ -76,9 +77,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported; use one of "
-                         f"{HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"head_dim {hd} not supported in {q.dtype}; use "
+                         f"one of {dims}")
     dev = q.get_device()
     if k.get_device() != dev or v.get_device() != dev:
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
@@ -134,8 +136,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             logits = torch.einsum("bqgd,bkd->bqgk", qb,
                                   kf[:, j * bk:(j + 1) * bk])
             if causal:
-                qpos = i * bq + torch.arange(bq, device=q.device)
-                kpos = j * bk + torch.arange(bk, device=q.device)
+                qpos = i * bq + torch.arange(bq, dtype=torch.int64,
+                                             device=q.device)
+                kpos = j * bk + torch.arange(bk, dtype=torch.int64,
+                                             device=q.device)
                 mask = qpos[:, None, None] >= kpos[None, None, :]
                 logits = torch.where(mask, logits, NEG_INF)
             m_new = torch.maximum(m, logits.amax(-1))

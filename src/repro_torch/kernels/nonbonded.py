@@ -175,7 +175,8 @@ def scatter_index(cell_a, cell_b, n_cells: int) -> ScatterIndex:
     ids = torch.stack([cell_a, cell_b], dim=1).reshape(-1).long()
     sorted_ids, order = torch.sort(ids, stable=True)
     start = torch.searchsorted(
-        sorted_ids, torch.arange(n_cells + 1, device=ids.device))
+        sorted_ids, torch.arange(n_cells + 1, dtype=torch.int64,
+                                 device=ids.device))
     return ScatterIndex(order.to(torch.int32), start.to(torch.int32))
 
 
@@ -216,7 +217,7 @@ def scatter_accum_plain(cell_a, cell_b, fa, fb, n_cells: int,
         index = scatter_index(cell_a, cell_b, n_cells)
     order = index.order.long()
     sorted_ids = ids[order]
-    rank = torch.arange(2 * N, device=fa.device) - \
+    rank = torch.arange(2 * N, dtype=torch.int64, device=fa.device) - \
         index.start.long()[sorted_ids]
     vals = torch.stack([fa, fb], dim=1).reshape(2 * N, K, 3)[order]
     for j in range(int(rank.max()) + 1):

@@ -86,7 +86,8 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     S = kf.shape[1]
     logits = torch.einsum("blgd,bsd->blgs", qf, kf) / np.sqrt(hd)
     if causal:
-        mask = torch.arange(L)[:, None] >= torch.arange(S)[None, :]
+        mask = torch.arange(L, dtype=torch.int64)[:, None] >= \
+            torch.arange(S, dtype=torch.int64)[None, :]
         logits = torch.where(mask[None, :, None, :].to(logits.device),
                              logits, -1e30)
     return torch.einsum("blgs,bsd->blgd", torch.softmax(logits, dim=-1), vf)

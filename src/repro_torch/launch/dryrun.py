@@ -62,6 +62,7 @@ from repro_torch.launch.steps import (
     make_train_step,
     param_count,
 )
+from repro_torch.models.remat import POLICIES
 from repro_torch.obs import default_registry
 from repro_torch.obs import span as obs_span
 
@@ -550,7 +551,7 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--zero2", action="store_true")
     ap.add_argument("--mamba-dtype", default=None)
-    ap.add_argument("--remat-policy", default=None)
+    ap.add_argument("--remat-policy", default=None, choices=POLICIES)
     args = ap.parse_args(argv)
 
     if args.summarize:

@@ -17,8 +17,9 @@ Mixed precision is the ``LM``'s (:class:`HeldWeights`): the layers'
 parameters are cast to ``compute_dtype``, the embedding after the gather,
 ``lm_head`` cast and ``final_norm`` / ``enc_norm`` not; serving keeps the
 cast copies, training casts each layer inside its checkpointed function
-(``cfg.remat``: policy ``"nothing"``, one ``torch.utils.checkpoint`` a
-layer, as the reference's scan over units), and the embedding gather's
+(``cfg.remat``: one ``torch.utils.checkpoint`` a layer, as the reference's
+scan over units, always with policy ``"nothing"``: the reference's
+encoder-decoder ignores ``cfg.remat_policy``), and the embedding gather's
 gradient goes through ``_GatherRows``, so a step is bitwise repeatable.
 
 Attention runs through :func:`repro_torch.models.attention.attention_fwd`
@@ -182,12 +183,7 @@ class EncDec(HeldWeights):
             for p in self._compute_params()[kind]:
                 x = unit(p, x, *args)
             return x
-        cfg = self.cfg
-        remat = cfg.remat if remat is None else remat
-        if remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} (the port remats with "
-                "policy 'nothing'; ROADMAP A14b)")
+        remat = self.cfg.remat if remat is None else remat
 
         def run(x, layer, *args):
             return unit(cast_floats(_tree(layer), self.cdt), x, *args)

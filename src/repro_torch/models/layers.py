@@ -188,7 +188,9 @@ def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
     reference's ``cross_entropy``; the divisor is a 0-dim f32 tensor)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    # one label a row: the backward's adds never meet
+    ll = torch.gather(  # noqa: RT006
+        lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse ** 2

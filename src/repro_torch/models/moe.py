@@ -110,9 +110,10 @@ def _route(x2d, router_w, m: MoECfg):
     # a float scatter of ones: whole numbers, exact in any order (bincount
     # would read the largest index back to the host)
     flat_e = top_e.reshape(-1)
-    counts = torch.zeros(m.n_experts, dtype=f32, device=dev).index_add_(
-        0, flat_e, torch.ones(flat_e.shape, dtype=f32, device=dev)) \
-        / const(float(T * m.top_k), f32, dev)
+    counts = torch.zeros(m.n_experts, dtype=f32, device=dev)
+    counts.index_add_(0, flat_e,  # noqa: RT006
+                      torch.ones(flat_e.shape, dtype=f32, device=dev))
+    counts = counts / const(float(T * m.top_k), f32, dev)
     lb_loss = m.n_experts * (density * counts).sum()
     lse = torch.logsumexp(logits, dim=-1)
     z_loss = (lse * lse).sum() / const(float(T), f32, dev)
@@ -138,7 +139,7 @@ def _dispatch_tables(top_e, top_g, n_experts: int, capacity: int):
     T, K = top_e.shape
     flat_e = top_e.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
+    sorted_e = flat_e[order]  # noqa: RT006 - expert ids: no gradient
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     rank_sorted = torch.arange(T * K, device=flat_e.device) - first
     rank = torch.empty_like(rank_sorted)
@@ -166,7 +167,9 @@ def _gather_outputs(out_buf, slot, keep, gates, T, K):
     once."""
     d = out_buf.shape[-1]
     flat = torch.cat([out_buf.reshape(-1, d), out_buf.new_zeros((1, d))])
-    per_assign = flat.index_select(0, slot)
+    # kept slots are distinct; dropped ones share the sentinel row, whose
+    # gradient is discarded
+    per_assign = flat.index_select(0, slot)  # noqa: RT006
     w = (keep.to(gates.dtype) * gates.reshape(-1)).to(per_assign.dtype)
     per_assign = per_assign * w[:, None]
     return per_assign.reshape(T, K, d).sum(1, dtype=torch.float32) \

@@ -20,11 +20,13 @@ reach the float32 parameters.
 
 Training: :meth:`LM.loss_fn` (the reference's ``loss_fn``) runs the stack
 unit by unit, each unit under ``torch.utils.checkpoint`` when
-``cfg.remat`` (policy ``"nothing"``: only the unit's input is kept) with
-the cast of its weights inside the checkpointed function, as the
-reference's ``unit_fn``.  The embedding gather's gradient sums each
-token's rows in a fixed order (:class:`_GatherRows`), so a training step
-gives the same bits on every run.  Mamba and RWKV layers train through
+``cfg.remat`` (:func:`repro_torch.models.remat.checkpoint`: policy
+``"nothing"`` keeps only the unit's input, ``"dots"`` its matrix products
+with no batch dims as well) with the cast of its weights inside the
+checkpointed function, as the reference's ``unit_fn``.  The embedding
+gather's gradient sums each token's rows in a fixed order
+(:class:`_GatherRows`), so a training step gives the same bits on every
+run.  Mamba and RWKV layers train through
 their scans' own backwards (``mamba.SelectiveScan``, ``rwkv.WKVFunction``),
 which keep one chunk or block of states; the checkpoint stays whole-unit
 (the reference found per-layer remat no use for Jamba's units).
@@ -77,13 +79,13 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import const, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     ParamDef,
@@ -159,16 +161,19 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, table, idx):
         ctx.save_for_backward(idx)
         ctx.rows = table.shape[0]
-        return torch.index_select(table, 0, idx)
+        # its backward is this Function's own, in a fixed order
+        return torch.index_select(table, 0, idx)  # noqa: RT006
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
         out = grad.new_zeros((ctx.rows, grad.shape[1]))
+        # CUDA: PyTorch's sort-based segment sum, no atomics; the CPU's
+        # index_add_ adds the rows in index order on one thread
         if grad.is_cuda:
-            out.index_put_((idx,), grad, accumulate=True)
+            out.index_put_((idx,), grad, accumulate=True)  # noqa: RT006
         else:
-            out.index_add_(0, idx, grad)
+            out.index_add_(0, idx, grad)  # noqa: RT006
         return out, None
 
 
@@ -419,12 +424,9 @@ class LM(HeldWeights):
 
     def _train_stack(self, x, positions):
         """The stack with grad: each unit casts its own weights, under
-        ``checkpoint`` when ``cfg.remat``."""
+        ``remat.checkpoint`` with ``cfg.remat_policy`` when
+        ``cfg.remat``."""
         cfg = self.cfg
-        if cfg.remat and cfg.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} (the port remats with "
-                "policy 'nothing'; ROADMAP A14b)")
         P = len(cfg.pattern_unit)
 
         def unit_fn(x, *unit):
@@ -435,7 +437,8 @@ class LM(HeldWeights):
         for u in range(cfg.n_units):
             unit = tuple(self.layers[u * P:(u + 1) * P])
             if cfg.remat:
-                x, a = checkpoint(unit_fn, x, *unit, use_reentrant=False)
+                x, a = remat.checkpoint(unit_fn, x, *unit,
+                                        policy=cfg.remat_policy)
             else:
                 x, a = unit_fn(x, *unit)
             aux = _add_aux(aux, a)

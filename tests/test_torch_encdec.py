@@ -28,7 +28,8 @@ test 2.1e-5 and 1.7e-5 of their max; at fan-in scale 1.4e-6 and 4.6e-7):
   inside the port;
 * ``loss_fn``: the loss at rtol 1e-5 and every gradient leaf at rtol 1e-5
   plus 2e-6 of the leaf's max (``tests/test_torch_train.py``'s bar), remat
-  off and on; the key biases ``bk``, whose gradient is zero (softmax does
+  off and on, and on under ``remat_policy="dots"`` (both packages remat an
+  encoder-decoder with "nothing" whatever the policy); the key biases ``bk``, whose gradient is zero (softmax does
   not see a shift of every key's logit), held to 1e-6 of their layer's
   ``bv`` gradient in both packages instead (their float32 residues measure
   up to 3.7e-8 of it);
@@ -316,15 +317,19 @@ def test_prefill_then_decode_equals_longer_prefill(jx):
 
 # ---- loss, gradients, training ---------------------------------------------------
 
-@pytest.mark.parametrize("remat", [False, True], ids=["remat-off",
-                                                      "remat-on"])
-def test_loss_and_every_gradient_match_reference(jx, remat):
-    model = jx.build_model(dataclasses.replace(jx.cfg, remat=remat), jx.ctx)
-    vg = jx.jit(("value_and_grad", remat), lambda: jx.jax.jit(
+@pytest.mark.parametrize("remat,policy", [(False, "nothing"),
+                                          (True, "nothing"), (True, "dots")],
+                         ids=["remat-off", "remat-on", "remat-dots"])
+def test_loss_and_every_gradient_match_reference(jx, remat, policy):
+    """``remat-dots``: both packages' encoder-decoders remat with policy
+    "nothing" whatever ``remat_policy`` says."""
+    cfg = dataclasses.replace(jx.cfg, remat=remat, remat_policy=policy)
+    model = jx.build_model(cfg, jx.ctx)
+    vg = jx.jit(("value_and_grad", remat, policy), lambda: jx.jax.jit(
         jx.jax.value_and_grad(model.loss_fn, has_aux=True)))
     frames, toks = _inputs(6, text=L + 1)
     (loss, metrics), grads = vg(jx.params, _batch(frames, toks, "jax"))
-    port = _port_model(jx, remat=remat)
+    port = _port_model(jx, remat=remat, remat_policy=policy)
     got, got_m = port.loss_fn(_batch(frames, toks, "torch"))
     assert set(got_m) == set(metrics) == {"ce"}
     np.testing.assert_allclose(float(got.detach()), float(loss), rtol=1e-5)

@@ -15,6 +15,7 @@ from repro_torch.launch.mesh import make_mesh
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((REPO / "examples" / "torch").glob("*.py")) + \
     [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
